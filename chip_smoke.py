@@ -5,27 +5,48 @@
 Phases, in order; any failure exits non-zero and prints no result line:
   1. the card: torch.cuda must see one; print nvidia-smi's name and power
      limit;
-  2. build the hybrid-ELL CUDA kernel from ops/csrc/ with nvcc;
-  3. kernel vs its plain PyTorch version on the card, forward and dh, at
-     the Reddit shape (V=232,965, avg in-degree 50, degree-ascending
-     renumbering, as bench.py builds it) for F=128 and F=41 in f32 and
-     bf16, then on a small power-law graph with hub chunk rows and the
-     `inv` output layout; times of both at the Reddit shape;
-  4. the main path: Engine.run() of the Reddit-config GCN (602-128-41,
+  2. build both CUDA libraries from ops/csrc/ with nvcc, one process each,
+     started together;
+  3. K1 (hybrid-ELL static mode) vs its plain PyTorch version on the card,
+     forward and dh, at the Reddit shape (V=232,965, avg in-degree 50,
+     degree-ascending renumbering, as bench.py builds it) for F=128 and
+     F=41 in f32 and bf16, then on a small power-law graph with hub chunk
+     rows and the `inv` output layout; times of both at the Reddit shape;
+  3b. K2 (mask mode) the same way: apply_unit and apply_dst forward, dh and
+     d_dst;
+  3c. K3 (CSR SpMM), K4 (SDDMM) and K5 (sorted segment-sum) vs their plain
+     versions at the Reddit shape (F=128 and 41, f32 and bf16 tables, times
+     of both) and on a power-law graph with rows of 0 and > 1,000 edges;
+     then every kernel refuses float16 and float64 and counts no launch;
+  4. main path, GCN: Engine.run() of the Reddit-config GCN (602-128-41,
      kernel="hyb", bf16 gather tables) for 5 epochs; losses finite and
-     falling, kernel launch count > 0;
-  5. a planted 2,000-vertex graph trained 10 epochs on the card and on the
-     CPU (f32 aggregation): the loss trajectories agree.
-Then one JSON line with the kernel's numbers and, last, the contract line
+     falling, K1 launches > 0; then a torch.profiler table of 10 train
+     steps (device time by kernel, the device's idle share), as for 4b;
+  4b. main path, GAT: the Reddit-config GAT (kernel="hyb", bf16 gather,
+     lr 0.005) for 5 epochs; losses finite and falling, K2 launches > 0,
+     predict() finite (V, 41);
+  4c. the edgewise path at full size: GCN and GAT with kernel="xla" for 3
+     epochs in f32, each against the same model on kernel="hyb" with f32
+     aggregation (the same sums in another order: loss rtol 1e-4); K3
+     launches > 0, and K4 and K5 for GAT;
+  5. a planted 2,000-vertex graph, GCN on hyb, 10 epochs on the card and on
+     the CPU (f32 aggregation): loss trajectories agree to atol 1e-3;
+  5b. the same graph for GAT on hyb and for the default config (kernel
+     "auto" -> xla) of GCN and GAT: relative agreement, rtol 1e-5 (GAT's
+     losses are O(100) at init).
+Each main path runs with every launch count set to 0 just before it and
+read just after. Then one JSON line with the five kernels' numbers and,
+last, the contract line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Tolerances (max abs error over max |plain|): f32 1e-4; bf16 1e-2 (the
-kernel rounds each bf16 product as the plain version does, so only the
-summation order differs). Card vs CPU trajectory: atol 1e-3.
+kernels round each bf16 product as the plain versions do, so only the
+summation order differs).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -35,6 +56,10 @@ import numpy as np
 import torch
 
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+REDDIT = dict(v=232_965, deg=50, feat=602, classes=41)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# The largest max abs error each kernel showed in any comparison.
+MAX_ERR = {k: 0.0 for k in ("K1", "K2", "K3", "K4", "K5")}
 
 
 def fail(msg: str) -> None:
@@ -61,11 +86,18 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def powerlaw_edges(v: int, seed: int):
-    """dst-sorted edges with Zipf in-degrees (many above max_width=8) and
-    uniform sources; vertex ids are not degree-sorted (inv layout)."""
+def randn(gen: torch.Generator, *shape, dtype=torch.float32) -> torch.Tensor:
+    return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+
+def powerlaw_edges(v: int, seed: int, empty: float = 0.0):
+    """dst-sorted edges with Zipf in-degrees (capped at 2,000; many above
+    max_width=8) and uniform sources; vertex ids are not degree-sorted (inv
+    layout). `empty`: the share of vertices given no in-edge."""
     rng = np.random.default_rng(seed)
     deg = np.minimum(rng.zipf(1.6, v), 2000)
+    if empty:
+        deg[rng.random(v) < empty] = 0
     dst = np.repeat(rng.permutation(v).astype(np.int32), deg)
     dst = np.sort(dst)
     src = rng.integers(0, v, size=len(dst)).astype(np.int32)
@@ -73,34 +105,38 @@ def powerlaw_edges(v: int, seed: int):
     return src, dst, val
 
 
+def close(res: dict, kernel: str, key: str, got: torch.Tensor, ref: torch.Tensor,
+          dtype: str) -> None:
+    """Record and check max abs error against TOL[dtype] * max|ref|."""
+    check(bool(torch.isfinite(got).all()), f"{res['case']} {key}: non-finite output")
+    err = float((got.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    res[f"{key}_max_abs_err"] = err
+    res[f"{key}_rel_err"] = err / scale if scale else err
+    MAX_ERR[kernel] = max(MAX_ERR[kernel], err)
+    check(err <= TOL[dtype] * scale,
+          f"{res['case']} F={res['F']} {dtype} {key}: max abs err {err:.3e} > "
+          f"{TOL[dtype]:.0e} * max|ref| {scale:.3e}")
+
+
 def compare(name: str, op, f: int, seed: int, timed: bool) -> dict:
-    """Kernel (op.apply_static and its backward) vs hyb_static_pass_plain
-    on the same CUDA tensors; gout is random (data-dependent)."""
+    """K1 (op.apply_static and its backward) vs hyb_static_pass_plain on the
+    same CUDA tensors; gout is random (data-dependent)."""
     from dorylus_tpu_torch.ops.hyb_spmm import hyb_static_pass, hyb_static_pass_plain
 
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(seed)
-    h = torch.tensor(rng.normal(size=(op.num_in, f)).astype(np.float32), device=dev)
-    gout = torch.tensor(rng.normal(size=(op.num_out, f)).astype(np.float32),
-                        device=dev)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h = randn(gen, op.num_in, f)
+    gout = randn(gen, op.num_out, f)
     hk = h.clone().requires_grad_(True)
     out_k = op.apply_static(hk)
     out_k.backward(gout)
     gd = op.gather_dtype
-    out_p = hyb_static_pass_plain(h, op.fwd, op.num_out, gd)
-    dh_p = hyb_static_pass_plain(gout, op.bwd, op.num_in, gd)[: h.shape[0]]
-    torch.cuda.synchronize()
     dtype = "bfloat16" if gd is torch.bfloat16 else "float32"
-    res = {"case": name, "F": f, "dtype": dtype, "tol_rel": TOL[dtype]}
-    for key, got, ref in (("fwd", out_k.detach(), out_p), ("bwd", hk.grad, dh_p)):
-        check(bool(torch.isfinite(got).all()), f"{name} {key}: non-finite output")
-        err = float((got - ref).abs().max())
-        scale = float(ref.abs().max())
-        res[f"{key}_max_abs_err"] = err
-        res[f"{key}_rel_err"] = err / scale if scale else err
-        check(err <= TOL[dtype] * scale,
-              f"{name} F={f} {dtype} {key}: max abs err {err:.3e} > "
-              f"{TOL[dtype]:.0e} * max|ref| {scale:.3e}")
+    res = {"case": name, "kernel": "K1", "F": f, "dtype": dtype, "tol_rel": TOL[dtype]}
+    close(res, "K1", "fwd", out_k.detach(), hyb_static_pass_plain(h, op.fwd, op.num_out, gd),
+          dtype)
+    close(res, "K1", "bwd", hk.grad,
+          hyb_static_pass_plain(gout, op.bwd, op.num_in, gd)[: h.shape[0]], dtype)
     if timed:
         res["fwd_ms"] = cuda_ms(lambda: hyb_static_pass(h, op.fwd, op.num_out, gd), 20)
         res["fwd_plain_ms"] = cuda_ms(
@@ -112,23 +148,220 @@ def compare(name: str, op, f: int, seed: int, timed: bool) -> dict:
     return res
 
 
-def refuses_bad_input(op) -> None:
-    """A kernel launch with a table it does not take raises; it never falls
-    back to the plain version."""
-    from dorylus_tpu_torch.ops import hyb_spmm
+def compare_mask(name: str, op, f: int, seed: int, timed: bool) -> dict:
+    """K2: apply_unit (forward, dh) and apply_dst (forward, dh, d_dst) vs
+    hyb_mask_pass_plain and the torch row scale / row-dot around it."""
+    from dorylus_tpu_torch.ops.hyb_spmm import hyb_mask_pass, hyb_mask_pass_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h = randn(gen, op.num_in, f)
+    gout = randn(gen, op.num_out, f)
+    dst_val = randn(gen, op.num_out)
+    gd = op.gather_dtype
+    hu = h.clone().requires_grad_(True)
+    out_u = op.apply_unit(hu)
+    out_u.backward(gout)
+    hd = h.clone().requires_grad_(True)
+    dd = dst_val.clone().requires_grad_(True)
+    out_d = op.apply_dst(hd, dd)
+    out_d.backward(gout)
+    u = hyb_mask_pass_plain(h, op.fwd, op.num_out, gd)
+    dtype = "bfloat16" if gd is torch.bfloat16 else "float32"
+    res = {"case": name, "kernel": "K2", "F": f, "dtype": dtype, "tol_rel": TOL[dtype]}
+    n = h.shape[0]
+    close(res, "K2", "unit_fwd", out_u.detach(), u, dtype)
+    close(res, "K2", "unit_bwd", hu.grad,
+          hyb_mask_pass_plain(gout, op.bwd, op.num_in, gd)[:n], dtype)
+    close(res, "K2", "dst_fwd", out_d.detach(), u * dst_val[:, None], dtype)
+    close(res, "K2", "dst_bwd", hd.grad,
+          hyb_mask_pass_plain(gout * dst_val[:, None], op.bwd, op.num_in, gd)[:n], dtype)
+    close(res, "K2", "d_dst", dd.grad, (u * gout).sum(-1), dtype)
+    if timed:
+        res["fwd_ms"] = cuda_ms(lambda: hyb_mask_pass(h, op.fwd, op.num_out, gd), 20)
+        res["fwd_plain_ms"] = cuda_ms(
+            lambda: hyb_mask_pass_plain(h, op.fwd, op.num_out, gd), 5)
+        res["bwd_ms"] = cuda_ms(lambda: hyb_mask_pass(gout, op.bwd, op.num_in, gd), 20)
+        res["bwd_plain_ms"] = cuda_ms(
+            lambda: hyb_mask_pass_plain(gout, op.bwd, op.num_in, gd), 5)
+    print("compare " + json.dumps(res), flush=True)
+    return res
+
+
+def compare_edge(name: str, eop, src, dst, val, f: int, dtype: str, seed: int,
+                 timed: bool) -> dict:
+    """K3 (forward and dh through spmm_edgewise), K4 (dval) and K5 ((E,) and
+    (E, F) cotangents) vs their plain versions on the same CUDA tensors."""
+    from dorylus_tpu_torch.ops import spmm
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = DTYPES[dtype]
+    h = randn(gen, eop.num_in, f, dtype=dt)
+    gout = randn(gen, eop.num_out, f, dtype=dt)
+    # Through autograd (K3 forward and dh, K4 dval); the K3 sums are then
+    # held against the plain version in f32, before the cast to h's dtype.
+    hk = h.clone().requires_grad_(True)
+    vk = val.clone().requires_grad_(True)
+    out = spmm.spmm_edgewise(hk, src, dst, vk, eop.num_out, op=eop)
+    out.backward(gout)
+    res = {"case": name, "F": f, "dtype": dtype, "tol_rel": TOL[dtype]}
+    check(bool(torch.isfinite(out).all() and torch.isfinite(hk.grad).all()),
+          f"{name} F={f} {dtype}: non-finite edgewise output or dh")
+    del out, hk
+    close(res, "K3", "K3_fwd", spmm.csr_spmm(h, eop.row_ptr, src, val),
+          spmm.csr_spmm_plain(h, eop.row_ptr, src, val), dtype)
+    close(res, "K3", "K3_bwd", spmm.csr_spmm(gout, eop.t_row_ptr, eop.t_col, val, eop.order),
+          spmm.csr_spmm_plain(gout, eop.t_row_ptr, eop.t_col, val, eop.order), dtype)
+    close(res, "K4", "K4", vk.grad, spmm.sddmm_plain(h, gout, eop.row_ptr, src), dtype)
+    g_vec = randn(gen, eop.num_edges)
+    close(res, "K5", "K5_vec", spmm.segment_sum(g_vec, eop.row_ptr),
+          spmm.segment_sum_plain(g_vec, eop.row_ptr), "float32")
+    g_mat = randn(gen, eop.num_edges, f, dtype=dt)
+    close(res, "K5", "K5_mat", spmm.segment_sum(g_mat, eop.row_ptr),
+          spmm.segment_sum_plain(g_mat, eop.row_ptr), dtype)
+    if timed:
+        for key, kern, plain, iters in (
+            ("K3_fwd", lambda: spmm.csr_spmm(h, eop.row_ptr, src, val),
+             lambda: spmm.csr_spmm_plain(h, eop.row_ptr, src, val), 20),
+            ("K3_bwd", lambda: spmm.csr_spmm(gout, eop.t_row_ptr, eop.t_col, val, eop.order),
+             lambda: spmm.csr_spmm_plain(gout, eop.t_row_ptr, eop.t_col, val, eop.order), 20),
+            ("K4", lambda: spmm.sddmm(h, gout, eop.row_ptr, src),
+             lambda: spmm.sddmm_plain(h, gout, eop.row_ptr, src), 20),
+            ("K5_vec", lambda: spmm.segment_sum(g_vec, eop.row_ptr),
+             lambda: spmm.segment_sum_plain(g_vec, eop.row_ptr), 20),
+            ("K5_mat", lambda: spmm.segment_sum(g_mat, eop.row_ptr),
+             lambda: spmm.segment_sum_plain(g_mat, eop.row_ptr), 20),
+        ):
+            res[f"{key}_ms"] = cuda_ms(kern, iters)
+            res[f"{key}_plain_ms"] = cuda_ms(plain, 3)
+    print("compare " + json.dumps(res), flush=True)
+    return res
+
+
+def refuses_bad_input(op, eop) -> None:
+    """Every kernel launcher raises on a float16 or float64 table and counts
+    no launch; none falls back to its plain version."""
+    from dorylus_tpu_torch.ops import hyb_spmm, spmm
 
     part = op.fwd["buckets"][0]
     out = torch.zeros((op.num_out, 8), device="cuda")
-    before = hyb_spmm.KERNEL_LAUNCHES
+    e = eop.num_edges
+    col = eop.t_col
+    val = torch.ones(e, device="cuda")
+    before = launch_counts()
     for bad in (torch.float16, torch.float64):
         tb = torch.zeros((op.num_in, 8), dtype=bad, device="cuda")
-        try:
-            hyb_spmm._launch_part(tb, part, out)
-        except ValueError as e:
-            print(f"refused {bad}: {e}", flush=True)
-        else:
-            fail(f"kernel launcher accepted a {bad} table")
-    check(hyb_spmm.KERNEL_LAUNCHES == before, "a refused call counted a launch")
+        calls = {
+            "K1": lambda: hyb_spmm._launch_part(tb, part, out),
+            "K2": lambda: hyb_spmm._launch_part(tb, part, out, unit=True),
+            "K3": lambda: spmm._launch_csr_spmm(tb, eop.row_ptr, col, val, None, out),
+            "K4": lambda: spmm._launch_sddmm(tb, tb, eop.row_ptr, col,
+                                             torch.zeros(e, device="cuda")),
+            "K5": lambda: spmm._launch_segment_sum(val.to(bad), eop.row_ptr,
+                                                   torch.zeros(eop.num_out, device="cuda")),
+        }
+        for kernel, call in calls.items():
+            try:
+                call()
+            except ValueError as err:
+                print(f"{kernel} refused {bad}: {err}", flush=True)
+            else:
+                fail(f"{kernel} launcher accepted a {bad} table")
+    check(launch_counts() == before, "a refused call counted a launch")
+
+
+def launch_counts() -> dict:
+    from dorylus_tpu_torch.ops import hyb_spmm, spmm
+
+    return {"K1": hyb_spmm.KERNEL_LAUNCHES, "K2": hyb_spmm.MASK_LAUNCHES,
+            "K3": spmm.SPMM_LAUNCHES, "K4": spmm.SDDMM_LAUNCHES,
+            "K5": spmm.SEGSUM_LAUNCHES}
+
+
+def reset_counts() -> None:
+    from dorylus_tpu_torch.ops import hyb_spmm, spmm
+
+    hyb_spmm.KERNEL_LAUNCHES = hyb_spmm.MASK_LAUNCHES = 0
+    spmm.SPMM_LAUNCHES = spmm.SDDMM_LAUNCHES = spmm.SEGSUM_LAUNCHES = 0
+
+
+def train(g, layers, cfg, label: str):
+    """Engine.run() on the card with every launch count set to 0 just
+    before; returns (engine, report, launch counts read just after)."""
+    from dorylus_tpu_torch.engine.engine import Engine
+
+    reset_counts()
+    eng = Engine(g, layers, cfg, device="cuda")
+    rep = eng.run()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    losses = [e.loss for e in rep.epochs]
+    print(f"{label}: losses {json.dumps(losses)} epoch ms "
+          f"{json.dumps([e.time_ms for e in rep.epochs])} val acc "
+          f"{rep.final_accuracy} launches {json.dumps(counts)}", flush=True)
+    check(all(np.isfinite(losses)), f"{label}: non-finite training loss")
+    return eng, rep, counts
+
+
+def main_path(g, layers, cfg, label: str, kernel: str) -> tuple[dict, dict]:
+    """A 5-epoch Reddit-config run: falling finite losses, its kernel
+    launched, finite (V, C) predictions; warm epoch and train step ms."""
+    eng, rep, counts = train(g, layers, cfg, label)
+    losses = [e.loss for e in rep.epochs]
+    check(losses[-1] < losses[0], f"{label}: training loss did not fall")
+    check(counts[kernel] > 0, f"{label}: the main path launched no {kernel}")
+    logits = eng.predict()
+    check(logits.shape == (g.num_vertices, layers.dims[-1])
+          and bool(np.isfinite(logits).all()),
+          f"{label}: predict gave {logits.shape} or non-finite values")
+    warm_epoch_ms = float(np.mean([e.time_ms for e in rep.epochs][1:]))
+    # train step alone (loss, backward, Adam; no eval), for comparison with
+    # bench.py's eval_every=0 epochs
+    step_ms = cuda_ms(lambda: eng._train_epoch(cfg.learning_rate), 5)
+    print(f"{label} warm epoch (with eval) {warm_epoch_ms:.3f} ms, train step "
+          f"{step_ms:.3f} ms, peak mem "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    profile_steps(eng, cfg, label)
+    del eng
+    torch.cuda.empty_cache()
+    return counts, {"warm_epoch_ms": warm_epoch_ms, "step_ms": step_ms}
+
+
+def profile_steps(eng, cfg, label: str, steps: int = 10) -> None:
+    """torch.profiler over `steps` train steps: device time by kernel, and
+    the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng._train_epoch(cfg.learning_rate)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng._train_epoch(cfg.learning_rate)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    # Kernel rows only: an op's row repeats its kernels' device time.
+    kernels = [(getattr(e, "self_device_time_total", 0.0), e.key)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(t for t, _ in kernels) / 1e3
+    print(f"profile {label}: {steps} steps, wall {wall_ms / steps:.3f} ms/step, "
+          f"kernel time {busy_ms / steps:.3f} ms/step, device idle share "
+          f"{1 - busy_ms / wall_ms:.3f}", flush=True)
+    for t, key in sorted(kernels, reverse=True)[:12]:
+        print(f"  {t / 1e3 / steps:9.3f} ms/step  {key[:100]}", flush=True)
+
+
+def planted_pair(gp, layers, cfg, label: str) -> float:
+    """Losses of the same config on the card and on the CPU: max relative
+    gap."""
+    from dorylus_tpu_torch.engine.engine import Engine
+
+    gpu_l = np.array([e.loss for e in Engine(gp, layers, cfg, device="cuda").run().epochs])
+    cpu_l = np.array([e.loss for e in Engine(gp, layers, cfg, device="cpu").run().epochs])
+    gap = float(np.max(np.abs(gpu_l - cpu_l) / np.abs(cpu_l)))
+    print(f"planted graph card vs CPU, {label}: max relative loss gap {gap:.3e} over "
+          f"{len(cpu_l)} epochs (gpu {gpu_l[0]:.5f} -> {gpu_l[-1]:.5f})", flush=True)
+    return gap
 
 
 def main() -> None:
@@ -141,8 +374,9 @@ def main() -> None:
         from dorylus_tpu.graph.graph import synthetic_graph
         from dorylus_tpu.graph.reorder import apply_order, degree_order
         from dorylus_tpu_torch.engine.engine import Engine
-        from dorylus_tpu_torch.ops import hyb_spmm
+        from dorylus_tpu_torch.ops import cuda_build, hyb_spmm, spmm
         from dorylus_tpu_torch.ops.hyb_spmm import HybSpMM
+        from dorylus_tpu_torch.ops.spmm import EdgeSpMM
     except ImportError as e:
         fail(f"run from the root of a dorylus_tpu checkout ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -157,19 +391,25 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}",
           flush=True)
 
-    # 2. build
+    # 2. build both libraries at once
     t0 = time.perf_counter()
-    hyb_spmm.build_kernel()
-    info = hyb_spmm.BUILD_INFO
-    print(f"kernel build: {info['seconds']:.2f} s nvcc, "
-          f"{time.perf_counter() - t0:.2f} s total -> {info['path']}", flush=True)
-    for line in info["log"].splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            print("  ptxas: " + line.strip(), flush=True)
+    try:
+        info = cuda_build.compile_sources([hyb_spmm._CSRC, spmm._CSRC])
+        hyb_spmm.build_kernel()
+        spmm.build_kernel()
+    except RuntimeError as e:
+        fail(f"kernel build: {e}")
+    print(f"kernel builds: {time.perf_counter() - t0:.2f} s wall", flush=True)
+    for src, inf in info.items():
+        print(f"  {src.name}: {inf['seconds']:.2f} s nvcc -> {inf['path']}", flush=True)
+        for line in inf["log"].splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print("    ptxas: " + line.strip(), flush=True)
 
-    # 3. kernel vs plain
+    # 3, 3b. K1 and K2 vs plain
     t0 = time.perf_counter()
-    g = bench.build_graph(232_965, 50, 602, 41, seed=1)
+    g = bench.build_graph(REDDIT["v"], REDDIT["deg"], REDDIT["feat"], REDDIT["classes"],
+                          seed=1)
     g = apply_order(g, degree_order(g, ascending=True))
     v = g.num_vertices
     print(f"reddit-shaped graph: V={v} E={g.num_edges} "
@@ -177,6 +417,7 @@ def main() -> None:
     results = []
     for gd in (torch.bfloat16, None):
         t0 = time.perf_counter()
+        # Static plans: K1 reads their values, K2 only their live counts.
         op = HybSpMM(g.src, g.dst, v, v, gather_dtype=gd, static_val=g.edge_norm,
                      device="cuda")
         print(f"plans ({gd}): fwd {len(op.fwd['buckets'])} buckets, top "
@@ -186,8 +427,7 @@ def main() -> None:
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         for f in (128, 41):
             results.append(compare("reddit", op, f, seed=f, timed=True))
-        if gd is None:
-            refuses_bad_input(op)
+            results.append(compare_mask("reddit", op, f, seed=f + 2, timed=True))
         del op
     src, dst, val = powerlaw_edges(20_000, seed=7)
     for gd in (torch.bfloat16, None):
@@ -197,61 +437,122 @@ def main() -> None:
               "power-law plan lacks hub rows or the inv layout")
         for f in (128, 41):
             results.append(compare("powerlaw_hubs", op, f, seed=f + 1, timed=False))
+            results.append(compare_mask("powerlaw_hubs", op, f, seed=f + 3, timed=False))
         del op
     torch.cuda.empty_cache()
 
-    # 4. the main path
-    hyb_spmm.KERNEL_LAUNCHES = 0
-    eng = Engine(g, LayerConfig([602, 128, 41]),
-                 TrainConfig(epochs=5, eval_every=1, kernel="hyb",
-                             agg_dtype="bfloat16", reuse="off"), device="cuda")
-    rep = eng.run()
-    torch.cuda.synchronize()
-    launches = hyb_spmm.KERNEL_LAUNCHES
-    losses = [e.loss for e in rep.epochs]
-    epoch_ms = [e.time_ms for e in rep.epochs]
-    print("reddit-config GCN: losses " + json.dumps(losses) + " epoch ms "
-          + json.dumps(epoch_ms) + f" val acc {rep.final_accuracy} "
-          f"kernel launches {launches}", flush=True)
-    check(all(np.isfinite(losses)), "non-finite training loss")
-    check(losses[-1] < losses[0], "training loss did not fall")
-    check(launches > 0, "the main path launched no kernel")
-    logits = eng.predict()
-    check(logits.shape == (v, 41) and bool(np.isfinite(logits).all()),
-          f"predict gave {logits.shape} or non-finite values")
-    warm_epoch_ms = float(np.mean(epoch_ms[1:]))
-    # train step alone (loss, backward, Adam; no eval), for comparison with
-    # bench.py's eval_every=0 epochs
-    step_ms = cuda_ms(lambda: eng._train_epoch(0.01), 5)
-    print(f"reddit-config warm epoch (with eval) {warm_epoch_ms:.3f} ms, "
-          f"train step {step_ms:.3f} ms, peak mem "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    del eng
+    # 3c. K3, K4, K5 vs plain
+    t0 = time.perf_counter()
+    eop = EdgeSpMM(g.src, g.dst, v, v, device="cuda")
+    print(f"edge CSR op: {time.perf_counter() - t0:.1f} s", flush=True)
+    s_t = torch.tensor(g.src, device="cuda")
+    d_t = torch.tensor(g.dst, device="cuda")
+    v_t = torch.tensor(g.edge_norm, device="cuda")
+    edge_results = []
+    for dtype in ("float32", "bfloat16"):
+        for f in (128, 41):
+            edge_results.append(compare_edge("reddit", eop, s_t, d_t, v_t, f, dtype,
+                                             seed=f + 5, timed=True))
+            torch.cuda.empty_cache()
+    psrc, pdst, pval = powerlaw_edges(20_000, seed=9, empty=0.1)
+    deg = np.bincount(pdst, minlength=20_000)
+    check(deg.min() == 0 and deg.max() > 1000,
+          f"power-law graph degrees {deg.min()}..{deg.max()}: want 0 and > 1,000")
+    peop = EdgeSpMM(psrc, pdst, 20_000, 20_000, device="cuda")
+    for dtype in ("float32", "bfloat16"):
+        for f in (128, 41):
+            compare_edge("powerlaw_rows", peop, torch.tensor(psrc, device="cuda"),
+                         torch.tensor(pdst, device="cuda"),
+                         torch.tensor(pval, device="cuda"), f, dtype, seed=f + 6,
+                         timed=False)
+    ref_op = HybSpMM(psrc, pdst, 20_000, 20_000, max_width=8, static_val=pval,
+                     device="cuda")
+    refuses_bad_input(ref_op, peop)
+    del eop, peop, ref_op, s_t, d_t, v_t
+    torch.cuda.empty_cache()
 
-    # 5. card vs CPU on a planted graph
-    gp = synthetic_graph(2000, 8, 602, 41, seed=8888)
+    layers = LayerConfig([REDDIT["feat"], 128, REDDIT["classes"]])
+    # 4. main path, GCN
+    gcn_counts, gcn_times = main_path(
+        g, layers, TrainConfig(epochs=5, eval_every=1, kernel="hyb",
+                               agg_dtype="bfloat16", reuse="off"),
+        "reddit-config GCN", "K1")
+    # 4b. main path, GAT
+    gat_counts, gat_times = main_path(
+        g, layers, TrainConfig(epochs=5, eval_every=1, model="gat", kernel="hyb",
+                               agg_dtype="bfloat16", learning_rate=0.005,
+                               reuse="off"),
+        "reddit-config GAT", "K2")
+
+    # 4c. the edgewise path at full size, against hyb with f32 aggregation
+    edge_counts = {}
+    edge_times = {}
+    for model, lr in (("gcn", 0.01), ("gat", 0.005)):
+        cfg = TrainConfig(epochs=3, eval_every=1, model=model, kernel="xla",
+                          learning_rate=lr, reuse="off")
+        eng, rep_x, counts = train(g, layers, cfg, f"reddit-config {model} xla")
+        edge_times[model] = float(np.mean([e.time_ms for e in rep_x.epochs][1:]))
+        del eng
+        torch.cuda.empty_cache()
+        for k in ("K3",) + (("K4", "K5") if model == "gat" else ()):
+            check(counts[k] > 0, f"{model} xla: no {k} launch")
+            edge_counts[k] = edge_counts.get(k, 0) + counts[k]
+        eng, rep_h, _ = train(g, layers, dataclasses.replace(cfg, kernel="hyb"),
+                              f"reddit-config {model} hyb f32")
+        del eng
+        torch.cuda.empty_cache()
+        lx = np.array([e.loss for e in rep_x.epochs])
+        lh = np.array([e.loss for e in rep_h.epochs])
+        gap = float(np.max(np.abs(lx - lh) / np.abs(lh)))
+        print(f"reddit-config {model}: xla vs hyb max relative loss gap {gap:.3e}",
+              flush=True)
+        check(gap <= 1e-4, f"{model}: xla and hyb losses differ by {gap:.3e} > 1e-4")
+
+    # 5, 5b. card vs CPU on a planted graph
+    gp = synthetic_graph(2000, 8, REDDIT["feat"], REDDIT["classes"], seed=8888)
     cfg = TrainConfig(epochs=10, eval_every=1, kernel="hyb", reuse="off")
-    layers = LayerConfig([602, 128, 41])
     gpu_l = [e.loss for e in Engine(gp, layers, cfg, device="cuda").run().epochs]
     cpu_l = [e.loss for e in Engine(gp, layers, cfg, device="cpu").run().epochs]
     gap = float(np.max(np.abs(np.array(gpu_l) - np.array(cpu_l))))
     print(f"planted graph card vs CPU: max loss gap {gap:.3e} over 10 epochs "
           f"(gpu {gpu_l[0]:.5f} -> {gpu_l[-1]:.5f})", flush=True)
     check(gap <= 1e-3, f"card and CPU trajectories differ by {gap:.3e} > 1e-3")
+    for model, kernel in (("gat", "hyb"), ("gcn", "auto"), ("gat", "auto")):
+        cfg = TrainConfig(epochs=10, eval_every=1, model=model, kernel=kernel,
+                          reuse="off", learning_rate=0.005 if model == "gat" else 0.01)
+        rgap = planted_pair(gp, layers, cfg, f"{model} {kernel}")
+        check(rgap <= 1e-5, f"{model} {kernel}: card and CPU differ by {rgap:.3e} "
+                            "relative > 1e-5")
 
-    main_case = next(r for r in results if r["case"] == "reddit"
-                     and r["dtype"] == "bfloat16" and r["F"] == 128)
-    kernels = [{
-        "name": "hyb_static_pass",
-        "route": "cuda",
-        "source": "dorylus_tpu_torch/ops/csrc/hyb_spmm.cu",
-        "replaces": "dorylus_tpu/ops/hyb_spmm.py:392",
-        "launches": launches,
-        "max_abs_err": max(max(r["fwd_max_abs_err"], r["bwd_max_abs_err"])
-                           for r in results),
-        "ms": main_case["fwd_ms"],
-        "plain_ms": main_case["fwd_plain_ms"],
-    }]
+    k1 = next(r for r in results if r["kernel"] == "K1" and r["case"] == "reddit"
+              and r["dtype"] == "bfloat16" and r["F"] == 128)
+    k2 = next(r for r in results if r["kernel"] == "K2" and r["case"] == "reddit"
+              and r["dtype"] == "bfloat16" and r["F"] == 128)
+    # The edgewise main path (4c) runs f32 tables at F = 128 (layer 0).
+    ke = next(r for r in edge_results if r["dtype"] == "float32" and r["F"] == 128)
+    entry = {
+        "K1": ("hyb_static_pass", "dorylus_tpu_torch/ops/csrc/hyb_spmm.cu",
+               "dorylus_tpu/ops/hyb_spmm.py:392", gcn_counts["K1"],
+               k1["fwd_ms"], k1["fwd_plain_ms"]),
+        "K2": ("hyb_mask_pass", "dorylus_tpu_torch/ops/csrc/hyb_spmm.cu",
+               "dorylus_tpu/ops/hyb_spmm.py:508", gat_counts["K2"],
+               k2["fwd_ms"], k2["fwd_plain_ms"]),
+        "K3": ("csr_spmm", "dorylus_tpu_torch/ops/csrc/edge_spmm.cu",
+               "dorylus_tpu/ops/spmm.py:21", edge_counts["K3"],
+               ke["K3_fwd_ms"], ke["K3_fwd_plain_ms"]),
+        "K4": ("sddmm", "dorylus_tpu_torch/ops/csrc/edge_spmm.cu",
+               "dorylus_tpu/ops/spmm.py:74", edge_counts["K4"],
+               ke["K4_ms"], ke["K4_plain_ms"]),
+        "K5": ("segment_sum", "dorylus_tpu_torch/ops/csrc/edge_spmm.cu",
+               "dorylus_tpu/ops/spmm.py:185", edge_counts["K5"],
+               ke["K5_vec_ms"], ke["K5_vec_plain_ms"]),
+    }
+    kernels = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": MAX_ERR[k], "ms": ms,
+                "plain_ms": plain_ms}
+               for k, (name, source, replaces, launches, ms, plain_ms) in entry.items()]
+    print("timings " + json.dumps({"gcn_hyb_bf16": gcn_times, "gat_hyb_bf16": gat_times,
+                                   "xla_f32_warm_epoch_ms": edge_times}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -20,16 +20,20 @@ def onehot_labels(labels: np.ndarray, num_classes: int) -> np.ndarray:
     return out
 
 
-def build_batch(g: Graph, device: str | torch.device,
+def build_batch(g: Graph, device: str | torch.device, for_gat: bool = False,
                 edge_arrays: bool = True) -> GraphBatch:
     """The whole graph on `device`.
 
-    edge_arrays=False ships zero-length src/dst/edge_val stubs: the static
-    hyb path reads only its plan tensors, so the E-sized COO triple would
-    be dead device memory."""
+    for_gat: edge_val is GAT's {0,1} edge mask (all ones: every edge is
+    real) in place of the GCN norms.
+
+    edge_arrays=False ships zero-length src/dst/edge_val stubs: the hyb
+    paths (GCN's static plan, GAT's mask plans) read only their plan
+    tensors, so the E-sized COO triple would be dead device memory."""
     train_m, val_m, test_m = g.masks()
     if edge_arrays:
-        src, dst, edge_val = g.src, g.dst, g.edge_norm
+        edge_val = np.ones(g.num_edges, np.float32) if for_gat else g.edge_norm
+        src, dst = g.src, g.dst
     else:
         src = dst = np.zeros(0, np.int32)
         edge_val = np.zeros(0, np.float32)

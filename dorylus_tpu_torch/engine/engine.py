@@ -8,8 +8,11 @@ cadence with the f32 forward on the updated params, the per-epoch log line,
 and the converge state machine's early stop. The final val/test accuracy,
 `predict` and the RunReport are as in JAX.
 
-Scope: GCN on the static-mode hybrid-ELL kernel, synchronous (staleness 0).
-Everything else raises NotImplementedError naming its ROADMAP.md item.
+Scope, synchronous (staleness 0): GCN and GAT on kernel="hyb" (GCN on the
+static-mode hybrid-ELL kernel, GAT on its mask mode) and on kernel="xla"
+(the edgewise CSR kernels), with kernel="auto" resolved by the shared
+`resolve_kernel` (xla up to 8M edges, hyb past). Everything else raises
+NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -27,12 +30,19 @@ from dorylus_tpu.common.metrics import EpochRecord, RunReport
 from dorylus_tpu.graph.graph import Graph
 from dorylus_tpu_torch._shared import load
 from dorylus_tpu_torch.engine.batch import build_batch
+from dorylus_tpu_torch.models.gat import GAT
 from dorylus_tpu_torch.models.gcn import GCN
 from dorylus_tpu_torch.ops.activations import accuracy_and_loss, row_softmax
 from dorylus_tpu_torch.ops.hyb_spmm import HybSpMM
+from dorylus_tpu_torch.ops.spmm import EdgeSpMM
 from dorylus_tpu_torch.optim.adam import adam_init, adam_update, decay_lr, sgd_update
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# The JAX engine's switch to dst-blocked edgewise aggregation
+# (engine/engine.py:445-457) and its block size (ops/spmm.py
+# build_dst_blocks): the port routes that branch to the same CSR op.
+_DST_BLOCKED_VERTICES = 400_000
+_DST_BLOCK_ROWS = 131072
 
 
 def eval_flags(epoch: int, k: int, end: int, cfg: TrainConfig) -> np.ndarray:
@@ -48,9 +58,9 @@ def _unsupported(cfg: TrainConfig, kernel: str) -> Optional[str]:
     """The first configuration outside the ported slice, with its ROADMAP
     item, or None."""
     checks = [
-        (cfg.model != "gcn", f"model={cfg.model!r}: GAT is queue 1 item 6"),
-        (kernel != "hyb", f"kernel={kernel!r}: the edgewise path is queue 1 "
-                          "item 2, the degree kernel item 8"),
+        (cfg.model not in ("gcn", "gat"), f"model={cfg.model!r}"),
+        (kernel not in ("hyb", "xla"),
+         f"kernel={kernel!r}: the degree kernel is queue 1 item 8"),
         (cfg.reuse == "pairs", "reuse='pairs': pair reuse is queue 1 item 9"),
         (bool(cfg.staleness), f"staleness={cfg.staleness}: bounded staleness "
                               "is still to port (queue 1 item 3)"),
@@ -99,20 +109,47 @@ class Engine:
         self.graph, self.layers, self.cfg = graph, layers, cfg
         self.kernel_selected = kernel
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
-        spmm_op = HybSpMM(graph.src, graph.dst, graph.num_vertices,
-                          graph.num_vertices,
-                          gather_dtype=(torch.bfloat16 if cfg.agg_dtype == "bfloat16"
-                                        else None),
-                          static_val=graph.edge_norm, device=self.device)
-        # The static plan carries the edge values: ship COO stubs.
-        self.batch = build_batch(graph, self.device, edge_arrays=False)
-        self.model = GCN(layers, spmm_op=spmm_op, optimize_order=cfg.optimize_order)
+        gat = cfg.model == "gat"
+        v = graph.num_vertices
+        spmm_op = edge_op = None
+        blk_rows = 0
+        if kernel == "hyb":
+            # GCN: static plans with the norms baked in; GAT: mask plans
+            # (dst-functional attention needs no per-edge values).
+            spmm_op = HybSpMM(graph.src, graph.dst, v, v,
+                              gather_dtype=(torch.bfloat16 if cfg.agg_dtype == "bfloat16"
+                                            else None),
+                              static_val=None if gat else graph.edge_norm,
+                              device=self.device)
+        else:
+            # As in JAX, the edgewise path ignores agg_dtype: it gathers in
+            # the compute dtype.
+            if cfg.edge_chunk:
+                log("edge_chunk ignored: the CSR kernels build no (E, F) "
+                    "message tensor to bound")
+            edge_op = EdgeSpMM(graph.src, graph.dst, v, v, device=self.device)
+            if v > _DST_BLOCKED_VERTICES:
+                blk_rows = _DST_BLOCK_ROWS
+                self.kernel_selected = "xla+dst_blocked"
+                log("dst-blocked aggregation -> the CSR op (one writer per "
+                    "row needs no blocking)")
+        # The hyb plans carry what aggregation reads: ship COO stubs (the
+        # JAX rule); the edgewise path reads the COO arrays.
+        self.batch = build_batch(graph, self.device, for_gat=gat,
+                                 edge_arrays=spmm_op is None)
+        if gat:
+            self.model = GAT(layers, spmm_op=spmm_op, edge_op=edge_op,
+                             blk_rows=blk_rows)
+        else:
+            self.model = GCN(layers, spmm_op=spmm_op,
+                             optimize_order=cfg.optimize_order, edge_op=edge_op,
+                             blk_rows=blk_rows)
         self.params = self.model.init_params(seed=cfg.seed)
         self.opt_state = adam_init(self.params) if cfg.adam else None
         self.report = RunReport()
-        log("dorylus_tpu_torch engine on %s: %d vertices, %d edges, kernel "
-            "%s, agg %s", self.device, graph.num_vertices, graph.num_edges,
-            kernel, cfg.agg_dtype)
+        log("dorylus_tpu_torch engine on %s: %s, %d vertices, %d edges, "
+            "kernel %s, agg %s", self.device, cfg.model, graph.num_vertices,
+            graph.num_edges, self.kernel_selected, cfg.agg_dtype)
 
     def _evaluate(self, mask: torch.Tensor) -> tuple[float, float, float]:
         with torch.no_grad():

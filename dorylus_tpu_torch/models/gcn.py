@@ -2,54 +2,58 @@
 the single-device path).
 
 Forward per layer (reference: funcs/gcn/main.cpp forwardLayer :215-270):
-    AH = S · H      (aggregation: HybSpMM static pass + self-loop term)
+    AH = S · H      (aggregation + self-loop term)
     Z  = AH · W     (f32 matmul)
     H  = tanh(Z)    (hidden layers; the last layer feeds softmax CE)
 with (S·H)·W == S·(H·W) used to aggregate at the narrower width: a layer
 that shrinks the feature dim transforms first.
 
+Aggregation runs on the static-value HybSpMM (kernel="hyb") or, with no
+hybrid op bound, on the edgewise CSR op over the batch's COO arrays (JAX:
+the `aggregate` fallback, kernel="xla"); past 400k vertices JAX's
+dst-blocked form of the same sum, which the port routes to the same op.
+
 The JAX model's regime rule `past_agg_cliff` (aggregate at the input width
 past a TPU gather-table size cliff) is not ported: it models a TPU effect.
 At the Reddit config it does not fire in JAX either, so both packages
-order the layers the same way there. Tensor parallelism, the sharded
-halo paths and the edgewise fallback are not ported yet (ROADMAP.md).
+order the layers the same way there. Tensor parallelism and the sharded
+halo paths are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from dorylus_tpu.common.config import LayerConfig
 from dorylus_tpu_torch._shared import load
-from dorylus_tpu_torch.models.base import GraphBatch, Params
-from dorylus_tpu_torch.ops.activations import masked_softmax_xent, row_softmax
+from dorylus_tpu_torch.models.base import GNN, GraphBatch, Params
 from dorylus_tpu_torch.ops.hyb_spmm import HybSpMM
+from dorylus_tpu_torch.ops.spmm import EdgeSpMM, aggregate, spmm_dst_blocked
 
 
-class GCN(nn.Module):
-    """Weights are parameters `w0`, `w1`, ... in the JAX (in, out) layout,
-    so `load_state_dict(interop.params_from_numpy(jax_params, device))`
-    carries the JAX package's weights over unchanged.
+class GCN(GNN):
+    """Weights are parameters `w0`, `w1`, ... in the JAX (in, out) layout.
 
-    spmm_op: the graph's static-value HybSpMM (the edgewise path, used by
-    JAX when no op is bound, is ROADMAP.md queue 1 item 2)."""
+    spmm_op: the graph's static-value HybSpMM, or None for the edgewise
+    path, which needs `edge_op` (the CSR structure of the batch's edges).
+    blk_rows > 0 takes JAX's dst-blocked branch (same sum, same op)."""
 
-    def __init__(self, layers: LayerConfig, spmm_op: HybSpMM,
-                 optimize_order: bool = True):
+    def __init__(self, layers: LayerConfig, spmm_op: HybSpMM | None = None,
+                 optimize_order: bool = True, edge_op: EdgeSpMM | None = None,
+                 blk_rows: int = 0):
         super().__init__()
+        if spmm_op is None and edge_op is None:
+            raise ValueError("GCN needs a HybSpMM (spmm_op) or an EdgeSpMM "
+                             "(edge_op)")
         self.layers = layers
         self.spmm_op = spmm_op
+        self.edge_op = edge_op
         self.optimize_order = optimize_order
+        self.blk_rows = blk_rows
+        device = (spmm_op or edge_op).device
         dims = layers.dims
         for l in range(layers.num_layers):
-            self.register_parameter(
-                f"w{l}", nn.Parameter(torch.zeros(dims[l], dims[l + 1],
-                                                  device=spmm_op.device)))
-
-    def params(self) -> Params:
-        return {f"w{l}": getattr(self, f"w{l}")
-                for l in range(self.layers.num_layers)}
+            self._add_param(f"w{l}", (dims[l], dims[l + 1]), device)
 
     def init_params(self, seed: int = 8888, exact_reference: bool = True) -> Params:
         """Per-layer xavier weights from a fresh minstd engine each, as
@@ -65,6 +69,13 @@ class GCN(nn.Module):
         return self.params()
 
     def _aggregate(self, h: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
+        if self.spmm_op is None:
+            if self.blk_rows:
+                out = spmm_dst_blocked(h, batch.src, batch.dst, batch.edge_val,
+                                       h.shape[0], self.blk_rows, op=self.edge_op)
+                return out + h * batch.self_val[:, None].to(h.dtype)
+            return aggregate(h, batch.src, batch.dst, batch.edge_val,
+                             batch.self_val, op=self.edge_op)
         out = self.spmm_op.apply_static(h)
         return out.to(h.dtype) + h * batch.self_val[:, None].to(h.dtype)
 
@@ -84,12 +95,3 @@ class GCN(nn.Module):
             # Hidden activations return to compute_dtype; z is f32.
             h = torch.tanh(z).to(compute_dtype) if l < num_layers - 1 else z
         return h
-
-    def loss(self, batch: GraphBatch,
-             compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        logits = self.forward(batch, compute_dtype)
-        return masked_softmax_xent(logits, batch.onehot, batch.train_mask,
-                                   batch.denom)
-
-    def predict(self, batch: GraphBatch) -> torch.Tensor:
-        return row_softmax(self.forward(batch))

@@ -154,6 +154,49 @@ def test_hyb_static_forward_and_dh_match_jax(case, narrow):
         np.testing.assert_allclose(got_dh, ref_dh, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("narrow", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["uniform", "hubs", "sorted", "widths"])
+def test_hyb_mask_unit_and_dst_match_jax(case, narrow):
+    """Mask mode (plans without values): apply_unit forward and dh,
+    apply_dst forward, dh and d_dst, against the JAX custom VJPs."""
+    src, dst, _, num_in, num_out, kw = _case(case)
+    kw = {k: v for k, v in kw.items() if k != "widths"}
+    jop = jhyb.HybSpMM(src, dst, num_in, num_out, dynamic=False,
+                       gather_dtype=jnp.bfloat16 if narrow else None, **kw)
+    top = thyb.HybSpMM(src, dst, num_in, num_out,
+                       gather_dtype=torch.bfloat16 if narrow else None, **kw)
+    assert not top.has_static_vals
+    assert all("vals" not in b for b in top.fwd["buckets"] + top.bwd["buckets"])
+    rng = np.random.default_rng(13)
+    f = 9
+    h = rng.normal(0, 1, (num_in, f)).astype(np.float32)
+    gout = rng.normal(0, 1, (num_out, f)).astype(np.float32)
+    dst_val = rng.normal(0, 1, num_out).astype(np.float32)
+
+    ref_u, vjp = jax.vjp(lambda hh: jop.apply_unit(jop.arrays, hh), jnp.asarray(h))
+    (ref_dh_u,) = vjp(jnp.asarray(gout))
+    ref_d, vjp = jax.vjp(lambda hh, dv: jop.apply_dst(jop.arrays, hh, dv),
+                         jnp.asarray(h), jnp.asarray(dst_val))
+    ref_dh_d, ref_ddst = vjp(jnp.asarray(gout))
+
+    hu = torch.tensor(h, requires_grad=True)
+    out_u = top.apply_unit(hu)
+    out_u.backward(torch.tensor(gout))
+    hd = torch.tensor(h, requires_grad=True)
+    dv = torch.tensor(dst_val, requires_grad=True)
+    out_d = top.apply_dst(hd, dv)
+    out_d.backward(torch.tensor(gout))
+    assert out_u.dtype == out_d.dtype == hu.grad.dtype == dv.grad.dtype == torch.float32
+    pairs = [(out_u.detach(), ref_u), (hu.grad, ref_dh_u), (out_d.detach(), ref_d),
+             (hd.grad, ref_dh_d), (dv.grad, ref_ddst)]
+    for got, ref in pairs:
+        got, ref = got.numpy(), np.asarray(ref)
+        if narrow:
+            assert np.abs(got - ref).max() <= 2e-3 * np.abs(ref).max()
+        else:
+            np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
 def test_hyb_static_isolated_and_empty():
     src = np.array([0, 1, 2], np.int32)
     dst = np.array([1, 1, 3], np.int32)
@@ -189,16 +232,25 @@ def test_hyb_static_kernel_path_raises_off_cuda():
     out = torch.zeros((top.num_out, 4))
     with pytest.raises(ValueError, match="CUDA tensor"):
         thyb._launch_part(tb, top.fwd["buckets"][0], out)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        thyb._launch_part(tb, top.fwd["buckets"][0], out, unit=True)
     with pytest.raises(ValueError, match="unsupported device"):
         thyb.hyb_static_pass(torch.zeros((num_in, 4), device="meta"), top.fwd,
                              top.num_out)
-    assert thyb.KERNEL_LAUNCHES == 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        thyb.hyb_mask_pass(torch.zeros((num_in, 4), device="meta"), top.fwd,
+                           top.num_out)
+    assert thyb.KERNEL_LAUNCHES == thyb.MASK_LAUNCHES == 0
 
 
 def test_hybspmm_static_only_and_validates_edges():
+    """Static and mask plans only: the dynamic mode raises; a mask op has
+    no apply_static."""
     src, dst, val = _random_edges(10, 10, 30, seed=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        thyb.HybSpMM(src, dst, 10, 10)
+        thyb.HybSpMM(src, dst, 10, 10, static_val=val, dynamic=True)
+    with pytest.raises(RuntimeError, match="static values"):
+        thyb.HybSpMM(src, dst, 10, 10).apply_static(torch.zeros(10, 2))
     with pytest.raises(ValueError, match="dst-sorted"):
         thyb.HybSpMM(src, dst[::-1].copy(), 10, 10, static_val=val)
     with pytest.raises(ValueError, match="out of range"):
