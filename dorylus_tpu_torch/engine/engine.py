@@ -9,10 +9,18 @@ and the converge state machine's early stop. The final val/test accuracy,
 `predict` and the RunReport are as in JAX.
 
 Scope, synchronous (staleness 0): GCN and GAT on kernel="hyb" (GCN on the
-static-mode hybrid-ELL kernel, GAT on its mask mode) and on kernel="xla"
-(the edgewise CSR kernels), with kernel="auto" resolved by the shared
-`resolve_kernel` (xla up to 8M edges, hyb past). Everything else raises
-NotImplementedError naming its ROADMAP.md item.
+static-mode hybrid-ELL kernel, GAT on its mask mode), on kernel="degree"
+(the degree-padded plans on the same kernels), on kernel="hyb" with
+reuse="pairs" (the pair-reuse rewrite: the pair-table kernel, then the
+mask pass) and on kernel="xla" (the edgewise CSR kernels), with
+kernel="auto" resolved by the shared `resolve_kernel` (xla up to 8M edges,
+hyb past). Everything else raises NotImplementedError naming its
+ROADMAP.md item.
+
+reuse="pairs" sizes its pair budget as JAX does (`resolve_reuse_budget`,
+`_max_agg_width`, copied below with the 64 MiB gather-cliff constant, so
+both packages mine the same rewrite). reuse="auto" stays off: JAX's payoff
+gate is calibrated on a TPU.
 """
 
 from __future__ import annotations
@@ -33,7 +41,9 @@ from dorylus_tpu_torch.engine.batch import build_batch
 from dorylus_tpu_torch.models.gat import GAT
 from dorylus_tpu_torch.models.gcn import GCN
 from dorylus_tpu_torch.ops.activations import accuracy_and_loss, row_softmax
+from dorylus_tpu_torch.ops.degree_spmm import DegreeSpMM
 from dorylus_tpu_torch.ops.hyb_spmm import HybSpMM
+from dorylus_tpu_torch.ops.reuse_spmm import ReuseSpMM
 from dorylus_tpu_torch.ops.spmm import EdgeSpMM
 from dorylus_tpu_torch.optim.adam import adam_init, adam_update, decay_lr, sgd_update
 
@@ -43,6 +53,75 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # build_dst_blocks): the port routes that branch to the same CSR op.
 _DST_BLOCKED_VERTICES = 400_000
 _DST_BLOCK_ROWS = 131072
+
+# The JAX package's bf16 gather-table cliff (models/gcn.py AGG_CLIFF_BYTES),
+# measured on a TPU v5e and to be re-fit on the H100. It is kept for one
+# reason: the pair budget below derives from it, and both packages must
+# mine the same rewrite (as hyb_plan.py keeps _LAMBDA_SLOTS).
+AGG_CLIFF_BYTES = 64 << 20
+
+
+def past_agg_cliff(gather_itemsize: int, n_rows: int, narrow_width: int) -> bool:
+    """JAX models/gcn.py `past_agg_cliff` on a gather itemsize: a bf16
+    table of (n_rows, narrow_width) past the cliff. The port's models do
+    not reorder on it; only the pair budget's width estimate reads it."""
+    return (narrow_width < 128 and gather_itemsize == 2
+            and n_rows * narrow_width * 2 >= AGG_CLIFF_BYTES)
+
+
+def _max_agg_width(layers: LayerConfig, cfg: TrainConfig,
+                   num_vertices: int = 0) -> int:
+    """Widest feature dim the SpMM will see (a copy of JAX
+    engine/engine.py `_max_agg_width`): GCN with optimize_order
+    aggregates at min(in, out) per layer, GAT at the output width; past
+    the cliff a layer whose input fits 128 lanes counts at its input
+    width, as JAX's regime rule would aggregate it there."""
+    item = 2 if cfg.agg_dtype == "bfloat16" else 4
+    dims = layers.dims
+    widths = []
+    if cfg.model == "gat":
+        for a, b in zip(dims, dims[1:]):
+            w = b
+            if num_vertices and a <= 128 and past_agg_cliff(item, num_vertices, b):
+                w = max(w, a)
+            widths.append(w)
+        return max(widths)
+    if cfg.optimize_order:
+        for a, b in zip(dims, dims[1:]):
+            w = min(a, b)
+            if (num_vertices and a > b and a <= 128
+                    and past_agg_cliff(item, num_vertices, b)):
+                w = a
+            widths.append(w)
+        return max(widths)
+    return max(dims[:-1])
+
+
+def resolve_reuse_budget(cfg: TrainConfig, base_rows: int,
+                         width: int) -> tuple[int, bool]:
+    """(max_pairs, enabled) for the pair-reuse rewrite (a copy of JAX
+    engine/engine.py `resolve_reuse_budget`). reuse_max_pairs = -1
+    (auto): when the base gather table sits below the cliff, cap the
+    appended pair rows per pass so the table stays under it; a per-pass
+    auto budget under 1,024 rows disables reuse; past the cliff no cap.
+    An explicit budget (>= 0; 0 = unlimited) is honored."""
+    item = 2 if cfg.agg_dtype == "bfloat16" else 4
+    cap = cfg.reuse_max_pairs
+    if cap < 0:
+        if base_rows * width * item < AGG_CLIFF_BYTES:
+            passes = max(1, cfg.reuse_passes)
+            cap = (AGG_CLIFF_BYTES // (width * item) - base_rows) // passes
+            if cap < 1024:  # includes 0 — too small to ever pay
+                log("reuse auto pair budget %d/pass is too small to pay "
+                    "(< 1024) — reuse off; pass --reuse-max-pairs to "
+                    "force", cap)
+                return max(cap, 0), False
+            log("reuse auto pair budget: %d per pass x %d pass(es) "
+                "(keeps the %d-wide table under the gather cliff)",
+                cap, passes, width)
+        else:
+            cap = 0  # already past the cliff: unlimited
+    return max(cap, 0), True
 
 
 def eval_flags(epoch: int, k: int, end: int, cfg: TrainConfig) -> np.ndarray:
@@ -59,9 +138,7 @@ def _unsupported(cfg: TrainConfig, kernel: str) -> Optional[str]:
     item, or None."""
     checks = [
         (cfg.model not in ("gcn", "gat"), f"model={cfg.model!r}"),
-        (kernel not in ("hyb", "xla"),
-         f"kernel={kernel!r}: the degree kernel is queue 1 item 8"),
-        (cfg.reuse == "pairs", "reuse='pairs': pair reuse is queue 1 item 9"),
+        (kernel not in ("hyb", "xla", "degree"), f"kernel={kernel!r}"),
         (bool(cfg.staleness), f"staleness={cfg.staleness}: bounded staleness "
                               "is still to port (queue 1 item 3)"),
         (bool(cfg.checkpoint_dir) or cfg.resume,
@@ -97,9 +174,15 @@ class Engine:
             raise NotImplementedError(f"dorylus_tpu_torch Engine: {problem} "
                                       "(see ROADMAP.md)")
         if cfg.reuse == "auto":
-            # The JAX payoff gate is calibrated on a TPU; off until re-fit.
-            log("reuse auto -> off (pair reuse is not ported; ROADMAP.md)")
+            # JAX's payoff gate (engine/engine.py reuse_payoff) is fitted on
+            # a TPU; off until re-fit on the H100. At the Reddit scale the
+            # JAX gate itself mines only past ~373 GCN epochs, so both
+            # packages train without reuse at the default 100.
+            log("reuse auto -> off (the payoff gate's constants are "
+                "TPU-fitted; --reuse pairs forces the rewrite)")
             cfg = dataclasses.replace(cfg, reuse="off")
+        if cfg.reuse == "pairs" and kernel != "hyb":
+            log("pair reuse requires kernel=hyb (have %s) — off", kernel)
         if device is None:
             device = "cuda" if torch.cuda.is_available() else "cpu"
         self.device = torch.device(device)
@@ -113,15 +196,32 @@ class Engine:
         v = graph.num_vertices
         spmm_op = edge_op = None
         blk_rows = 0
-        if kernel == "hyb":
-            # GCN: static plans with the norms baked in; GAT: mask plans
-            # (dst-functional attention needs no per-edge values).
-            spmm_op = HybSpMM(graph.src, graph.dst, v, v,
-                              gather_dtype=(torch.bfloat16 if cfg.agg_dtype == "bfloat16"
-                                            else None),
-                              static_val=None if gat else graph.edge_norm,
-                              device=self.device)
-        else:
+        gather_dtype = torch.bfloat16 if cfg.agg_dtype == "bfloat16" else None
+        if kernel == "hyb" and cfg.reuse == "pairs":
+            width = _max_agg_width(layers, cfg, v)
+            cap, reuse_on = resolve_reuse_budget(cfg, v, width)
+            if reuse_on:
+                # Exact for both models' unit-weight inner sums: GCN through
+                # its rank-1 norm factor f = sqrt(self_norm), GAT through
+                # its dst-only attention.
+                spmm_op = ReuseSpMM(graph.src, graph.dst, v, v,
+                                    gather_dtype=gather_dtype,
+                                    rank1_factor=(None if gat
+                                                  else np.sqrt(graph.self_norm)),
+                                    passes=cfg.reuse_passes, max_pairs=cap,
+                                    device=self.device)
+                st = spmm_op.plan_fwd.stats
+                log("pair reuse: %d fwd pairs, gathered rows %d -> %d (-%.1f%%)",
+                    spmm_op.plan_fwd.num_pairs, st["rows_before"], st["rows_after"],
+                    100 * st["row_reduction"])
+        if kernel in ("hyb", "degree") and spmm_op is None:
+            # GCN: static plans with the norms baked in; GAT: plans without
+            # values (dst-functional attention needs no per-edge values).
+            op_cls = HybSpMM if kernel == "hyb" else DegreeSpMM
+            spmm_op = op_cls(graph.src, graph.dst, v, v, gather_dtype=gather_dtype,
+                             static_val=None if gat else graph.edge_norm,
+                             device=self.device)
+        elif kernel == "xla":
             # As in JAX, the edgewise path ignores agg_dtype: it gathers in
             # the compute dtype.
             if cfg.edge_chunk:
@@ -133,10 +233,12 @@ class Engine:
                 self.kernel_selected = "xla+dst_blocked"
                 log("dst-blocked aggregation -> the CSR op (one writer per "
                     "row needs no blocking)")
-        # The hyb plans carry what aggregation reads: ship COO stubs (the
-        # JAX rule); the edgewise path reads the COO arrays.
+        # The slot plans carry what aggregation reads (GCN: static values or
+        # the rank-1 factor; GAT: dst-functional): ship COO stubs (the JAX
+        # rule); the edgewise path reads the COO arrays.
+        stubbed = spmm_op is not None and (gat or spmm_op.has_static_vals)
         self.batch = build_batch(graph, self.device, for_gat=gat,
-                                 edge_arrays=spmm_op is None)
+                                 edge_arrays=not stubbed)
         if gat:
             self.model = GAT(layers, spmm_op=spmm_op, edge_op=edge_op,
                              blk_rows=blk_rows)

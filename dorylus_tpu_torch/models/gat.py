@@ -12,9 +12,10 @@ them from jax.grad. The unused second attention vector of the reference
 is not kept (as in JAX).
 
 Aggregation:
-  * kernel="hyb": the attention is a function of the destination only, so
-    it factors out of each row's sum: `apply_dst(z, leaky(za))` runs the
-    unit-weight (mask) pass and scales rows; no per-edge value exists.
+  * kernel="hyb" / "degree" / reuse="pairs": the attention is a function
+    of the destination only, so it factors out of each row's sum:
+    `apply_dst(z, leaky(za))` on the op (HybSpMM, DegreeSpMM, ReuseSpMM)
+    runs the unit-weight pass and scales rows; no per-edge value exists.
   * edgewise (kernel="xla"): att_e = leaky(take_sorted(za, dst)) · mask_e
     with the batch's {0,1} edge mask, then the CSR SpMM with per-edge
     values (its backward gives d(att) through the SDDMM kernel); past 400k
@@ -36,7 +37,6 @@ from dorylus_tpu.common.config import LayerConfig
 from dorylus_tpu_torch._shared import load
 from dorylus_tpu_torch.models.base import GNN, GraphBatch, Params
 from dorylus_tpu_torch.ops.activations import leaky_relu
-from dorylus_tpu_torch.ops.hyb_spmm import HybSpMM
 from dorylus_tpu_torch.ops.spmm import (EdgeSpMM, spmm_dst_blocked,
                                         spmm_edgewise, take_sorted)
 
@@ -45,16 +45,16 @@ class GAT(GNN):
     """Parameters `w{l}` (in, out) and `a{l}` (out, 1), in the JAX names,
     layout and order (w0, a0, w1, a1, ...).
 
-    spmm_op: a HybSpMM (mask plans; apply_dst), or None for the edgewise
-    path, which needs `edge_op`. blk_rows > 0 takes JAX's dst-blocked
-    branch (same sum, same op)."""
+    spmm_op: an aggregation op with `apply_dst` (HybSpMM, DegreeSpMM or
+    ReuseSpMM), or None for the edgewise path, which needs `edge_op`.
+    blk_rows > 0 takes JAX's dst-blocked branch (same sum, same op)."""
 
-    def __init__(self, layers: LayerConfig, spmm_op: HybSpMM | None = None,
+    def __init__(self, layers: LayerConfig, spmm_op=None,
                  edge_op: EdgeSpMM | None = None, blk_rows: int = 0):
         super().__init__()
         if spmm_op is None and edge_op is None:
-            raise ValueError("GAT needs a HybSpMM (spmm_op) or an EdgeSpMM "
-                             "(edge_op)")
+            raise ValueError("GAT needs an aggregation op (spmm_op) or an "
+                             "EdgeSpMM (edge_op)")
         self.layers = layers
         self.spmm_op = spmm_op
         self.edge_op = edge_op

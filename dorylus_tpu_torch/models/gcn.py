@@ -8,10 +8,16 @@ Forward per layer (reference: funcs/gcn/main.cpp forwardLayer :215-270):
 with (S·H)·W == S·(H·W) used to aggregate at the narrower width: a layer
 that shrinks the feature dim transforms first.
 
-Aggregation runs on the static-value HybSpMM (kernel="hyb") or, with no
-hybrid op bound, on the edgewise CSR op over the batch's COO arrays (JAX:
-the `aggregate` fallback, kernel="xla"); past 400k vertices JAX's
-dst-blocked form of the same sum, which the port routes to the same op.
+Aggregation runs on a slot-pass op with the aggregation protocol
+(`HybSpMM` for kernel="hyb", `DegreeSpMM` for kernel="degree", `ReuseSpMM`
+for reuse="pairs"): `apply_static` when the op has static values (the GCN
+norms baked in, or ReuseSpMM's rank-1 factor), else `apply(h, edge_val)`
+with the batch's per-edge values (JAX's branch for an op without static
+values, `models/gcn.py:214-216`; a dynamic HybSpMM or a DegreeSpMM built
+without them). With no such op bound it runs on the edgewise CSR op over
+the batch's COO arrays (JAX: the `aggregate` fallback, kernel="xla"); past
+400k vertices JAX's dst-blocked form of the same sum, which the port
+routes to the same op.
 
 The JAX model's regime rule `past_agg_cliff` (aggregate at the input width
 past a TPU gather-table size cliff) is not ported: it models a TPU effect.
@@ -27,24 +33,24 @@ import torch
 from dorylus_tpu.common.config import LayerConfig
 from dorylus_tpu_torch._shared import load
 from dorylus_tpu_torch.models.base import GNN, GraphBatch, Params
-from dorylus_tpu_torch.ops.hyb_spmm import HybSpMM
 from dorylus_tpu_torch.ops.spmm import EdgeSpMM, aggregate, spmm_dst_blocked
 
 
 class GCN(GNN):
     """Weights are parameters `w0`, `w1`, ... in the JAX (in, out) layout.
 
-    spmm_op: the graph's static-value HybSpMM, or None for the edgewise
-    path, which needs `edge_op` (the CSR structure of the batch's edges).
-    blk_rows > 0 takes JAX's dst-blocked branch (same sum, same op)."""
+    spmm_op: the graph's aggregation op (HybSpMM, DegreeSpMM or
+    ReuseSpMM), or None for the edgewise path, which needs `edge_op` (the
+    CSR structure of the batch's edges). blk_rows > 0 takes JAX's
+    dst-blocked branch (same sum, same op)."""
 
-    def __init__(self, layers: LayerConfig, spmm_op: HybSpMM | None = None,
+    def __init__(self, layers: LayerConfig, spmm_op=None,
                  optimize_order: bool = True, edge_op: EdgeSpMM | None = None,
                  blk_rows: int = 0):
         super().__init__()
         if spmm_op is None and edge_op is None:
-            raise ValueError("GCN needs a HybSpMM (spmm_op) or an EdgeSpMM "
-                             "(edge_op)")
+            raise ValueError("GCN needs an aggregation op (spmm_op) or an "
+                             "EdgeSpMM (edge_op)")
         self.layers = layers
         self.spmm_op = spmm_op
         self.edge_op = edge_op
@@ -76,7 +82,10 @@ class GCN(GNN):
                 return out + h * batch.self_val[:, None].to(h.dtype)
             return aggregate(h, batch.src, batch.dst, batch.edge_val,
                              batch.self_val, op=self.edge_op)
-        out = self.spmm_op.apply_static(h)
+        if self.spmm_op.has_static_vals:
+            out = self.spmm_op.apply_static(h)
+        else:
+            out = self.spmm_op.apply(h, batch.edge_val.to(h.dtype))
         return out.to(h.dtype) + h * batch.self_val[:, None].to(h.dtype)
 
     def forward(self, batch: GraphBatch,

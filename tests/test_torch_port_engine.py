@@ -151,9 +151,7 @@ def test_engine_early_stop_and_predict():
 @pytest.mark.parametrize("overrides", [
     {"num_shards": 2},
     {"param_dtype": "bfloat16"},
-    {"kernel": "degree"},
     {"compute_dtype": "float16"},
-    {"reuse": "pairs"},
     {"staleness": 2},
     {"checkpoint_dir": "ckpts"},
     {"resume": True},
@@ -164,6 +162,23 @@ def test_engine_raises_outside_the_slice(overrides):
     cfg = TrainConfig(**{"kernel": "hyb", **overrides})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TEngine(g, LayerConfig([8, 4, 3]), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("kernel", ["xla", "degree"])
+def test_engine_reuse_pairs_off_hyb_falls_back(kernel):
+    """reuse="pairs" needs kernel="hyb": on another kernel the engine logs
+    and trains on that kernel without the rewrite, as JAX's does."""
+    from dorylus_tpu_torch.ops.degree_spmm import DegreeSpMM
+
+    g = synthetic_graph(200, 5, 12, 3, seed=5)
+    eng = TEngine(g, LayerConfig([12, 6, 3]),
+                  TrainConfig(epochs=2, kernel=kernel, reuse="pairs"), device="cpu")
+    if kernel == "xla":
+        assert eng.model.spmm_op is None and eng.model.edge_op is not None
+    else:
+        assert isinstance(eng.model.spmm_op, DegreeSpMM)
+    rep = eng.run()
+    assert rep.notes["kernel"] == kernel and np.isfinite(rep.epochs[-1].loss)
 
 
 _NO_JAX = r"""
@@ -179,14 +194,27 @@ names = [m.name for m in pkgutil.walk_packages(dorylus_tpu_torch.__path__,
                                                 "dorylus_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+import numpy as np
 from dorylus_tpu import LayerConfig, TrainConfig
-from dorylus_tpu.graph.graph import synthetic_graph
+from dorylus_tpu.graph.graph import Graph, community_core_edges, synthetic_graph
 from dorylus_tpu_torch.engine.engine import Engine
+from dorylus_tpu_torch.ops.reuse_spmm import ReuseSpMM
 g = synthetic_graph(200, 5, 12, 3, seed=3)
-for model, kernel in (("gcn", "hyb"), ("gat", "hyb"), ("gcn", "xla"), ("gat", "xla")):
-    rep = Engine(g, LayerConfig([12, 6, 3]),
-                 TrainConfig(epochs=2, kernel=kernel, model=model, reuse="off"),
-                 device="cpu").run()
+src, dst = community_core_edges(300, 10, comm=30, core=15, seed=2)
+gc = Graph(num_vertices=300, src=src, dst=dst,
+           features=np.random.default_rng(0).normal(size=(300, 12)).astype(np.float32),
+           labels=(np.arange(300) % 3).astype(np.int32), num_classes=3).finalize()
+runs = [(g, model, kernel, "off") for model in ("gcn", "gat")
+        for kernel in ("hyb", "xla", "degree")]
+runs += [(gc, "gcn", "hyb", "pairs"), (gc, "gat", "hyb", "pairs")]
+for graph, model, kernel, reuse in runs:
+    eng = Engine(graph, LayerConfig([12, 6, 3]),
+                 TrainConfig(epochs=2, kernel=kernel, model=model, reuse=reuse),
+                 device="cpu")
+    if reuse == "pairs":
+        assert isinstance(eng.model.spmm_op, ReuseSpMM)
+        assert eng.model.spmm_op.plan_fwd.num_pairs > 0
+    rep = eng.run()
     assert len(rep.epochs) == 2 and all(e.loss == e.loss for e in rep.epochs)
 assert not any(m == "jax" or m.startswith("jax.") for m, v in sys.modules.items()
                if v is not None)
@@ -199,7 +227,7 @@ def test_port_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.startswith("OK"), res.stdout
-    assert int(res.stdout.split()[1]) >= 15  # every module was imported
+    assert int(res.stdout.split()[1]) >= 18  # every module was imported
 
 
 def test_port_source_never_imports_jax():

@@ -244,11 +244,14 @@ def test_hyb_static_kernel_path_raises_off_cuda():
 
 
 def test_hybspmm_static_only_and_validates_edges():
-    """Static and mask plans only: the dynamic mode raises; a mask op has
-    no apply_static."""
+    """An op built with dynamic=False ships no slot->edge maps and its
+    `apply` raises, as the JAX op's does; a mask op has no apply_static;
+    edges are validated."""
     src, dst, val = _random_edges(10, 10, 30, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        thyb.HybSpMM(src, dst, 10, 10, static_val=val, dynamic=True)
+    op = thyb.HybSpMM(src, dst, 10, 10, static_val=val)
+    assert "e2s" not in op.fwd and all("s2e" not in b for b in op.fwd["buckets"])
+    with pytest.raises(RuntimeError, match="dynamic=False"):
+        op.apply(torch.zeros(10, 2), torch.tensor(val))
     with pytest.raises(RuntimeError, match="static values"):
         thyb.HybSpMM(src, dst, 10, 10).apply_static(torch.zeros(10, 2))
     with pytest.raises(ValueError, match="dst-sorted"):
