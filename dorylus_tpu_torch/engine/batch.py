@@ -6,8 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dorylus_tpu.common.config import TRAIN_PORTION
-from dorylus_tpu.graph.graph import Graph
+from dorylus_tpu_torch.common.config import TRAIN_PORTION
+from dorylus_tpu_torch.graph.graph import Graph
 from dorylus_tpu_torch.models.base import GraphBatch
 
 

@@ -13,7 +13,7 @@ static-mode hybrid-ELL kernel, GAT on its mask mode), on kernel="degree"
 (the degree-padded plans on the same kernels), on kernel="hyb" with
 reuse="pairs" (the pair-reuse rewrite: the pair-table kernel, then the
 mask pass) and on kernel="xla" (the edgewise CSR kernels), with
-kernel="auto" resolved by the shared `resolve_kernel` (xla up to 8M edges,
+kernel="auto" resolved by `resolve_kernel` as in JAX (xla up to 8M edges,
 hyb past). Everything else raises NotImplementedError naming its
 ROADMAP.md item.
 
@@ -32,11 +32,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from dorylus_tpu.common.config import LayerConfig, TrainConfig, resolve_kernel
-from dorylus_tpu.common.logging import log
-from dorylus_tpu.common.metrics import EpochRecord, RunReport
-from dorylus_tpu.graph.graph import Graph
-from dorylus_tpu_torch._shared import load
+from dorylus_tpu_torch.common.config import LayerConfig, TrainConfig, resolve_kernel
+from dorylus_tpu_torch.common.logging import log
+from dorylus_tpu_torch.common.metrics import EpochRecord, RunReport
+from dorylus_tpu_torch.graph.graph import Graph
+from dorylus_tpu_torch.engine.convergence import ConvergeMonitor
 from dorylus_tpu_torch.engine.batch import build_batch
 from dorylus_tpu_torch.models.gat import GAT
 from dorylus_tpu_torch.models.gcn import GCN
@@ -153,12 +153,27 @@ def _unsupported(cfg: TrainConfig, kernel: str) -> Optional[str]:
     return next((msg for bad, msg in checks if bad), None)
 
 
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """The device an engine runs on: None means the card and raises when
+    there is none; nothing falls back to the CPU unasked."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "dorylus_tpu_torch runs on the card by default and "
+                "torch.cuda.is_available() is False; pass device=\"cpu\" to "
+                "run on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
 class Engine:
     """Single-device engine: `Engine(graph, layers, cfg, device).run(n)`.
 
-    device: where the graph, plans and params live; None picks "cuda" when
-    a card is visible, else "cpu". On a CUDA device the aggregation runs
-    the hand-written kernel (or raises); it never moves work to the CPU."""
+    device: where the graph, plans and params live. None means the card
+    ("cuda"), and raises when no card is visible; the CPU is used only
+    when the caller passes device="cpu". On a CUDA device the aggregation
+    runs the hand-written kernel (or raises); it never moves work to the
+    CPU."""
 
     def __init__(self, graph: Graph, layers: LayerConfig, cfg: TrainConfig,
                  device: str | torch.device | None = None):
@@ -183,9 +198,7 @@ class Engine:
             cfg = dataclasses.replace(cfg, reuse="off")
         if cfg.reuse == "pairs" and kernel != "hyb":
             log("pair reuse requires kernel=hyb (have %s) — off", kernel)
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if self.device.type == "cuda":
             # f32 layer matmuls in full f32, as JAX's f32 dot.
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -276,7 +289,7 @@ class Engine:
     def run(self, epochs: Optional[int] = None) -> RunReport:
         cfg = self.cfg
         epochs = epochs if epochs is not None else cfg.epochs
-        monitor = load("engine/convergence.py").ConvergeMonitor(
+        monitor = ConvergeMonitor(
             cfg.target_accuracy, cfg.switch_threshold)
         self.report.notes["kernel"] = self.kernel_selected
         self.report.notes["device"] = str(self.device)

@@ -3,7 +3,7 @@ dorylus_tpu/models/base.py; the batch's shape contract is unchanged)."""
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple
 
 import torch
 from torch import nn
@@ -27,6 +27,20 @@ class GraphBatch(NamedTuple):
 
 
 Params = Dict[str, torch.Tensor]
+# The sharded engine's exchange (parallel/halo.py make_halo_fn): h -> the
+# feature table (local rows, then ghosts), or the ghost rows only on the
+# fused-overlap path.
+HaloFn = Callable[[torch.Tensor], torch.Tensor]
+
+
+def check_split(spmm_split) -> None:
+    """The models take one overlap op: the fused plan. JAX's (interior,
+    boundary) op pair is still to port."""
+    if spmm_split is not None and not getattr(spmm_split, "fused", False):
+        raise NotImplementedError(
+            "spmm_split: only the fused-overlap op (ShardedHybSpMM "
+            "edges=\"fused\") is ported; the (interior, boundary) op pair "
+            "and the edgewise split are ROADMAP.md queue 2 item 8")
 
 
 class GNN(nn.Module):
@@ -42,14 +56,16 @@ class GNN(nn.Module):
         return dict(self.named_parameters())
 
     def forward(self, batch: GraphBatch,
-                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                compute_dtype: torch.dtype = torch.float32,
+                halo: HaloFn | None = None) -> torch.Tensor:
         raise NotImplementedError
 
     def loss(self, batch: GraphBatch,
-             compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        logits = self.forward(batch, compute_dtype)
+             compute_dtype: torch.dtype = torch.float32,
+             halo: HaloFn | None = None) -> torch.Tensor:
+        logits = self.forward(batch, compute_dtype, halo)
         return masked_softmax_xent(logits, batch.onehot, batch.train_mask,
                                    batch.denom)
 
-    def predict(self, batch: GraphBatch) -> torch.Tensor:
-        return row_softmax(self.forward(batch))
+    def predict(self, batch: GraphBatch, halo: HaloFn | None = None) -> torch.Tensor:
+        return row_softmax(self.forward(batch, halo=halo))

@@ -1,5 +1,5 @@
-// Device helpers shared by the port's gather kernels (hyb_spmm.cu,
-// edge_spmm.cu): conversions, the product rule of each table dtype, and a
+// Device helpers shared by the port's kernels (every .cu beside this
+// file includes it): conversions, the product rule of each table dtype, and a
 // warp-wide sum.
 #pragma once
 

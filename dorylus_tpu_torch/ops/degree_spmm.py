@@ -42,7 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dorylus_tpu.common.logging import log
+from dorylus_tpu_torch.common.logging import log
 from dorylus_tpu_torch.ops.degree_plan import build_degree_plan
 from dorylus_tpu_torch.ops.hyb_spmm import (HybDstFn, HybDynFn, HybStaticFn,
                                             HybUnitFn, _is_narrow, kernel_pass,

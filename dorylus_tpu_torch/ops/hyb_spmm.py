@@ -124,16 +124,24 @@ def val_ext_of(val: torch.Tensor) -> torch.Tensor:
 def _hyb_pass_plain(table: torch.Tensor, plan: dict, num_out: int,
                     gather_dtype: torch.dtype | None, mode: str,
                     val: torch.Tensor | None = None,
-                    other: torch.Tensor | None = None):
+                    other: torch.Tensor | None = None,
+                    h_local: torch.Tensor | None = None, n_pure: int = 0):
+    """h_local / n_pure (the fused-overlap plan, ops/hyb_sharded.py): the
+    first n_pure buckets index local rows only and gather from h_local
+    (cast once, as the table is), the rest from the table."""
     narrow = _is_narrow(gather_dtype)
     tb = table if gather_dtype is None else table.to(gather_dtype)
+    tb_local = None
+    if h_local is not None:
+        tb_local = h_local if gather_dtype is None else h_local.to(gather_dtype)
     f = table.shape[1]
     dev = table.device
     val_ext = val_ext_of(val) if mode == "dynamic" else None
     outs, dvs = [], []
-    for b in plan["buckets"]:
+    for bi, b in enumerate(plan["buckets"]):
         orows = None if other is None else other[b["v"]]
-        out, dv = reduce_slots_plain(tb, b, narrow, mode, val_ext, orows)
+        out, dv = reduce_slots_plain(tb_local if bi < n_pure else tb, b, narrow,
+                                     mode, val_ext, orows)
         outs.append(out)
         dvs.append(dv)
     top = plan["top"]

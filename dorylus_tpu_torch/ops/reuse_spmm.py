@@ -1,7 +1,7 @@
 """Pair-reuse aggregation — the port of dorylus_tpu/ops/reuse_spmm.py
 (`kernel="hyb", reuse="pairs"`).
 
-The shared miner (dorylus_tpu/graph/reuse.py, jax-free) rewrites each
+The miner (graph/reuse.py, the port's copy of the JAX package's) rewrites each
 direction's edge list: a source pair (a, b) that many destinations share
 becomes one appended table row h[a] + h[b], gathered once per destination
 instead of twice. The aggregation is then the mask-mode hybrid-ELL pass over
@@ -40,8 +40,8 @@ import time
 import numpy as np
 import torch
 
-from dorylus_tpu import native
-from dorylus_tpu.graph.reuse import mine_reuse
+from dorylus_tpu_torch import native
+from dorylus_tpu_torch.graph.reuse import mine_reuse
 from dorylus_tpu_torch.ops import cuda_build
 from dorylus_tpu_torch.ops.hyb_plan import build_hyb_plan
 from dorylus_tpu_torch.ops.hyb_spmm import _DTYPE_CODE, _upload, hyb_mask_pass
@@ -166,7 +166,7 @@ class ReuseSpMM:
     rank1_factor: per-vertex f with edge value = f(src) f(dst) (GCN:
     sqrt(self_norm)); enables apply_static. None for unit / dst-weighted
     aggregation (GAT apply_dst). min_uses, passes, max_pairs go to the
-    shared miner (max_pairs per pass, 0 = unlimited). After construction,
+    miner (max_pairs per pass, 0 = unlimited). After construction,
     `miner` names the miner that ran ("native" or "numpy") and
     `mine_seconds` holds the (forward, backward) mining times."""
 

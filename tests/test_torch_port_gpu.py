@@ -2,7 +2,9 @@
 K1 (hybrid-ELL static mode), K2 (mask mode: apply_unit, apply_dst), the
 edgewise K3 (CSR SpMM), K4 (SDDMM), K5 (sorted segment-sum), K7 (dynamic
 values with the fused SDDMM) on hybrid-ELL and degree plans, K1/K2 on
-degree plans, and K6 (the pair-table build) with K2 over a rewritten plan.
+degree plans, K6 (the pair-table build) with K2 over a rewritten plan, and
+the sharded engine's K8 (two-table hyb pass), K9 (row gather) and K10
+(gathered sorted segment-sum), with a 4-rank run on the one card (gloo).
 
 Marked `gpu`: each test skips where torch sees no CUDA device (the kernel
 has no CPU or interpret mode). On a machine with a card and without jax:
@@ -267,7 +269,7 @@ def test_pair_kernel_and_reuse_pass_match_plain(cuda, narrow, f):
     (one rounding per row), and the reuse op's K2 passes over it match
     the plain mask pass, forward and dh; at a width that fills the warp
     and at one with a tail of columns."""
-    from dorylus_tpu.graph.graph import community_core_edges
+    from dorylus_tpu_torch.graph.graph import community_core_edges
     from dorylus_tpu_torch.ops import hyb_spmm as hyb
     from dorylus_tpu_torch.ops import reuse_spmm as reuse
 
@@ -297,7 +299,7 @@ def test_pair_kernel_and_reuse_pass_match_plain(cuda, narrow, f):
 def test_new_kernels_refuse_what_they_do_not_take(cuda):
     """K6, K7 and the degree passes raise on float16 and float64 tables and
     count no launch; none falls back to its plain version."""
-    from dorylus_tpu.graph.graph import community_core_edges
+    from dorylus_tpu_torch.graph.graph import community_core_edges
     from dorylus_tpu_torch.ops import degree_spmm as deg
     from dorylus_tpu_torch.ops import hyb_spmm as hyb
     from dorylus_tpu_torch.ops import reuse_spmm as reuse
@@ -327,3 +329,147 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
                                    rop.lvl_fwd, rop.fwd_table_size)
     assert (hyb.KERNEL_LAUNCHES, hyb.MASK_LAUNCHES, hyb.DYN_LAUNCHES,
             deg.DEGREE_LAUNCHES, reuse.PAIR_LAUNCHES) == counts
+
+
+# ---- the sharded engine's kernels: K8, K9, K10 ----
+
+
+def _hub_shard(n=4, v=1203, seed=5):
+    """A power-law graph (V not divisible by n) whose hubs sit near the
+    cut, partitioned n ways: (shards, n) with hub rows on every shard."""
+    from dorylus_tpu_torch.graph.graph import Graph
+    from dorylus_tpu_torch.graph.partition import partition_graph
+
+    src, dst, _ = _powerlaw(v, seed)
+    rng = np.random.default_rng(seed)
+    g = Graph(num_vertices=v, src=src, dst=dst,
+              features=rng.normal(size=(v, 8)).astype(np.float32),
+              labels=(np.arange(v) % 3).astype(np.int32), num_classes=3).finalize()
+    return partition_graph(g, n)
+
+
+@pytest.mark.parametrize("f", [1, 41, 128, 300])
+@pytest.mark.parametrize("narrow", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("static", [True, False], ids=["static", "mask"])
+def test_fused_kernel_matches_plain(cuda, static, narrow, f):
+    """K8 through the fused entries: forward, dh, dghosts (and d_dst in
+    mask mode) against the plain passes on the same CUDA tensors."""
+    from dorylus_tpu_torch.ops import hyb_sharded as hs
+    from dorylus_tpu_torch.ops import hyb_spmm as hyb
+
+    sg = _hub_shard()
+    shard = sg.shards[1]
+    gd = torch.bfloat16 if narrow else None
+    op = hs.ShardedHybSpMM(shard, sg.n_shards, edges="fused", static_vals=static,
+                           gather_dtype=gd, max_width=16, lam_slots=256, device=cuda)
+    assert op.n_pure > 0 and op.fwd["top"] is not None
+    rng = np.random.default_rng(f)
+    vp, ng = op.vp, op.table - op.vp
+    h = torch.tensor(rng.normal(size=(vp, f)).astype(np.float32), device=cuda)
+    gh = torch.tensor(rng.normal(size=(ng, f)).astype(np.float32), device=cuda)
+    gout = torch.tensor(rng.normal(size=(vp, f)).astype(np.float32), device=cuda)
+    dv = torch.tensor(rng.normal(size=vp).astype(np.float32), device=cuda)
+    before = hs.FUSED_LAUNCHES
+    hk, gk, dk = (t.clone().requires_grad_(True) for t in (h, gh, dv))
+    mode = "static" if static else "mask"
+    out = op.apply_static_fused(hk, gk) if static else op.apply_dst_fused(hk, gk, dk)
+    out.backward(gout)
+    torch.cuda.synchronize()
+    assert hs.FUSED_LAUNCHES > before
+    u = hs.fused_pass_plain(h, gh, op.fwd, op.n_pure, gd, mode)
+    scale = 1.0 if static else dv[:, None]
+    _close(out.detach(), u * scale, narrow)
+    dfull = hyb._hyb_pass_plain(gout * scale, op.bwd, op.table, gd, mode)
+    _close(hk.grad, dfull[:vp], narrow)
+    _close(gk.grad, dfull[vp:], narrow)
+    if not static:
+        _close(dk.grad, (u * gout).sum(-1), narrow)
+
+
+@pytest.mark.parametrize("f", [1, 41, 128, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_halo_kernels_match_plain(cuda, dtype, f):
+    """K9 equals the plain gather bit for bit (negative indices give zero
+    rows); K10 equals the plain segment-sum within the f32 tolerance, on
+    both wires' plans of a hub graph's shard."""
+    from dorylus_tpu_torch.parallel import halo
+
+    sg = _hub_shard()
+    n = sg.n_shards
+    # cnt[owner, receiver]: exact ghost rows per pair
+    cnt = np.stack([halo.ghost_counts(s, n, sg.vp, sg.max_h) for s in sg.shards], axis=1)
+    rng = np.random.default_rng(f)
+    for wire in ("padded", "ragged"):
+        plan = halo.HaloPlan(sg.shards[2], n, wire, cuda, counts=(cnt[2], cnt[:, 2]))
+        h = torch.tensor(rng.normal(size=(plan.vp, f)).astype(np.float32),
+                         device=cuda).to(dtype)
+        before = (halo.PACK_LAUNCHES, halo.HALO_BWD_LAUNCHES)
+        buf = halo.row_gather(h, plan.pack)
+        assert torch.equal(buf, halo.row_gather_plain(h, plan.pack))
+        if plan.place is not None:
+            recv = torch.tensor(rng.normal(size=(int(plan.recv_cnt.sum()), f))
+                                .astype(np.float32), device=cuda).to(dtype)
+            placed = halo.row_gather(recv, plan.place)
+            assert torch.equal(placed, halo.row_gather_plain(recv, plan.place))
+            assert float(placed[plan.place < 0].abs().max()) == 0.0
+        back = torch.tensor(rng.normal(size=(plan.pack.shape[0], f)).astype(np.float32),
+                            device=cuda).to(dtype)
+        dh = halo.segsum_gather(back, plan.order, plan.rows, plan.row_ptr, plan.vp)
+        torch.cuda.synchronize()
+        assert halo.PACK_LAUNCHES > before[0] and halo.HALO_BWD_LAUNCHES > before[1]
+        _close(dh, halo.segsum_gather_plain(back, plan.order, plan.rows, plan.vp), False)
+
+
+def test_sharded_kernels_refuse_what_they_do_not_take(cuda):
+    from dorylus_tpu_torch.ops import hyb_sharded as hs
+    from dorylus_tpu_torch.parallel import halo
+
+    sg = _hub_shard()
+    op = hs.ShardedHybSpMM(sg.shards[0], sg.n_shards, edges="fused", static_vals=True,
+                           max_width=16, lam_slots=256, device=cuda)
+    part = op.fwd["buckets"][op.n_pure]
+    out = torch.zeros((op.vp, 8), device=cuda)
+    counts = (hs.FUSED_LAUNCHES, halo.PACK_LAUNCHES, halo.HALO_BWD_LAUNCHES)
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    for bad in (torch.float16, torch.float64):
+        tb = torch.zeros((op.vp, 8), dtype=bad, device=cuda)
+        with pytest.raises(ValueError, match="dtype"):
+            hs._launch_fused_part(tb, tb, part, out, unit=False)
+        with pytest.raises(ValueError, match="dtype"):
+            halo._launch_row_gather(tb, idx, torch.zeros((4, 8), dtype=bad, device=cuda))
+        with pytest.raises(ValueError, match="dtype"):
+            halo._launch_segsum(tb, idx, torch.zeros(op.vp + 1, dtype=torch.int32,
+                                                     device=cuda), out)
+    with pytest.raises(ValueError, match="ghosts"):
+        hs._launch_fused_part(torch.zeros((op.vp, 8), device=cuda),
+                              torch.zeros((4, 9), device=cuda), part, out, unit=False)
+    with pytest.raises(ValueError, match="source rows"):
+        hs.fused_pass(torch.zeros((10, 8), device=cuda), torch.zeros((2, 8), device=cuda),
+                      op.fwd, op.n_pure, None, "static")
+    with pytest.raises(ValueError, match="int32"):
+        halo._launch_row_gather(torch.zeros((4, 8), device=cuda), idx.long(),
+                                torch.zeros((4, 8), device=cuda))
+    assert counts == (hs.FUSED_LAUNCHES, halo.PACK_LAUNCHES, halo.HALO_BWD_LAUNCHES)
+
+
+@pytest.mark.parametrize("model", ["gcn", "gat"])
+def test_four_ranks_on_one_card_match_the_cpu(cuda, model):
+    """4 gloo ranks on cuda:0 (the kernels, collectives staged through the
+    host) against 4 gloo ranks on the CPU (the plain versions): the same
+    losses, rtol 1e-5, fused overlap and the exact wire."""
+    import _torch_ranks as ranks
+    from dorylus_tpu_torch.graph.graph import synthetic_graph
+    from dorylus_tpu_torch.ops import cuda_build, hyb_sharded, hyb_spmm
+    from dorylus_tpu_torch.parallel import halo
+    from dorylus_tpu_torch.parallel.multihost import spawn_local
+
+    cuda_build.compile_sources([hyb_spmm._CSRC, hyb_sharded._CSRC, halo._CSRC])
+    g = synthetic_graph(600, 8, 33, 5, seed=2)
+    args = (g, [33, 16, 5], dict(model=model, kernel="hyb"), 4, {})
+    on_card = spawn_local(4, ranks.engine_rank, args, backend="gloo", device="cuda:0",
+                          timeout_s=300)
+    on_cpu = spawn_local(4, ranks.engine_rank, args, backend="gloo", device="cpu",
+                         timeout_s=300)
+    a, b = np.array(on_card[0]["losses"]), np.array(on_cpu[0]["losses"])
+    assert np.isfinite(a).all()
+    np.testing.assert_allclose(a, b, rtol=1e-5)
