@@ -5,7 +5,7 @@
 Phases, in order; any failure exits non-zero and prints no result line:
   1. the card: torch.cuda must see one; print nvidia-smi's name and power
      limit;
-  2. build the six CUDA libraries from ops/csrc/ with nvcc, one process
+  2. build the seven CUDA libraries from ops/csrc/ with nvcc, one process
      each, started together; report which pair miner the host has;
   3. K1 (hybrid-ELL static mode) vs its plain PyTorch version on the card,
      forward and dh, at the Reddit shape (V=232,965, avg in-degree 50,
@@ -39,6 +39,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
      sorted segment-sum) vs plain at that shard's send lists on both
      wires; times of kernel, plain and the one PyTorch call. One process,
      no collective;
+  3h. (beside 3g) the sharded degree op on the same shard: the degree
+     pass over rank 0's combined, interior and boundary plans (K1 static,
+     K2 dst, K7 dynamic with dval; forward, dh or dghosts, d_dst, dval;
+     F=128 and 41, f32 and bf16) vs the plain degree pass; the interior and
+     boundary hyb plans vs the plain hyb pass; interior + boundary against
+     the combined plan's output (f32, 1e-4); times of kernel, plain and
+     `torch.sparse.mm` on that plan's CSR;
+  3i. rank 0's shard of the 4-way range partition of the Reddit-scale
+     community graph: the sharded reuse op at the engine's pair budget (the
+     miner's seconds, pairs, row cut), K6 bit for bit at base vp + n*max_h
+     and vp, the non-square reuse pass forward and dh vs plain and vs the
+     unrewritten combined plan;
+  3j. the primitive probes P1-P4 (tools/probe_prims.py): their rates on one
+     block and on a grid that fills the card, 100,000 ops a stream, each
+     timed launch held against its plain version on the same inputs (P2, P3
+     bit for bit; P1, P4 to 1e-4), after a fast check at 2,000 ops; then the
+     one PyTorch call of P1's, P2's and P3's function (`embedding_bag`,
+     `bincount`, `index_select`), timed on those inputs;
   4. main path, GCN: Engine.run() of the Reddit-config GCN (602-128-41,
      kernel="hyb", bf16 gather tables) for 3 epochs; losses finite and
      falling, K1 launches > 0; then a torch.profiler table of 10 train
@@ -82,15 +100,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
      ms, kernel time and idle share. Then both in f32 against 4c's
      single-device hyb f32 losses (rtol 1e-4), and GCN with overlap off
      (the combined plan) against the fused plan (rtol 1e-5);
-  6b. the planted 2,000-vertex graph, 4 ranks on the card against 4 ranks
-     on the CPU, GCN (10 epochs) and GAT (3): rtol 1e-5; predict() in
-     global order against the single-device engine's;
+  6d. (in phase 6's launch) the same on kernel="degree" with the (interior,
+     boundary) plan pair, bf16, 3 epochs: degree, K9 and K10 launches > 0 on
+     every rank; in f32 against 4c's hyb losses (rtol 1e-4) and against
+     the combined degree plan (overlap=False, rtol 1e-5), both timed;
+  6f. (in phase 6's launch) kernel="xla" with overlap=True in f32, GCN and
+     GAT, against the combined edgewise run (rtol 1e-5): K3 launches per
+     step double, K4 and K5 > 0 for GAT;
+  6e. 4 ranks on the community graph's shards: GCN and GAT on hyb with
+     reuse="pairs" against reuse="off", bf16, 3 epochs (rtol 1e-2); K6 and
+     K2 launches > 0 on every rank, overlap turned off by the rewrite;
+  6b. small graphs, 4 ranks on the card against 4 ranks on the CPU: the
+     planted 2,000-vertex graph, GCN (10 epochs) and GAT (3) on hyb (with
+     predict() in global order against the single-device engine's) and on
+     the degree pair, and the 4,000-vertex community graph with
+     reuse="pairs": rtol 1e-5;
   6c. only where torch.cuda.device_count() >= 2: phase 6's GCN over NCCL,
      one rank per card; else one line says the NCCL path was not run.
 Each main path runs with every launch count set to 0 just before it and
 read just after (in each rank, for the sharded engine). Then one JSON line
-with the kernels' numbers (K1-K10, and the degree pass and the reuse pass,
-the TPU kernels that run on K1/K2 and K6 + K2): beside each kernel's time
+with the kernels' numbers (K1-K10, K7's fused backward, the degree, reuse,
+sharded-degree and sharded-reuse passes, which run on K1/K2/K7 and K6 + K2,
+and the probes P1-P4): beside each kernel's time
 its plain version's, its bound (the bytes it must move over 3.35 TB/s, or
 its operations over 67 TFLOP/s of f32, whichever is larger, from this
 run's inputs) and, where one PyTorch call computes the same function, that
@@ -121,7 +152,7 @@ REDDIT = dict(v=232_965, deg=50, feat=602, classes=41)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # The largest max abs error each kernel showed in any comparison.
 MAX_ERR = {k: 0.0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10",
-                            "degree", "reuse")}
+                            "degree", "reuse", "degree_sharded", "reuse_sharded")}
 # The community graph the JAX package's bench measures pair reuse on.
 COMMUNITY = dict(comm=400, core=60, p_core=0.85, seed=0)
 # The card's published peaks (H100 SXM): device memory rate, and f32 outside
@@ -184,6 +215,16 @@ def pass_bound(table_rows: int, f: int, elt: int, live: int, out_rows: int,
     value), the f32 output once; two operations per gathered element."""
     return bound(table_rows * f * elt + live * slot_bytes + out_rows * f * 4 + extra_bytes,
                  2.0 * live * f)
+
+
+def dyn_bwd_bound(op, f: int, elt: int, val: torch.Tensor) -> dict:
+    """Bound of K7's backward with the fused dval: the table (gout) and the
+    `other` rows (h) once, a row index and an edge id per live slot, each
+    value read and each dval written once, the f32 output; four operations
+    per gathered element (the weighted sum and the dot)."""
+    live = live_slots(op.bwd)
+    return bound((op.num_out + op.num_in) * f * elt + live * 8 + 2 * nbytes(val)
+                 + op.num_in * f * 4, 4.0 * live * f)
 
 
 def library_ms(fn, label: str):
@@ -440,6 +481,7 @@ def compare_dyn(name: str, op, f: int, seed: int, timed: bool,
         elt = 2 if gd is torch.bfloat16 else 4
         res.update(pass_bound(op.num_in, f, elt, live_slots(op.fwd), op.num_out, 8,
                               extra_bytes=nbytes(val)))
+        res["bwd"] = dyn_bwd_bound(op, f, elt, val)
         spmm_library(res, csr, val, (op.num_out, op.num_in), h, DTYPES[dtype])
     print("compare " + json.dumps(res), flush=True)
     torch.cuda.empty_cache()
@@ -447,10 +489,12 @@ def compare_dyn(name: str, op, f: int, seed: int, timed: bool,
 
 
 def compare_degree(name: str, op, f: int, seed: int, timed: bool,
-                   csr: dict | None = None) -> dict:
+                   csr: dict | None = None, key: str = "degree") -> dict:
     """The degree pass on degree plans: K1 (apply_static), K2 (apply_dst:
     forward, dh, d_dst) and K7 (apply: forward, dh, dval) vs
-    degree_pass_plain and the torch row scale / row-dot around it."""
+    degree_pass_plain and the torch row scale / row-dot around it. key: the
+    MAX_ERR entry ("degree_sharded" for a rank's plans, whose csr names the
+    table rows the plan's edges read, `src_rows`)."""
     from dorylus_tpu_torch.ops.degree_spmm import degree_pass, degree_pass_plain
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -460,7 +504,7 @@ def compare_degree(name: str, op, f: int, seed: int, timed: bool,
     dst_val = randn(gen, op.num_out)
     gd = op.gather_dtype
     dtype = "bfloat16" if gd is torch.bfloat16 else "float32"
-    res = {"case": name, "kernel": "degree", "F": f, "dtype": dtype, "tol_rel": TOL[dtype]}
+    res = {"case": name, "kernel": key, "F": f, "dtype": dtype, "tol_rel": TOL[dtype]}
     n = h.shape[0]
 
     def plain(table, plan, num, mode, other=None):
@@ -469,9 +513,9 @@ def compare_degree(name: str, op, f: int, seed: int, timed: bool,
     hs = h.clone().requires_grad_(True)
     out = op.apply_static(hs)
     out.backward(gout)
-    close(res, "degree", "static_fwd", out.detach(), plain(h, op.fwd, op.num_out, "static"),
+    close(res, key, "static_fwd", out.detach(), plain(h, op.fwd, op.num_out, "static"),
           dtype)
-    close(res, "degree", "static_bwd", hs.grad,
+    close(res, key, "static_bwd", hs.grad,
           plain(gout, op.bwd, op.num_in, "static")[:n], dtype)
     del out, hs
     hd = h.clone().requires_grad_(True)
@@ -479,21 +523,21 @@ def compare_degree(name: str, op, f: int, seed: int, timed: bool,
     out = op.apply_dst(hd, dd)
     out.backward(gout)
     u = plain(h, op.fwd, op.num_out, "mask")
-    close(res, "degree", "dst_fwd", out.detach(), u * dst_val[:, None], dtype)
-    close(res, "degree", "dst_bwd", hd.grad,
+    close(res, key, "dst_fwd", out.detach(), u * dst_val[:, None], dtype)
+    close(res, key, "dst_bwd", hd.grad,
           plain(gout * dst_val[:, None], op.bwd, op.num_in, "mask")[:n], dtype)
-    close(res, "degree", "d_dst", dd.grad, (u * gout).sum(-1), dtype)
+    close(res, key, "d_dst", dd.grad, (u * gout).sum(-1), dtype)
     del out, hd, dd, u
     hy = h.clone().requires_grad_(True)
     vy = val.clone().requires_grad_(True)
     out = op.apply(hy, vy)
     out.backward(gout)
-    close(res, "degree", "dyn_fwd", out.detach(), plain(h, op.fwd, op.num_out, "dynamic"),
+    close(res, key, "dyn_fwd", out.detach(), plain(h, op.fwd, op.num_out, "dynamic"),
           dtype)
     del out
     ref_dh, ref_dval = plain(gout, op.bwd, op.num_in, "dynamic", other=h)
-    close(res, "degree", "dyn_dh", hy.grad, ref_dh[:n], dtype)
-    close(res, "degree", "dyn_dval", vy.grad, ref_dval, dtype)
+    close(res, key, "dyn_dh", hy.grad, ref_dh[:n], dtype)
+    close(res, key, "dyn_dval", vy.grad, ref_dval, dtype)
     del ref_dh, ref_dval, hy, vy
     if timed:
         for key, mode, iters in (("static", "static", 20), ("mask", "mask", 20),
@@ -511,7 +555,9 @@ def compare_degree(name: str, op, f: int, seed: int, timed: bool,
         res["dyn_bwd_plain_ms"] = cuda_ms(
             lambda: plain(gout, op.bwd, op.num_in, "dynamic", h), 3)
         elt = 2 if gd is torch.bfloat16 else 4
-        res.update(pass_bound(op.num_in, f, elt, live_slots(op.fwd), op.num_out, 4 + elt))
+        res.update(pass_bound(csr.get("src_rows", op.num_in), f, elt, live_slots(op.fwd),
+                              op.num_out, 4 + elt))
+        res["bwd"] = dyn_bwd_bound(op, f, elt, val)
         spmm_library(res, csr, csr["norm"], (op.num_out, op.num_in), h, DTYPES[dtype])
     print("compare " + json.dumps(res), flush=True)
     torch.cuda.empty_cache()
@@ -556,39 +602,42 @@ def compare_pairs(name: str, levels, table_size: int, v: int, f: int, dtype: str
     return res
 
 
-def compare_reuse(rop, hop, v: int, f: int, gd, seed: int) -> dict:
+def compare_reuse(rop, hop, f: int, gd, seed: int, case: str = "community",
+                  key: str = "reuse") -> dict:
     """The reuse pass: K2 over the K6-built table of the rewritten plan,
     forward and dh, vs the plain mask pass on the same tables, and vs K2
-    over the original graph (the same sums; a bf16 pair row rounds once, not
-    twice); times of both and of the unrewritten pass."""
+    over the original edges (the same sums; a bf16 pair row rounds once, not
+    twice); times of both and of the unrewritten pass. rop: a ReuseSpMM or
+    one rank's ShardedReuseSpMM (num_in table rows, num_out output rows);
+    hop: the hyb op over the same edges."""
     from dorylus_tpu_torch.ops.hyb_spmm import hyb_mask_pass, hyb_mask_pass_plain
     from dorylus_tpu_torch.ops.reuse_spmm import build_pair_table
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    h = randn(gen, v, f)
-    gout = randn(gen, v, f)
+    n_in, n_out = rop.num_in, rop.num_out
+    h = randn(gen, n_in, f)
+    gout = randn(gen, n_out, f)
     dtype = "bfloat16" if gd is torch.bfloat16 else "float32"
-    res = {"case": "community", "kernel": "reuse", "F": f, "dtype": dtype,
-           "tol_rel": TOL[dtype]}
+    res = {"case": case, "kernel": key, "F": f, "dtype": dtype, "tol_rel": TOL[dtype]}
     tbl = build_pair_table(h, rop.lvl_fwd, rop.fwd_table_size)
-    out = hyb_mask_pass(tbl, rop.fwd, v, gd)
-    close(res, "reuse", "vs_plain", out, hyb_mask_pass_plain(tbl, rop.fwd, v, gd), dtype)
-    close(res, None, "vs_unrewritten", out, hyb_mask_pass(h, hop.fwd, v, gd), dtype)
+    out = hyb_mask_pass(tbl, rop.fwd, n_out, gd)
+    close(res, key, "vs_plain", out, hyb_mask_pass_plain(tbl, rop.fwd, n_out, gd), dtype)
+    close(res, None, "vs_unrewritten", out, hyb_mask_pass(h, hop.fwd, n_out, gd), dtype)
     gtbl = build_pair_table(gout, rop.lvl_bwd, rop.bwd_table_size)
-    dh = hyb_mask_pass(gtbl, rop.bwd, v, gd)
-    close(res, "reuse", "bwd_vs_plain", dh, hyb_mask_pass_plain(gtbl, rop.bwd, v, gd), dtype)
-    close(res, None, "bwd_vs_unrewritten", dh, hyb_mask_pass(gout, hop.bwd, v, gd), dtype)
+    dh = hyb_mask_pass(gtbl, rop.bwd, n_in, gd)
+    close(res, key, "bwd_vs_plain", dh, hyb_mask_pass_plain(gtbl, rop.bwd, n_in, gd), dtype)
+    close(res, None, "bwd_vs_unrewritten", dh, hyb_mask_pass(gout, hop.bwd, n_in, gd), dtype)
     del out, dh, gtbl
-    res["fwd_ms"] = cuda_ms(lambda: hyb_mask_pass(tbl, rop.fwd, v, gd), 20)
-    res["fwd_plain_ms"] = cuda_ms(lambda: hyb_mask_pass_plain(tbl, rop.fwd, v, gd), 3)
-    res["unrewritten_fwd_ms"] = cuda_ms(lambda: hyb_mask_pass(h, hop.fwd, v, gd), 20)
+    res["fwd_ms"] = cuda_ms(lambda: hyb_mask_pass(tbl, rop.fwd, n_out, gd), 20)
+    res["fwd_plain_ms"] = cuda_ms(lambda: hyb_mask_pass_plain(tbl, rop.fwd, n_out, gd), 3)
+    res["unrewritten_fwd_ms"] = cuda_ms(lambda: hyb_mask_pass(h, hop.fwd, n_out, gd), 20)
     if gd is rop.gather_dtype:
         res["unit_fwd_ms"] = cuda_ms(lambda: rop.apply_unit(h), 20)  # K6 + K2
     elt = 2 if gd is torch.bfloat16 else 4
-    res.update(pass_bound(rop.fwd_table_size, f, elt, live_slots(rop.fwd), v, 4))
-    csr = csr_pattern(rop.plan_fwd.src, rop.plan_fwd.dst, v)
+    res.update(pass_bound(rop.fwd_table_size, f, elt, live_slots(rop.fwd), n_out, 4))
+    csr = csr_pattern(rop.plan_fwd.src, rop.plan_fwd.dst, n_out)
     spmm_library(res, csr, torch.ones(csr["col"].shape[0], device="cuda"),
-                 (v, rop.fwd_table_size), tbl, DTYPES[dtype])
+                 (n_out, rop.fwd_table_size), tbl, DTYPES[dtype])
     print("compare " + json.dumps(res), flush=True)
     return res
 
@@ -860,6 +909,37 @@ def compare_fused(name: str, op, f: int, seed: int, timed: bool,
     return res
 
 
+def compare_hyb_split(name: str, op, f: int, seed: int) -> dict:
+    """A rank's interior or boundary hyb plan (ShardedHybSpMM with static
+    values): K1 through apply_static and K2 through apply_dst, forward and
+    gradients, vs the plain hyb pass on the same CUDA tensors."""
+    from dorylus_tpu_torch.ops.hyb_spmm import _hyb_pass_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    table, gout, dv = randn(gen, op.num_in, f), randn(gen, op.vp, f), randn(gen, op.vp)
+    gd = op.gather_dtype
+    dtype = "bfloat16" if gd is torch.bfloat16 else "float32"
+    res = {"case": name, "kernel": "K1/K2", "F": f, "dtype": dtype, "tol_rel": TOL[dtype]}
+    tk = table.clone().requires_grad_(True)
+    out = op.apply_static(tk)
+    out.backward(gout)
+    close(res, "K1", "static_fwd", out.detach(),
+          _hyb_pass_plain(table, op.fwd, op.vp, gd, "static"), dtype)
+    close(res, "K1", "static_bwd", tk.grad,
+          _hyb_pass_plain(gout, op.bwd, op.num_in, gd, "static"), dtype)
+    tk, dk = table.clone().requires_grad_(True), dv.clone().requires_grad_(True)
+    out = op.apply_dst(tk, dk)
+    out.backward(gout)
+    u = _hyb_pass_plain(table, op.fwd, op.vp, gd, "mask")
+    close(res, "K2", "dst_fwd", out.detach(), u * dv[:, None], dtype)
+    close(res, "K2", "dst_bwd", tk.grad,
+          _hyb_pass_plain(gout * dv[:, None], op.bwd, op.num_in, gd, "mask"), dtype)
+    close(res, "K2", "d_dst", dk.grad, (u * gout).sum(-1), dtype)
+    print("compare " + json.dumps(res), flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
 def compare_halo(name: str, plan, f: int, dtype: str, seed: int, timed: bool) -> dict:
     """K9 (the pack, and on the exact wire the placement) against the plain
     gather, bit for bit; K10 against the plain segment-sum; at one rank's
@@ -922,11 +1002,12 @@ def compare_halo(name: str, plan, f: int, dtype: str, seed: int, timed: bool) ->
 
 
 def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list) -> list:
-    """One rank of the sharded phases (started by multihost.spawn_local):
+    """One rank of phases 6-6f (started by multihost.spawn_local):
     for each run, a ShardedEngine on this rank's shard file, trained with
     this process's launch counts set to 0 just before and read just after;
-    where the run is timed, also the train step's ms and launches, the
-    halo exchange's ms at each layer width, and a profile of the step."""
+    where the run is timed, also the train step's ms and launches and the
+    halo exchange's ms at each layer width; where it is profiled, a
+    profile of the step."""
     from dorylus_tpu_torch.common.config import LayerConfig, TrainConfig
     from dorylus_tpu_torch.graph.partition import load_shard
     from dorylus_tpu_torch.parallel import multihost
@@ -944,6 +1025,10 @@ def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list) -> l
     for run in runs:
         shard, meta = load_shard(f"{shard_dir}/{run['shards']}_{rank}.npz")
         cfg = TrainConfig(**run["cfg"])
+        if cfg.model == "gat":
+            # a GAT partition differs from the GCN one in its edge values
+            # alone: 1 on every real edge (the edgewise path's edge mask)
+            shard = dataclasses.replace(shard, edge_val=np.ones_like(shard.edge_val))
         reset_counts()
         t0 = time.perf_counter()
         eng = ShardedEngine((shard, meta), LayerConfig(run["dims"]), cfg, device=device)
@@ -959,9 +1044,17 @@ def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list) -> l
                "local_vertices": shard.num_local, "edges": shard.num_edges,
                "ghosts": int(eng.halo_plan.recv_cnt.sum()), "max_h": meta.max_h,
                "wire_rows": eng.halo_plan.wire_rows(rank)}
-        op = eng.model.spmm_split
-        if op is not None:
-            row.update(n_pure=op.n_pure, pure_edges=op.pure_edges, mixed_edges=op.mixed_edges)
+        split, op = eng.model.spmm_split, eng.model.spmm_op
+        if getattr(split, "fused", False):
+            row.update(n_pure=split.n_pure, pure_edges=split.pure_edges,
+                       mixed_edges=split.mixed_edges)
+        elif split is not None:
+            row.update(interior_edges=split[0].num_edges, boundary_edges=split[1].num_edges)
+        if hasattr(op, "plan_fwd"):  # the sharded reuse op
+            st = op.plan_fwd.stats
+            row.update(miner=op.miner, mine_s=list(op.mine_seconds),
+                       fwd_pairs=op.plan_fwd.num_pairs, bwd_pairs=op.plan_bwd.num_pairs,
+                       row_cut=st["row_reduction"])
         lr = cfg.learning_rate
         if run.get("timed"):
             row["launches_per_step"] = step_launches(lambda: eng._train_epoch(lr))
@@ -983,7 +1076,8 @@ def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list) -> l
                 sync()
                 row["exchange_ms"][str(f)] = 1e3 * (time.perf_counter() - t0) / 3
                 row.setdefault("wire_bytes", {})[str(f)] = row["wire_rows"] * f * elt
-            row["profile"] = profile_rank(eng, lr)
+            if run.get("profile"):
+                row["profile"] = profile_rank(eng, lr)
         if run.get("predict"):
             row["predict"] = eng.predict()
         del eng
@@ -1025,10 +1119,10 @@ def rel_gap(a, b) -> float:
     return float(np.max(np.abs(a - b) / np.abs(b)))
 
 
-def sharded_phases(sg, layers, hyb_f32_losses, kernel_sources) -> dict:
-    """Phases 6, 6b and 6c. sg: the Reddit-shaped graph's 4-way partition;
-    hyb_f32_losses: {model: 3 single-device hyb f32 losses} from
-    phase 4c. Returns what the kernels line needs."""
+def sharded_phases(sg, sgc, layers, hyb_f32_losses, kernel_sources) -> dict:
+    """Phases 6, 6b-6f. sg: the Reddit-shaped graph's 4-way partition; sgc:
+    the community graph's; hyb_f32_losses: {model: 3 single-device hyb f32
+    losses} from phase 4c. Returns what the kernels line needs."""
     from dorylus_tpu_torch.common.config import TrainConfig
     from dorylus_tpu_torch.engine.engine import Engine
     from dorylus_tpu_torch.graph.graph import synthetic_graph
@@ -1041,98 +1135,189 @@ def sharded_phases(sg, layers, hyb_f32_losses, kernel_sources) -> dict:
     shard_dir = tempfile.mkdtemp(prefix="dorylus_smoke_shards_")
     try:
         t0 = time.perf_counter()
-        meta = ShardMeta.of(sg)
-        for s in sg.shards:
-            save_shard(f"{shard_dir}/reddit_{s.shard_id}.npz", s, meta)
         gp = synthetic_graph(2000, 8, REDDIT["feat"], REDDIT["classes"], seed=8888)
-        sgp = partition_graph(gp, RANKS)
-        for s in sgp.shards:
-            save_shard(f"{shard_dir}/planted_{s.shard_id}.npz", s, ShardMeta.of(sgp))
+        gs = community_graph(4000, 20, REDDIT["feat"], REDDIT["classes"], comm=40, core=30,
+                             p_core=0.85, seed=0)
+        for name, part in (("reddit", sg), ("community", sgc),
+                           ("planted", partition_graph(gp, RANKS)),
+                           ("smallcomm", partition_graph(gs, RANKS))):
+            for s in part.shards:
+                save_shard(f"{shard_dir}/{name}_{s.shard_id}.npz", s, ShardMeta.of(part))
         print(f"shard files: {time.perf_counter() - t0:.1f} s", flush=True)
         dims = list(layers.dims)
 
-        def run(label, shards, timed=False, predict=False, **cfg):
+        def run(label, shards, timed=False, profile=False, predict=False, **cfg):
             cfg = dict(dict(epochs=3, eval_every=1, kernel="hyb", reuse="off"), **cfg)
             return {"label": label, "shards": shards, "dims": dims, "cfg": cfg,
-                    "timed": timed, "predict": predict}
+                    "timed": timed or profile, "profile": profile, "predict": predict}
+
+        def launch(phase, runs, device="cuda:0", timeout_s=900):
+            t0 = time.perf_counter()
+            res = spawn_local(RANKS, sharded_rank, (shard_dir, runs), backend="gloo",
+                              device=device, timeout_s=timeout_s)
+            print(f"phase {phase}: {RANKS} ranks on {device} over gloo, {len(runs)} runs in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            by_label = {r["label"]: [res[k][i] for k in range(RANKS)]
+                        for i, r in enumerate(runs)}
+            for label, rows in by_label.items():
+                for r in rows:
+                    print(f"sharded {label} rank {r['rank']}: " + json.dumps(
+                        {k: v for k, v in r.items() if k not in ("label", "rank", "predict")}),
+                        flush=True)
+                    check(all(np.isfinite(r["losses"])),
+                          f"{label} rank {r['rank']}: non-finite loss")
+                    check(r["losses"] == rows[0]["losses"],
+                          f"{label}: rank {r['rank']} reports other losses than rank 0")
+            return by_label
+
+        def need(label, rows, kernels, kernel, overlap, wire="ragged"):
+            for r in rows:
+                check((r["kernel"], r["wire"], r["overlap"]) == (kernel, wire, overlap),
+                      f"{label}: ran kernel {r['kernel']}, wire {r['wire']}, overlap "
+                      f"{r['overlap']}")
+                for k in kernels:
+                    check(r["launches"][k] > 0, f"{label} rank {r['rank']}: no {k} launch")
+
+        def timing(rows):
+            out = {"warm_epoch_ms": float(np.mean(rows[0]["epoch_ms"][1:])),
+                   "step_ms": [r["step_ms"] for r in rows],
+                   "launches_per_step": [r["launches_per_step"] for r in rows],
+                   "exchange_ms": [r["exchange_ms"] for r in rows],
+                   "wire_bytes": [r["wire_bytes"] for r in rows]}
+            if "profile" in rows[0]:
+                for k in ("kernel_ms_per_step", "copy_ms_per_step", "idle_share"):
+                    out[k] = [r["profile"][k] for r in rows]
+            return out
+
+        def gap_check(what, a, b, tol):
+            gap = rel_gap(a, b[: len(a)])
+            print(f"{what}: max relative loss gap {gap:.3e} over {len(a)} epochs", flush=True)
+            check(gap <= tol, f"{what}: {gap:.3e} > {tol:.0e}")
 
         gat = dict(model="gat", learning_rate=0.005)
-        # 6. the Reddit config on 4 ranks of the one card. (Both models read
-        # the same shard files: a GAT partition differs only in edge values
-        # of 1, which the hyb path never reads.)
-        runs = [run("gcn bf16 fused", "reddit", timed=True, agg_dtype="bfloat16"),
-                run("gat bf16 fused", "reddit", timed=True, agg_dtype="bfloat16", **gat),
-                run("gcn f32 fused", "reddit"),
-                run("gat f32 fused", "reddit", **gat),
-                run("gcn f32 combined", "reddit", overlap=False)]
-        t0 = time.perf_counter()
-        res = spawn_local(RANKS, sharded_rank, (shard_dir, runs), backend="gloo",
-                          device="cuda:0", timeout_s=600)
-        print(f"phase 6: {RANKS} ranks on cuda:0 over gloo, {len(runs)} runs in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        by_label = {r["label"]: [res[k][i] for k in range(RANKS)] for i, r in enumerate(runs)}
+        bf16 = dict(agg_dtype="bfloat16")
+        models = (("gcn", {}), ("gat", gat))
+        # 6, 6d, 6f. the Reddit config on 4 ranks of the one card, one launch.
+        # (Both models read the same shard files; a rank sets GAT's edge
+        # values itself.) The f32 runs take 2 epochs: they are held against
+        # the first 2 of 4c's.
+        # Timed runs first, in pairs that are compared (each pair back to
+        # back); the profiled bf16 runs last, so that no run is timed in a
+        # process that has traced before.
+        runs = [run("gcn f32 degree pair", "reddit", timed=True, kernel="degree", epochs=2),
+                run("gcn f32 degree combined", "reddit", timed=True, kernel="degree",
+                    overlap=False, epochs=2),
+                run("gcn f32 fused", "reddit", epochs=2),
+                run("gcn f32 combined", "reddit", overlap=False, epochs=2)]
+        for model, kw in models:
+            runs += [run(f"{model} f32 xla split", "reddit", timed=True, kernel="xla",
+                         overlap=True, epochs=2, **kw),
+                     run(f"{model} f32 xla combined", "reddit", timed=True, kernel="xla",
+                         epochs=2, **kw)]
+        runs += [run("gat f32 fused", "reddit", epochs=2, **gat),
+                 run("gat f32 degree pair", "reddit", kernel="degree", epochs=2, **gat)]
+        for model, kw in models:
+            runs += [run(f"{model} bf16 fused", "reddit", profile=True, **bf16, **kw),
+                     run(f"{model} bf16 degree pair", "reddit", profile=True, kernel="degree",
+                         **bf16, **kw)]
+        by_label = launch("6, 6d, 6f", runs)
         launches = {}
         timings = {}
-        for label, rows in by_label.items():
-            for r in rows:
-                print(f"sharded {label} rank {r['rank']}: " + json.dumps(
-                    {k: v for k, v in r.items() if k not in ("label", "rank")}), flush=True)
-                check(all(np.isfinite(r["losses"])), f"{label} rank {r['rank']}: non-finite loss")
-                check(r["losses"] == rows[0]["losses"],
-                      f"{label}: rank {r['rank']} reports other losses than rank 0")
-                check((r["kernel"], r["wire"]) == ("hyb", "ragged"),
-                      f"{label}: ran kernel {r['kernel']} on the {r['wire']} wire")
-                want = ["K9", "K10", "K2" if "gat" in label else "K1"]
-                want += ["K8"] if r["overlap"] else []
-                for k in want:
-                    check(r["launches"][k] > 0, f"{label} rank {r['rank']}: no {k} launch")
-                check(r["overlap"] == ("combined" not in label), f"{label}: overlap {r['overlap']}")
-            if "gcn" in label:
-                check(rows[0]["losses"][-1] < rows[0]["losses"][0], f"{label}: loss did not fall")
-            if "bf16" in label:
-                model = label.split()[0]
-                for k in ("K1", "K2", "K8", "K9", "K10"):
-                    launches[k] = launches.get(k, 0) + sum(r["launches"][k] for r in rows)
-                timings[model] = {
-                    "warm_epoch_ms": float(np.mean(rows[0]["epoch_ms"][1:])),
-                    "step_ms": [r["step_ms"] for r in rows],
-                    "launches_per_step": [r["launches_per_step"] for r in rows],
-                    "exchange_ms": [r["exchange_ms"] for r in rows],
-                    "wire_bytes": [r["wire_bytes"] for r in rows],
-                    "kernel_ms_per_step": [r["profile"]["kernel_ms_per_step"] for r in rows],
-                    "copy_ms_per_step": [r["profile"]["copy_ms_per_step"] for r in rows],
-                    "idle_share": [r["profile"]["idle_share"] for r in rows]}
-        for model in ("gcn", "gat"):
-            gap = rel_gap(by_label[f"{model} f32 fused"][0]["losses"], hyb_f32_losses[model])
-            print(f"sharded {model} f32 vs the single-device engine: max relative loss "
-                  f"gap {gap:.3e}", flush=True)
-            check(gap <= 1e-4, f"{model}: 4 ranks and one device differ by {gap:.3e} > 1e-4")
-        gap = rel_gap(by_label["gcn f32 combined"][0]["losses"],
-                      by_label["gcn f32 fused"][0]["losses"])
-        print(f"sharded gcn f32, combined vs fused plan: max relative loss gap {gap:.3e}",
-              flush=True)
-        check(gap <= 1e-5, f"combined and fused plans differ by {gap:.3e} > 1e-5")
+        for model, _ in models:
+            slot = "K2" if model == "gat" else "K1"
+            edge = ["K3", "K4", "K5"] if model == "gat" else ["K3"]
+            for label, kernels, kernel, overlap in (
+                    (f"{model} bf16 fused", ["K8", "K9", "K10", slot], "hyb", True),
+                    (f"{model} f32 fused", ["K8", "K9", "K10", slot], "hyb", True),
+                    (f"{model} bf16 degree pair", ["degree", "K9", "K10", slot], "degree", True),
+                    (f"{model} f32 degree pair", ["degree", "K9", "K10", slot], "degree", True),
+                    (f"{model} f32 xla split", ["K9", "K10"] + edge, "xla", True),
+                    (f"{model} f32 xla combined", ["K9", "K10"] + edge, "xla", False)):
+                need(label, by_label[label], kernels, kernel, overlap)
+            for plan in ("fused", "degree pair"):
+                rows = by_label[f"{model} bf16 {plan}"]
+                if model == "gcn":
+                    check(rows[0]["losses"][-1] < rows[0]["losses"][0],
+                          f"{model} bf16 {plan}: loss did not fall")
+                for k in ("K1", "K2", "K8", "K9", "K10", "degree"):
+                    key = k if plan == "fused" or k == "degree" else f"{k}_degree"
+                    launches[key] = launches.get(key, 0) + sum(r["launches"][k] for r in rows)
+                timings[f"{model} {plan}"] = timing(rows)
+            for plan in ("fused", "degree pair", "xla split"):
+                gap_check(f"sharded {model} f32 {plan} vs the single-device hyb engine",
+                          by_label[f"{model} f32 {plan}"][0]["losses"], hyb_f32_losses[model],
+                          1e-4)
+            split, comb = (by_label[f"{model} f32 xla {p}"] for p in ("split", "combined"))
+            gap_check(f"sharded {model} f32 xla, split vs combined", split[0]["losses"],
+                      comb[0]["losses"], 1e-5)
+            for a, b in zip(split, comb):
+                k3 = [r["launches_per_step"].get("K3", 0) for r in (a, b)]
+                check(k3[1] > 0 and k3[0] == 2 * k3[1],
+                      f"{model} xla split: K3 launches per step {k3[0]} against the "
+                      f"combined path's {k3[1]}")
+            timings[f"{model} xla split"] = timing(split)
+            timings[f"{model} xla combined"] = timing(comb)
+        need("gcn f32 combined", by_label["gcn f32 combined"], ["K1", "K9", "K10"], "hyb",
+             False)
+        need("gcn f32 degree combined", by_label["gcn f32 degree combined"],
+             ["degree", "K1", "K9", "K10"], "degree", False)
+        gap_check("sharded gcn f32, combined vs fused plan",
+                  by_label["gcn f32 combined"][0]["losses"],
+                  by_label["gcn f32 fused"][0]["losses"], 1e-5)
+        gap_check("sharded gcn f32 degree, pair vs combined plan",
+                  by_label["gcn f32 degree pair"][0]["losses"],
+                  by_label["gcn f32 degree combined"][0]["losses"], 1e-5)
+        timings["gcn f32 degree pair"] = timing(by_label["gcn f32 degree pair"])
+        timings["gcn f32 degree combined"] = timing(by_label["gcn f32 degree combined"])
 
-        # 6b. card vs CPU on the planted graph, and predict() in global order
+        # 6e. pair reuse on the community graph's shards
+        runs = [run(f"{model} bf16 reuse={reuse}", "community", timed=True, reuse=reuse,
+                    **bf16, **kw)
+                for model, kw in models for reuse in ("pairs", "off")]
+        runs[-2]["profile"] = runs[-1]["profile"] = True  # the last two: GAT
+        by_c = launch("6e", runs)
+        for model, _ in models:
+            pairs, off = (by_c[f"{model} bf16 reuse={r}"] for r in ("pairs", "off"))
+            need(f"{model} reuse=pairs", pairs, ["K6", "K2", "K9", "K10"], "hyb", False)
+            need(f"{model} reuse=off", off, ["K2" if model == "gat" else "K1", "K9", "K10"],
+                 "hyb", True)
+            for r in pairs:
+                check(r["fwd_pairs"] > 0 and r["bwd_pairs"] > 0,
+                      f"{model} reuse=pairs rank {r['rank']}: mined no pairs")
+            gap_check(f"sharded community {model}: reuse vs off", pairs[0]["losses"],
+                      off[0]["losses"], 1e-2)
+            for k in ("K6", "K2"):
+                launches[f"{k}_reuse"] = launches.get(f"{k}_reuse", 0) + sum(
+                    r["launches"][k] for r in pairs)
+            timings[f"{model} community pairs"] = dict(
+                timing(pairs), mine_s=[r["mine_s"] for r in pairs],
+                fwd_pairs=[r["fwd_pairs"] for r in pairs],
+                row_cut=[r["row_cut"] for r in pairs])
+            timings[f"{model} community off"] = timing(off)
+
+        # 6b. card vs CPU on the small graphs, and predict() in global order
         runs = [run("planted gcn", "planted", predict=True, epochs=10),
-                run("planted gat", "planted", predict=True, **gat)]
-        on_card = spawn_local(RANKS, sharded_rank, (shard_dir, runs), backend="gloo",
-                              device="cuda:0", timeout_s=300)
-        on_cpu = spawn_local(RANKS, sharded_rank, (shard_dir, runs), backend="gloo",
-                             device="cpu", timeout_s=300)
-        for i, r in enumerate(runs):
-            gap = rel_gap(on_card[0][i]["losses"], on_cpu[0][i]["losses"])
-            print(f"4 ranks on the card vs 4 on the CPU, {r['label']}: max relative loss gap "
-                  f"{gap:.3e} over {len(on_cpu[0][i]['losses'])} epochs", flush=True)
-            check(gap <= 1e-5, f"{r['label']}: card and CPU ranks differ by {gap:.3e} > 1e-5")
+                run("planted gat", "planted", predict=True, **gat),
+                run("planted gcn degree pair", "planted", kernel="degree", epochs=10),
+                run("planted gat degree pair", "planted", kernel="degree", **gat),
+                run("smallcomm gcn pairs", "smallcomm", reuse="pairs", reuse_passes=2),
+                run("smallcomm gat pairs", "smallcomm", reuse="pairs", reuse_passes=2, **gat)]
+        on_card = launch("6b (card)", runs, timeout_s=300)
+        on_cpu = launch("6b (CPU)", runs, device="cpu", timeout_s=300)
+        for r in runs:
+            label = r["label"]
+            gap_check(f"4 ranks on the card vs 4 on the CPU, {label}",
+                      on_card[label][0]["losses"], on_cpu[label][0]["losses"], 1e-5)
+            if not r["predict"]:
+                continue
             single = Engine(gp, layers, TrainConfig(**r["cfg"]), device="cuda")
             single.run()
             want = single.predict()
             for k in range(RANKS):
-                got = on_card[k][i]["predict"]
+                got = on_card[label][k]["predict"]
                 err = float(np.abs(got - want).max()) / float(np.abs(want).max())
                 check(got.shape == want.shape and err <= 1e-3,
-                      f"{r['label']}: rank {k}'s predict() is {err:.3e} off the single-device "
+                      f"{label}: rank {k}'s predict() is {err:.3e} off the single-device "
                       "engine's")
             print(f"  predict() in global order vs the single-device engine: rel err {err:.3e}",
                   flush=True)
@@ -1170,17 +1355,20 @@ def main() -> None:
         from dorylus_tpu_torch.engine.engine import (Engine, _max_agg_width,
                                                      resolve_reuse_budget)
         from dorylus_tpu_torch.graph.graph import Graph, build_graph, synthetic_graph
-        from dorylus_tpu_torch.graph.partition import partition_graph
+        from dorylus_tpu_torch.graph.partition import partition_graph, shard_edges
         from dorylus_tpu_torch.graph.reorder import apply_order, degree_order
         from dorylus_tpu_torch.graph.reuse import mine_reuse
         from dorylus_tpu_torch.ops import (cuda_build, degree_spmm, hyb_sharded, hyb_spmm,
                                            reuse_spmm, spmm)
+        from dorylus_tpu_torch.ops.degree_sharded import ShardedDegreeSpMM
         from dorylus_tpu_torch.ops.degree_spmm import DegreeSpMM
         from dorylus_tpu_torch.ops.hyb_sharded import ShardedHybSpMM
         from dorylus_tpu_torch.ops.hyb_spmm import HybSpMM
+        from dorylus_tpu_torch.ops.reuse_sharded import ShardedReuseSpMM
         from dorylus_tpu_torch.ops.reuse_spmm import ReuseSpMM
         from dorylus_tpu_torch.ops.spmm import EdgeSpMM
         from dorylus_tpu_torch.parallel import halo
+        from dorylus_tpu_torch.tools import probe_prims
     except ImportError as e:
         fail(f"run from the root of a checkout that holds dorylus_tpu_torch ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1195,10 +1383,10 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}",
           flush=True)
 
-    # 2. build the six libraries at once; the host's pair miner
+    # 2. build the seven libraries at once; the host's pair miner
     t0 = time.perf_counter()
     sources = [hyb_spmm._CSRC, spmm._CSRC, hyb_spmm._DYN_CSRC, reuse_spmm._CSRC,
-               hyb_sharded._CSRC, halo._CSRC]
+               hyb_sharded._CSRC, halo._CSRC, probe_prims._CSRC]
     try:
         info = cuda_build.compile_sources(sources)
         hyb_spmm.build_kernel()
@@ -1207,6 +1395,7 @@ def main() -> None:
         reuse_spmm.build_kernel()
         hyb_sharded.build_kernel()
         halo.build_kernel()
+        probe_prims.build_kernel()
     except RuntimeError as e:
         fail(f"kernel build: {e}")
     print(f"kernel builds: {time.perf_counter() - t0:.2f} s wall", flush=True)
@@ -1273,6 +1462,51 @@ def main() -> None:
             if static and gd is None:
                 hub_fop = fop
     del csr0
+
+    # 3h. the sharded degree op on the same shard: its three plans, the
+    # interior and boundary hyb plans, the pair against the combined plan
+    sharded_degree_results = []
+    deg_ops = {}
+    for edges in ("combined", "interior", "boundary"):
+        es, ed, ev = shard_edges(shard0, edges)
+        csr_e = csr_pattern(es, ed, sg.vp)
+        csr_e["norm"] = torch.tensor(ev, device="cuda")
+        csr_e["src_rows"] = int(np.unique(es).size)
+        for gd in (torch.bfloat16, None):
+            t0 = time.perf_counter()
+            dop = ShardedDegreeSpMM(shard0, RANKS, edges=edges, static_vals=True,
+                                    gather_dtype=gd, device="cuda")
+            print(f"sharded degree plans ({edges}, {gd}): {dop.num_edges} edges, table "
+                  f"{dop.num_in} rows ({csr_e['src_rows']} read), "
+                  f"{dop.fwd['part']['rows'].shape[0]} block rows "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            deg_ops[edges, gd] = dop
+            for f in (128, 41):
+                sharded_degree_results.append(compare_degree(
+                    f"reddit_shard0_{edges}", dop, f, seed=f + 30,
+                    timed=gd is torch.bfloat16 or f == 128, csr=csr_e, key="degree_sharded"))
+            if edges != "combined":
+                hop_e = ShardedHybSpMM(shard0, RANKS, edges=edges, static_vals=True,
+                                       gather_dtype=gd, device="cuda")
+                for f in (128, 41):
+                    compare_hyb_split(f"reddit_shard0_{edges}", hop_e, f, seed=f + 31)
+                del hop_e
+        del csr_e
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    pair_vs_combined = {"case": "reddit_shard0 interior+boundary vs combined", "F": 128}
+    h0, gh0 = randn(gen, sg.vp, 128), randn(gen, RANKS * sg.max_h, 128)
+    t0_ = torch.cat([h0, gh0])
+    for gd, dtype in ((None, "float32"), (torch.bfloat16, "bfloat16")):
+        op_c, op_i, op_b = (deg_ops[e, gd] for e in ("combined", "interior", "boundary"))
+        pair_vs_combined["dtype"] = dtype
+        close(pair_vs_combined, None, f"{dtype}_pair", op_i.apply_static(h0)
+              + op_b.apply_static(gh0), op_c.apply_static(t0_), dtype)
+        pair_vs_combined[f"{dtype}_pair_ms"] = cuda_ms(
+            lambda: op_i.apply_static(h0) + op_b.apply_static(gh0), 20)
+        pair_vs_combined[f"{dtype}_combined_ms"] = cuda_ms(lambda: op_c.apply_static(t0_), 20)
+    print("compare " + json.dumps(pair_vs_combined), flush=True)
+    del deg_ops, h0, gh0, t0_
+    torch.cuda.empty_cache()
     # cnt[owner, receiver]: the exact ghost rows of each pair
     cnt = np.stack([halo.ghost_counts(s, RANKS, sg.vp, sg.max_h) for s in sg.shards], axis=1)
     counts0 = (cnt[0], cnt[:, 0])
@@ -1409,12 +1643,112 @@ def main() -> None:
         for dtype in ("float32", "bfloat16"):
             for f in (128, 41):
                 pair_results.append(compare_pairs(case, lv, size, cv, f, dtype, seed=11 + f))
-    reuse_results = [compare_reuse(rop, hop, cv, f, gd, seed=13 + f)
+    reuse_results = [compare_reuse(rop, hop, f, gd, seed=13 + f)
                      for gd in (torch.bfloat16, None) for f in (128, 41)]
     ref_op = HybSpMM(psrc, pdst, 20_000, 20_000, max_width=8, static_val=pval,
                      dynamic=True, device="cuda")
     refuses_bad_input(ref_op, peop, rop, hub_fop)
     del rop, hop, ref_op, peop, levels2, hub_fop, csr
+    torch.cuda.empty_cache()
+
+    # 3i. the sharded reuse op on rank 0's shard of the community graph
+    t0 = time.perf_counter()
+    sgc = partition_graph(cg, RANKS)
+    cshard = sgc.shards[0]
+    ctable = sgc.vp + RANKS * sgc.max_h
+    print(f"community graph, {RANKS}-way range partition: vp {sgc.vp}, max_h {sgc.max_h}, "
+          f"edges per shard {[s_.num_edges for s_ in sgc.shards]} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    cap_s, on = resolve_reuse_budget(reuse_cfg, ctable, _max_agg_width(layers, reuse_cfg, ctable))
+    check(on, "the sharded pair budget turned reuse off")
+    # the ghosts' factors as each owner holds them (the engine's ranks
+    # exchange them; here one process holds every shard)
+    f_loc = [np.sqrt(s_.self_val) for s_ in sgc.shards]
+    f_ghost = np.concatenate([f_loc[q][sgc.shards[q].send_idx[0]] for q in range(RANKS)])
+    srop = ShardedReuseSpMM(cshard, RANKS, rank1_factor=np.concatenate([f_loc[0], f_ghost]),
+                            gather_dtype=torch.bfloat16, max_pairs=cap_s, device="cuda")
+    shop = ShardedHybSpMM(cshard, RANKS, gather_dtype=torch.bfloat16, device="cuda")
+    st = srop.plan_fwd.stats
+    sharded_reuse_info = {
+        "miner": srop.miner, "mine_s": list(srop.mine_seconds), "cap": cap_s,
+        "fwd_pairs": srop.plan_fwd.num_pairs, "bwd_pairs": srop.plan_bwd.num_pairs,
+        "rows_before": st["rows_before"], "rows_after": st["rows_after"],
+        "row_cut": st["row_reduction"], "table_rows": ctable, "edges": cshard.num_edges}
+    print("sharded reuse op, community shard 0: " + json.dumps(sharded_reuse_info), flush=True)
+    check(srop.num_pairs > 0 and srop.plan_bwd.num_pairs > 0, "the shard mined no pairs")
+    for case, lv, size, base in (
+            ("community_shard0_fwd", list(srop.lvl_fwd), srop.fwd_table_size, srop.num_in),
+            ("community_shard0_bwd", list(srop.lvl_bwd), srop.bwd_table_size, srop.num_out)):
+        for dtype in ("float32", "bfloat16"):
+            for f in (128, 41):
+                pair_results.append(compare_pairs(case, lv, size, base, f, dtype, seed=17 + f))
+    sharded_reuse_results = [
+        compare_reuse(srop, shop, f, gd, seed=19 + f, case="community_shard0",
+                      key="reuse_sharded")
+        for gd in (torch.bfloat16, None) for f in (128, 41)]
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    tb = randn(gen, ctable, 128)
+    rank1 = {"case": "community_shard0 apply_static", "F": 128}
+    close(rank1, None, "rank1", srop.apply_static(tb),
+          shop.apply_unit(tb * srop.f_in[:, None]) * srop.f_out[:, None], "bfloat16")
+    print("compare " + json.dumps(rank1), flush=True)
+    del srop, shop, tb
+    torch.cuda.empty_cache()
+
+    # 3j. the primitive probes: a fast first check, then the probe's main
+    # path with its launch counts set to 0 just before. `measure` holds each
+    # timed launch (100,000 ops a stream, the card's grid, both P3 tables)
+    # against its plain version on the same inputs: the errors of the
+    # `kernels` line are those, at the shape that is timed and counted.
+    print("probes vs plain at 2,000 ops a stream, max abs err: "
+          + json.dumps(probe_prims.check_against_plain("cuda")), flush=True)
+    for k in probe_prims.LAUNCHES:
+        probe_prims.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    # P3 on a third table of K1's size (60 MB: the bf16 Reddit table), beside
+    # the tool's 32 MB (in the L2) and 1 GB (device memory)
+    probe_res = probe_prims.measure("cuda", n_ops=100_000,
+                                    dma_rows=(65_536, 117_188, 1 << 21))
+    probe_launches = dict(probe_prims.LAUNCHES)
+    probe_err = {k: probe_res[k]["max_abs_err"] for k in probe_launches}
+    print(f"probes ({time.perf_counter() - t0:.1f} s): " + json.dumps(probe_res), flush=True)
+    # The library yardsticks, timed here and used nowhere in the port, on the
+    # tensors `measure` ran on: P1's function is one `embedding_bag` (a bag a
+    # stream, summed), P2's one `bincount` over idx + stream * blocks (spread
+    # over the row-block as the scratch is), P3's one `index_select` of each
+    # stream's last 16 rows. No single call sums P4's cycled gathers.
+    inp, blocks = probe_prims.card_inputs("cuda")
+    ptab, pidx = inp.tiles(blocks, probe_res["n_ops"])
+    bags = pidx.long()
+    flat = (bags + blocks * torch.arange(len(pidx), device="cuda")[:, None]).flatten()
+
+    def p1_library():
+        return torch.nn.functional.embedding_bag(bags, ptab.view(blocks, -1), mode="sum")
+
+    def p2_library():
+        return torch.bincount(flat, minlength=len(pidx) * blocks)
+
+    # (one serial f32 chain a bag: 1e-3 here, where the kernel holds 1e-4)
+    ref = probe_prims.dyn_load_plain(ptab, pidx)
+    lib_err = float((p1_library().view(-1, 8, 128) - ref).abs().max())
+    check(lib_err <= 1e-3 * float(ref.abs().max()),
+          f"P1: embedding_bag differs from the plain version by {lib_err:.3e}")
+    del ref
+    check(torch.equal(p2_library().view(-1, blocks).float(),
+                      probe_prims.dyn_rmw_plain(pidx, blocks)[:, :, 0, 0]),
+          "P2: bincount differs from the plain version")
+    probe_lib = {"P1": library_ms(p1_library, "embedding_bag"),
+                 "P2": library_ms(p2_library, "bincount"), "P4": None}
+    del ptab, pidx, bags, flat
+    ptab, pidx = inp.copies(65_536, probe_res["n_ops"])
+    last = pidx[:, -probe_prims.DEPTH:].flatten()  # op i sits in slot i % 16: in order here
+    check(probe_res["n_ops"] % probe_prims.DEPTH == 0, "P3: the ring's slots are rotated")
+    check(torch.equal(torch.index_select(ptab, 0, last).view(-1, probe_prims.DEPTH, 128),
+                      probe_prims.row_copy_plain(ptab, pidx)),
+          "P3: index_select differs from the plain version")
+    probe_lib["P3"] = library_ms(lambda: torch.index_select(ptab, 0, last), "index_select")
+    print("probe library calls, ms: " + json.dumps(probe_lib), flush=True)
+    del ptab, pidx, last, inp
     torch.cuda.empty_cache()
 
     # 4. main path, GCN
@@ -1586,7 +1920,7 @@ def main() -> None:
 
     # 6, 6b, 6c. the sharded engine: 4 ranks on the card
     torch.cuda.empty_cache()
-    sharded = sharded_phases(sg, layers, hyb_f32_losses, sources)
+    sharded = sharded_phases(sg, sgc, layers, hyb_f32_losses, sources)
 
     def pick(rows, **kw):
         return next(r for r in rows if all(r.get(k) == x for k, x in kw.items()))
@@ -1604,6 +1938,10 @@ def main() -> None:
     # the exchange on the exact wire in the compute dtype (f32).
     k8 = pick(fused_results, case="reddit_shard0", mode="static", dtype="bfloat16", F=128)
     kh = pick(halo_results, wire="ragged", dtype="float32", F=128)
+    # This slice's paths: rank 0's combined degree plan (6d's combined run and
+    # the pair's two halves run the same pass), its reuse pass (6e).
+    ks = pick(sharded_degree_results, case="reddit_shard0_combined", dtype="bfloat16", F=128)
+    ksr = pick(sharded_reuse_results, dtype="bfloat16", F=128)
 
     def lib(r):
         ms = r.get("library_ms")
@@ -1637,12 +1975,52 @@ def main() -> None:
                    degree_counts, kd["static_fwd_ms"], kd["static_fwd_plain_ms"], kd),
         "reuse": ("reuse_unit_pass", "hyb_spmm.cu", "dorylus_tpu/ops/reuse_spmm.py:47",
                   reuse_counts["K2"], kr["fwd_ms"], kr["fwd_plain_ms"], kr),
+        # K7's backward with the fused dval: one counter serves K7's forward
+        # and backward launches (each step has as many of each)
+        "K7 backward": ("hyb_dynamic_pass_bwd", "dyn_spmm.cu", "dorylus_tpu/ops/hyb_spmm.py:476",
+               dyn_counts, k7["bwd_ms"], k7["bwd_plain_ms"], dict(k7["bwd"], library_ms=None)),
+        "degree_sharded": ("sharded_degree_pass", "hyb_spmm.cu",
+                           "dorylus_tpu/ops/degree_sharded.py:72",
+                           sharded["launches"]["degree"], ks["static_fwd_ms"],
+                           ks["static_fwd_plain_ms"], ks),
+        "reuse_sharded": ("sharded_reuse_pass", "hyb_spmm.cu",
+                          "dorylus_tpu/ops/reuse_sharded.py:120",
+                          sharded["launches"]["K2_reuse"], ksr["fwd_ms"], ksr["fwd_plain_ms"],
+                          ksr),
     }
-    kernels = [{"name": name, "route": "cuda", "source": src_dir + source,
-                "replaces": replaces, "launches": launches, "max_abs_err": MAX_ERR[k],
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": lib(row)}
-               for k, (name, source, replaces, launches, ms, plain_ms, row) in entry.items()]
+    kernels = []
+
+    def add(key, name, source, replaces, launches, ms, plain_ms, row):
+        kernels.append({"name": name, "route": "cuda", "source": src_dir + source,
+                        "replaces": replaces, "launches": launches,
+                        "max_abs_err": {**MAX_ERR, **probe_err}[key.split()[0]],
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"], "library_ms": lib(row)})
+
+    for k, fields in entry.items():
+        add(k, *fields)
+    # The probes, on the grid that fills the card: each input once, each
+    # output once; one f32 add per summed element.
+    n_ops, tiles = probe_res["n_ops"], 8 * 128
+    p1, p2, p4 = (probe_res[k]["card"] for k in ("P1", "P2", "P4"))
+    p3_tab = probe_res["P3"]["tables"]["65536"]
+    p3 = p3_tab["card"]
+    probe_rows = {
+        "P1": ("probe_dyn_load", ":66", p1, probe_res["P1"]["plain_ms"], bound(
+            probe_res["table_bytes"] + p1["streams"] * (n_ops * 4 + tiles * 4),
+            p1["streams"] * n_ops * tiles)),
+        "P2": ("probe_dyn_rmw", ":76", p2, probe_res["P2"]["plain_ms"], bound(
+            p2["streams"] * (n_ops * 4 + probe_res["table_bytes"]),
+            p2["streams"] * n_ops * tiles)),
+        "P3": ("probe_row_copy", ":123", p3, p3_tab["plain_ms"], bound(
+            min(p3_tab["table_bytes"], p3["streams"] * n_ops * 512)
+            + p3["streams"] * (n_ops * 4 + 16 * 512), 0)),
+        "P4": ("probe_lane_gather", ":154", p4, probe_res["P4"]["plain_ms"], bound(
+            2 * p4["streams"] * tiles * 4 + 64 * 128 * 4, p4["streams"] * n_ops * tiles)),
+    }
+    for k, (name, line, card_row, plain_ms, row) in probe_rows.items():
+        add(k, name, "probe_prims.cu", "tools/probe_pallas_prims.py" + line, probe_launches[k],
+            card_row["ms"], plain_ms, dict(row, library_ms=probe_lib[k]))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on its main path")
     print("timings " + json.dumps({"gcn_hyb_bf16": gcn_times, "gat_hyb_bf16": gat_times,
@@ -1651,7 +2029,10 @@ def main() -> None:
                                    "degree_bf16": degree_times,
                                    "community_bf16": reuse_times,
                                    "gcn_value_ops_bf16": dyn_times,
-                                   "sharded_4_ranks_bf16": sharded["timings"]}), flush=True)
+                                   "sharded_4_ranks": sharded["timings"],
+                                   "sharded_reuse_shard0": sharded_reuse_info,
+                                   "degree_pair_vs_combined_shard0": pair_vs_combined}),
+          flush=True)
     print(f"nvidia-smi: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

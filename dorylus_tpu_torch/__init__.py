@@ -11,14 +11,17 @@ layout and names so each module's counterpart is easy to find:
                (in, out) layout), the reference initializers
     ops/       activations/loss, the hybrid-ELL and degree plan builders
                (numpy), the aggregation ops (HybSpMM, DegreeSpMM, ReuseSpMM,
-               EdgeSpMM, ShardedHybSpMM) and their hand-written CUDA kernels
-               (ops/csrc/)
+               EdgeSpMM, ShardedHybSpMM, ShardedDegreeSpMM, ShardedReuseSpMM)
+               and their hand-written CUDA kernels (ops/csrc/)
     optim/     Adam with the reference math, SGD, LR decay
     engine/    batch building, the converge monitor, the single-device
                epoch loop
     parallel/  one process per shard over torch.distributed: launch and
                env init (multihost), the halo exchange (halo) and the
                sharded engine (train_step)
+    tools/     probe_prims: the card's primitive rates (shared-memory row
+               loads, read-modify-write, per-row cp.async copies, indexed
+               shuffles), the counterparts of tools/probe_pallas_prims.py
     interop.py numpy <-> torch carriers for params and Adam state
 
 The port imports torch and never jax, and nothing of `dorylus_tpu`: what it

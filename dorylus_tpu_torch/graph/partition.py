@@ -349,6 +349,29 @@ def build_recv_plan(send_idx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return order, flat[order].astype(np.int32)
 
 
+def shard_edges(shard: Shard, edges: str = "combined"
+                ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(src, dst, val) of one shard's REAL edges, no pad edge, for one edge
+    set: "combined" (src into [0, vp + n * max_h)), "interior" (src local,
+    into [0, vp)) or "boundary" (src rebased into the ghost rows
+    [0, n * max_h)). The split is taken from the combined arrays (an edge is
+    interior when its source is a local row), so it serves a shard loaded
+    from its file as well; it equals `src_int[:num_int]` etc. as
+    `partition_graph` lays them out (both keep the dst-ascending order)."""
+    e = shard.num_edges
+    src, dst, val = (np.asarray(a[:e]) for a in (shard.src, shard.dst, shard.edge_val))
+    if edges == "combined":
+        return src, dst, val
+    vp = shard.x.shape[0]
+    if edges == "interior":
+        keep = src < vp
+        return src[keep], dst[keep], val[keep]
+    if edges == "boundary":
+        keep = src >= vp
+        return src[keep] - np.int32(vp), dst[keep], val[keep]
+    raise ValueError(f"edges={edges!r}: \"combined\", \"interior\" or \"boundary\"")
+
+
 @dataclass
 class ShardMeta:
     """What a rank needs of the whole partition beside its own Shard."""
@@ -375,8 +398,8 @@ _SHARD_INTS = ("shard_id", "num_local", "num_edges", "num_int")
 def save_shard(path, shard: Shard, meta: ShardMeta) -> None:
     """One shard and the partition's scalars as an .npz: what the parent of
     a local launch hands each rank. Edge arrays are cut to the real edges
-    (a rank pads nothing); the interior/boundary split is left out (the
-    port's paths read the combined arrays)."""
+    (a rank pads nothing); the interior/boundary split is left out
+    (`shard_edges` takes it from the combined arrays)."""
     e = shard.num_edges
     arrays = {k: getattr(shard, k) for k in _SHARD_ARRAYS}
     for k in ("src", "dst", "edge_val"):

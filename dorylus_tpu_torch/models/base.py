@@ -3,7 +3,7 @@ dorylus_tpu/models/base.py; the batch's shape contract is unchanged)."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -24,23 +24,63 @@ class GraphBatch(NamedTuple):
     val_mask: torch.Tensor  # (V,) float32
     test_mask: torch.Tensor  # (V,) float32
     denom: torch.Tensor  # () float32 = |V_global| * TRAIN_PORTION
+    # Interior/boundary edge split (the sharded overlap path; None when
+    # unused). When present, models treat the halo callable as returning
+    # ghost rows only: interior edges gather from local h (src into
+    # [0, vp)), boundary edges from the ghost rows (src into
+    # [0, n * max_h)); both dst-ascending. Zero-length stubs where the
+    # split ops' plans carry what aggregation reads.
+    src_int: Optional[torch.Tensor] = None
+    dst_int: Optional[torch.Tensor] = None
+    val_int: Optional[torch.Tensor] = None
+    src_bnd: Optional[torch.Tensor] = None
+    dst_bnd: Optional[torch.Tensor] = None
+    val_bnd: Optional[torch.Tensor] = None
 
 
 Params = Dict[str, torch.Tensor]
 # The sharded engine's exchange (parallel/halo.py make_halo_fn): h -> the
 # feature table (local rows, then ghosts), or the ghost rows only on the
-# fused-overlap path.
+# overlap paths (the fused plan, the (interior, boundary) op pair, the
+# edgewise split).
 HaloFn = Callable[[torch.Tensor], torch.Tensor]
 
 
 def check_split(spmm_split) -> None:
-    """The models take one overlap op: the fused plan. JAX's (interior,
-    boundary) op pair is still to port."""
-    if spmm_split is not None and not getattr(spmm_split, "fused", False):
-        raise NotImplementedError(
-            "spmm_split: only the fused-overlap op (ShardedHybSpMM "
-            "edges=\"fused\") is ported; the (interior, boundary) op pair "
-            "and the edgewise split are ROADMAP.md queue 2 item 8")
+    """What the models take as `spmm_split`: None, the fused-overlap op
+    (ShardedHybSpMM edges="fused"), or an (interior, boundary) pair of ops
+    with the aggregation protocol that write the same rows (JAX's
+    `op_i, op_b = self.spmm_split`)."""
+    if spmm_split is None or getattr(spmm_split, "fused", False):
+        return
+    pair = isinstance(spmm_split, (tuple, list)) and len(spmm_split) == 2
+    if not pair or any(getattr(op, "fused", False) or not hasattr(op, "apply_dst")
+                       for op in spmm_split):
+        raise ValueError("spmm_split: the fused-overlap op or an (interior, "
+                         f"boundary) op pair, got {spmm_split!r}")
+    op_i, op_b = spmm_split
+    if op_i.num_out != op_b.num_out or op_i.has_static_vals != op_b.has_static_vals:
+        raise ValueError("spmm_split: the interior and boundary ops must write the "
+                         "same rows and both hold static values or neither")
+
+
+def check_edge_split(edge_split) -> None:
+    """The edgewise split's structures: an (interior, boundary) pair of
+    EdgeSpMM over the same output rows."""
+    if edge_split is None:
+        return
+    if not (isinstance(edge_split, (tuple, list)) and len(edge_split) == 2
+            and edge_split[0].num_out == edge_split[1].num_out):
+        raise ValueError("edge_split: an (interior, boundary) pair of EdgeSpMM over "
+                         f"the same output rows, got {edge_split!r}")
+
+
+def split_of(spmm_split, edge_split):
+    """The op a model places its parameters by, among its split ops."""
+    for ops in (spmm_split, edge_split):
+        if ops is not None:
+            return ops[0] if isinstance(ops, (tuple, list)) else ops
+    return None
 
 
 class GNN(nn.Module):

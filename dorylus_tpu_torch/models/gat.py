@@ -23,10 +23,13 @@ Aggregation:
 
 Sharded (`halo` given): with the fused-overlap op (`spmm_split`) `halo(z)`
 returns the ghost z rows only and `apply_dst_fused(z, ghosts, leaky(za))`
-takes both (JAX's overlap branch); otherwise `halo(z)` returns the feature
-table and the combined op or the edgewise op gathers from it. The
-(interior, boundary) op pair and the edgewise split are still to port
-(ROADMAP.md queue 2 item 8).
+takes both (JAX's overlap branch); with the (interior, boundary) op pair
+(`spmm_split` a 2-tuple, the degree kernel's overlap plan) two `apply_dst`
+passes, interior over z and boundary over the ghosts, both weighted by the
+same local leaky(za); with the edgewise split (`edge_split`, two EdgeSpMM)
+two CSR SpMMs with att over `dst_int` and `dst_bnd`. Autograd sums the two
+contributions to d(att). Otherwise `halo(z)` returns the feature table and
+the combined op or the edgewise op gathers from it.
 
 Not ported: the `past_agg_cliff` regime branch (`models/gat.py:245-264`,
 aggregate h at its input width and transform after). It models a TPU
@@ -42,7 +45,8 @@ import torch
 
 from dorylus_tpu_torch.common.config import LayerConfig
 from dorylus_tpu_torch.models import init as winit
-from dorylus_tpu_torch.models.base import GNN, GraphBatch, HaloFn, Params, check_split
+from dorylus_tpu_torch.models.base import (GNN, GraphBatch, HaloFn, Params,
+                                           check_edge_split, check_split, split_of)
 from dorylus_tpu_torch.ops.activations import leaky_relu
 from dorylus_tpu_torch.ops.spmm import (EdgeSpMM, spmm_dst_blocked,
                                         spmm_edgewise, take_sorted)
@@ -55,23 +59,27 @@ class GAT(GNN):
     spmm_op: an aggregation op with `apply_dst` (HybSpMM, DegreeSpMM or
     ReuseSpMM), or None for the edgewise path, which needs `edge_op`.
     blk_rows > 0 takes JAX's dst-blocked branch (same sum, same op).
-    spmm_split: the fused-overlap op of the sharded engine (in place of
-    spmm_op)."""
+    spmm_split: the sharded engine's overlap op, the fused plan or an
+    (interior, boundary) pair (in place of spmm_op); edge_split: the
+    (interior, boundary) EdgeSpMM pair of the edgewise split (in place of
+    edge_op)."""
 
     def __init__(self, layers: LayerConfig, spmm_op=None,
                  edge_op: EdgeSpMM | None = None, blk_rows: int = 0,
-                 spmm_split=None):
+                 spmm_split=None, edge_split=None):
         super().__init__()
-        if spmm_op is None and edge_op is None and spmm_split is None:
+        if spmm_op is None and edge_op is None and spmm_split is None and edge_split is None:
             raise ValueError("GAT needs an aggregation op (spmm_op or "
-                             "spmm_split) or an EdgeSpMM (edge_op)")
+                             "spmm_split) or an EdgeSpMM (edge_op or edge_split)")
         check_split(spmm_split)
+        check_edge_split(edge_split)
         self.layers = layers
         self.spmm_op = spmm_op
         self.spmm_split = spmm_split
         self.edge_op = edge_op
+        self.edge_split = edge_split
         self.blk_rows = blk_rows
-        device = (spmm_op or edge_op or spmm_split).device
+        device = (spmm_op or edge_op or split_of(spmm_split, edge_split)).device
         dims = layers.dims
         for l in range(layers.num_layers):
             self._add_param(f"w{l}", (dims[l], dims[l + 1]), device)
@@ -93,9 +101,9 @@ class GAT(GNN):
 
     def _aggregate(self, z: torch.Tensor, za: torch.Tensor, batch: GraphBatch,
                    edge_mask: torch.Tensor, halo: HaloFn | None = None) -> torch.Tensor:
-        if self.spmm_split is not None and halo is not None:
-            # Fused overlap: halo returns the ghost z rows only.
-            return self.spmm_split.apply_dst_fused(z, halo(z), leaky_relu(za)).to(z.dtype)
+        if halo is not None and (self.spmm_split is not None
+                                 or self.edge_split is not None):
+            return self._aggregate_split(z, za, batch, halo(z))
         table = halo(z) if halo is not None else z
         if self.spmm_op is not None:
             return self.spmm_op.apply_dst(table, leaky_relu(za)).to(z.dtype)
@@ -105,6 +113,26 @@ class GAT(GNN):
             return spmm_dst_blocked(table, batch.src, batch.dst, att, v,
                                     self.blk_rows, op=op)
         return spmm_edgewise(table, batch.src, batch.dst, att, v, op=op)
+
+    def _aggregate_split(self, z: torch.Tensor, za: torch.Tensor, batch: GraphBatch,
+                         ghosts: torch.Tensor) -> torch.Tensor:
+        """The overlap paths: `ghosts` are the ghost z rows alone."""
+        if getattr(self.spmm_split, "fused", False):
+            return self.spmm_split.apply_dst_fused(z, ghosts, leaky_relu(za)).to(z.dtype)
+        if self.spmm_split is not None:
+            # Two dst-functional passes, both weighted by the local
+            # attention vector.
+            op_i, op_b = self.spmm_split
+            att_v = leaky_relu(za)
+            return (op_i.apply_dst(z, att_v) + op_b.apply_dst(ghosts, att_v)).to(z.dtype)
+        eop_i, eop_b = self.edge_split
+        v = z.shape[0]
+        att_i = (leaky_relu(take_sorted(za, batch.dst_int, v, op=eop_i))
+                 * batch.val_int.to(za.dtype))
+        att_b = (leaky_relu(take_sorted(za, batch.dst_bnd, v, op=eop_b))
+                 * batch.val_bnd.to(za.dtype))
+        return (spmm_edgewise(z, batch.src_int, batch.dst_int, att_i, v, op=eop_i)
+                + spmm_edgewise(ghosts, batch.src_bnd, batch.dst_bnd, att_b, v, op=eop_b))
 
     def forward(self, batch: GraphBatch,
                 compute_dtype: torch.dtype = torch.float32,

@@ -31,9 +31,12 @@ op (`spmm_op` a ShardedHybSpMM, or the edgewise op over the shard's edges)
 aggregation gathers from it (JAX `_agg_halo`); with the fused-overlap op
 (`spmm_split`, ShardedHybSpMM edges="fused") `halo(x)` returns the ghost
 rows only and `apply_static_fused(x, ghosts)` takes both (JAX's fused
-branch of `_aggregate_split`). The (interior, boundary) op pair and the
-edgewise split are still to port (ROADMAP.md queue 2 item 8), as is tensor
-parallelism.
+branch of `_aggregate_split`). The other two overlap paths take the ghost
+rows the same way and add two passes (JAX `_aggregate_split`): the
+(interior, boundary) op pair (`spmm_split` a 2-tuple, the degree kernel's
+overlap plan: interior over x, boundary over the ghosts) and the edgewise
+split (`edge_split`, two EdgeSpMM over the batch's `src_int ... val_bnd`).
+The interior pass reads no ghost row. Tensor parallelism is still to port.
 """
 
 from __future__ import annotations
@@ -42,8 +45,10 @@ import torch
 
 from dorylus_tpu_torch.common.config import LayerConfig
 from dorylus_tpu_torch.models import init as winit
-from dorylus_tpu_torch.models.base import GNN, GraphBatch, HaloFn, Params, check_split
-from dorylus_tpu_torch.ops.spmm import EdgeSpMM, aggregate, spmm_dst_blocked
+from dorylus_tpu_torch.models.base import (GNN, GraphBatch, HaloFn, Params,
+                                           check_edge_split, check_split, split_of)
+from dorylus_tpu_torch.ops.spmm import (EdgeSpMM, aggregate, spmm_dst_blocked,
+                                        spmm_edgewise)
 
 
 class GCN(GNN):
@@ -52,24 +57,28 @@ class GCN(GNN):
     spmm_op: the graph's aggregation op (HybSpMM, DegreeSpMM or
     ReuseSpMM), or None for the edgewise path, which needs `edge_op` (the
     CSR structure of the batch's edges). blk_rows > 0 takes JAX's
-    dst-blocked branch (same sum, same op). spmm_split: the fused-overlap
-    op of the sharded engine (in place of spmm_op)."""
+    dst-blocked branch (same sum, same op). spmm_split: the sharded
+    engine's overlap op, the fused plan or an (interior, boundary) pair
+    (in place of spmm_op); edge_split: the (interior, boundary) EdgeSpMM
+    pair of the edgewise split (in place of edge_op)."""
 
     def __init__(self, layers: LayerConfig, spmm_op=None,
                  optimize_order: bool = True, edge_op: EdgeSpMM | None = None,
-                 blk_rows: int = 0, spmm_split=None):
+                 blk_rows: int = 0, spmm_split=None, edge_split=None):
         super().__init__()
-        if spmm_op is None and edge_op is None and spmm_split is None:
+        if spmm_op is None and edge_op is None and spmm_split is None and edge_split is None:
             raise ValueError("GCN needs an aggregation op (spmm_op or "
-                             "spmm_split) or an EdgeSpMM (edge_op)")
+                             "spmm_split) or an EdgeSpMM (edge_op or edge_split)")
         check_split(spmm_split)
+        check_edge_split(edge_split)
         self.layers = layers
         self.spmm_op = spmm_op
         self.spmm_split = spmm_split
         self.edge_op = edge_op
+        self.edge_split = edge_split
         self.optimize_order = optimize_order
         self.blk_rows = blk_rows
-        device = (spmm_op or edge_op or spmm_split).device
+        device = (spmm_op or edge_op or split_of(spmm_split, edge_split)).device
         dims = layers.dims
         for l in range(layers.num_layers):
             self._add_param(f"w{l}", (dims[l], dims[l + 1]), device)
@@ -89,11 +98,9 @@ class GCN(GNN):
     def _aggregate(self, h: torch.Tensor, batch: GraphBatch,
                    halo: HaloFn | None = None) -> torch.Tensor:
         self_term = h * batch.self_val[:, None].to(h.dtype)
-        if self.spmm_split is not None and halo is not None:
-            # Fused overlap: halo returns the ghost rows only; the pure
-            # buckets gather h, the mixed ones h and the ghosts.
-            out = self.spmm_split.apply_static_fused(h, halo(h))
-            return out.to(h.dtype) + self_term
+        if halo is not None and (self.spmm_split is not None
+                                 or self.edge_split is not None):
+            return self._aggregate_split(h, batch, halo(h), self_term)
         table = halo(h) if halo is not None else h
         if self.spmm_op is None:
             if self.blk_rows:
@@ -107,6 +114,29 @@ class GCN(GNN):
         else:
             out = self.spmm_op.apply(table, batch.edge_val.to(h.dtype))
         return out.to(h.dtype) + self_term
+
+    def _aggregate_split(self, h: torch.Tensor, batch: GraphBatch,
+                         ghosts: torch.Tensor, self_term: torch.Tensor) -> torch.Tensor:
+        """The overlap paths: `ghosts` are the ghost rows alone, and
+        whatever reads only h does not depend on the exchange."""
+        if getattr(self.spmm_split, "fused", False):
+            # The pure buckets gather h, the mixed ones h and the ghosts.
+            out = self.spmm_split.apply_static_fused(h, ghosts)
+            return out.to(h.dtype) + self_term
+        if self.spmm_split is not None:
+            op_i, op_b = self.spmm_split
+            if op_i.has_static_vals:
+                out_i, out_b = op_i.apply_static(h), op_b.apply_static(ghosts)
+            else:
+                out_i = op_i.apply(h, batch.val_int.to(h.dtype))
+                out_b = op_b.apply(ghosts, batch.val_bnd.to(h.dtype))
+            return (out_i + out_b).to(h.dtype) + self_term
+        eop_i, eop_b = self.edge_split
+        out_i = aggregate(h, batch.src_int, batch.dst_int, batch.val_int,
+                          batch.self_val, op=eop_i)
+        out_b = spmm_edgewise(ghosts, batch.src_bnd, batch.dst_bnd, batch.val_bnd,
+                              h.shape[0], op=eop_b)
+        return out_i + out_b
 
     def forward(self, batch: GraphBatch,
                 compute_dtype: torch.dtype = torch.float32,

@@ -3,13 +3,19 @@
 
 A shard's edges end in its vp local vertices and start in the feature
 table [0, vp + n * max_h): local rows, then the ghost rows of each owner
-(graph/partition.py). Two plan layouts, as in JAX:
+(graph/partition.py). The plan layouts, as in JAX:
 
   * edges="combined": the forward plan over the shard's edges and the
     backward plan over their transpose, with num_in = vp + n * max_h. The
     model hands it `halo_exchange`'s full table; the entries are the
     single-device ones (`apply_static`, `apply_dst`, `apply_unit` through
     `HybStaticFn` / `HybDstFn` / `HybUnitFn`).
+  * edges="interior" / "boundary": the same entries over the edges whose
+    source is a local row (table = h, vp rows) or a ghost row (table = the
+    received ghost rows alone, n * max_h rows, sources rebased). The JAX op
+    has the pair and its tests hold it; the engines take the fused plan
+    for hyb and the pair only for the degree kernel
+    (ops/degree_sharded.py).
   * edges="fused" (the overlap plan): ONE forward plan whose buckets come
     in a PURE group then a MIXED group. A vertex is mixed when any in-edge
     source is a ghost or its degree exceeds max_width (hubs are forced
@@ -44,7 +50,7 @@ import ctypes
 import numpy as np
 import torch
 
-from dorylus_tpu_torch.graph.partition import Shard
+from dorylus_tpu_torch.graph.partition import Shard, shard_edges
 from dorylus_tpu_torch.ops import cuda_build
 from dorylus_tpu_torch.ops.hyb_plan import _LAMBDA_SLOTS, build_hyb_plan
 from dorylus_tpu_torch.ops.hyb_spmm import (_DTYPE_CODE, HybDstFn, HybStaticFn,
@@ -172,7 +178,9 @@ class ShardedHybSpMM:
     """One rank's hyb plans over its shard (JAX: ops/hyb_sharded.
     ShardedHybSpMM, one slice of its stacked arrays).
 
-    shard: the rank's `Shard`; n: the number of shards. static_vals: bake
+    shard: the rank's `Shard`; n: the number of shards. edges: "combined",
+    "fused", or one half of the split, "interior" / "boundary" (table = h /
+    the ghost rows). static_vals: bake
     the shard's edge values (the GCN norms) into the plans (`apply_static`
     / `apply_static_fused`); without them the plans serve the unit-weight
     entries (GAT). gather_dtype as in HybSpMM."""
@@ -181,22 +189,21 @@ class ShardedHybSpMM:
                  static_vals: bool = False, gather_dtype: torch.dtype | None = None,
                  max_width: int = 512, lam_slots: int = _LAMBDA_SLOTS,
                  device: str | torch.device = "cpu"):
-        if edges not in ("combined", "fused"):
-            raise NotImplementedError(
-                f"ShardedHybSpMM edges={edges!r}: the interior/boundary plan pair "
-                "is still to port (ROADMAP.md queue 2 item 8)")
-        ne = shard.num_edges
-        src = np.asarray(shard.src[:ne])
-        dst = np.asarray(shard.dst[:ne])
-        val = np.asarray(shard.edge_val[:ne], np.float32) if static_vals else None
+        if edges not in ("combined", "fused", "interior", "boundary"):
+            raise ValueError(f"ShardedHybSpMM edges={edges!r}: \"combined\", \"fused\", "
+                             "\"interior\" or \"boundary\"")
+        src, dst, val = shard_edges(shard, "combined" if edges == "fused" else edges)
+        val = np.asarray(val, np.float32) if static_vals else None
+        ne = len(src)
         if ne and (np.diff(dst) < 0).any():
             raise ValueError("shard edges must be dst-sorted")
         vp, max_h = int(shard.x.shape[0]), int(shard.send_idx.shape[1])
-        table = vp + n * max_h
+        table = {"interior": vp, "boundary": n * max_h}.get(edges, vp + n * max_h)
         if ne and (src.min() < 0 or src.max() >= table or dst.min() < 0 or dst.max() >= vp):
             raise ValueError("shard edge endpoint out of range")
         self.vp, self.table = vp, table
         self.num_in, self.num_out = table, vp
+        self.edges = edges
         self.fused = edges == "fused"
         self.n_pure = 0
         self.gather_dtype = gather_dtype
@@ -235,10 +242,10 @@ class ShardedHybSpMM:
 
     def _need(self, fused: bool, entry: str) -> None:
         if self.fused != fused:
-            raise RuntimeError(f"{entry}: op built with edges="
-                               f"{'fused' if self.fused else 'combined'!r}")
+            raise RuntimeError(f"{entry}: op built with edges={self.edges!r}")
 
-    # combined plan: the table is halo_exchange's (vp + n * max_h, F)
+    # combined plan: the table is halo_exchange's (vp + n * max_h, F);
+    # interior: h (vp, F); boundary: the ghost rows (n * max_h, F)
     def apply_static(self, table: torch.Tensor) -> torch.Tensor:
         self._need(False, "apply_static")
         if not self.has_static_vals:

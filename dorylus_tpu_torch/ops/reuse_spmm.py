@@ -28,6 +28,12 @@ bf16) and cast to the gather dtype by the pass afterwards, as JAX does: a
 pair row of an f32 table is bf16(a + b), not bf16(a) + bf16(b). The pass
 itself is K2 (ops/hyb_spmm.py `hyb_mask_pass`).
 
+The op need not be square: the forward is mined over (src -> dst) with the
+pair ids starting at num_in (the table's rows) and planned over num_out
+output rows, the backward over the transpose with base num_out and num_in
+output rows. The sharded op (ops/reuse_sharded.py) is this op over a
+shard's edges, with num_in = vp + n * max_h table rows and num_out = vp.
+
 Not ported: `set_msgs_budget` (a TPU scan-chunk guard; ROADMAP.md "Not to
 port").
 """
@@ -145,8 +151,12 @@ class ReuseUnitFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h: torch.Tensor, op: "ReuseSpMM") -> torch.Tensor:
+        if h.shape[0] != op.num_in:
+            # the pair ids start at num_in: a shorter table would shift them
+            raise ValueError(f"reuse pass: table of {h.shape[0]} rows, the rewrite "
+                             f"was mined over {op.num_in}")
         ctx.op = op
-        ctx.h_rows, ctx.h_dtype = h.shape[0], h.dtype
+        ctx.h_dtype = h.dtype
         tbl = build_pair_table(h.contiguous(), op.lvl_fwd, op.fwd_table_size)
         return hyb_mask_pass(tbl, op.fwd, op.num_out, op.gather_dtype)
 
@@ -156,15 +166,18 @@ class ReuseUnitFn(torch.autograd.Function):
         tbl = build_pair_table(gout.float().contiguous(), op.lvl_bwd,
                                op.bwd_table_size)
         dh = hyb_mask_pass(tbl, op.bwd, op.num_in, op.gather_dtype)
-        return dh[: ctx.h_rows].to(ctx.h_dtype), None
+        return dh.to(ctx.h_dtype), None
 
 
 class ReuseSpMM:
     """Drop-in aggregation op (HybSpMM protocol) with pair reuse (JAX:
-    ops/reuse_spmm.ReuseSpMM). Single-shard, square.
+    ops/reuse_spmm.ReuseSpMM), over a (num_out, num_in) operator: the
+    table has exactly num_in rows.
 
     rank1_factor: per-vertex f with edge value = f(src) f(dst) (GCN:
-    sqrt(self_norm)); enables apply_static. None for unit / dst-weighted
+    sqrt(self_norm)); enables apply_static. One (V,) array for a square
+    op, or the pair (f_in (num_in,), f_out (num_out,)) of the table rows'
+    and the output rows' factors. None for unit / dst-weighted
     aggregation (GAT apply_dst). min_uses, passes, max_pairs go to the
     miner (max_pairs per pass, 0 = unlimited). After construction,
     `miner` names the miner that ran ("native" or "numpy") and
@@ -175,8 +188,6 @@ class ReuseSpMM:
                  rank1_factor=None, min_uses: int = 3,
                  passes: int = 1, max_pairs: int = 0,
                  device: str | torch.device = "cpu"):
-        if num_in != num_out:
-            raise ValueError("reuse op is single-shard (square) only")
         src = np.asarray(src)
         dst = np.asarray(dst)
         self.num_in, self.num_out = num_in, num_out
@@ -185,10 +196,11 @@ class ReuseSpMM:
         self.device = torch.device(device)
         self.miner = "native" if native.has_mine_pairs() else "numpy"
         t0 = time.perf_counter()
-        fwd = mine_reuse(src, dst, num_out, min_uses=min_uses, passes=passes,
+        # each direction's pair ids start past its own table's rows
+        fwd = mine_reuse(src, dst, num_in, min_uses=min_uses, passes=passes,
                          max_pairs=max_pairs)
         t1 = time.perf_counter()
-        bwd = mine_reuse(dst, src, num_in, min_uses=min_uses, passes=passes,
+        bwd = mine_reuse(dst, src, num_out, min_uses=min_uses, passes=passes,
                          max_pairs=max_pairs)
         self.mine_seconds = (t1 - t0, time.perf_counter() - t1)
         self.plan_fwd, self.plan_bwd = fwd, bwd
@@ -207,16 +219,29 @@ class ReuseSpMM:
                          for p in plan.levels)
 
         self.lvl_fwd, self.lvl_bwd = levels(fwd), levels(bwd)
-        self.f = (None if rank1_factor is None else
-                  torch.tensor(np.asarray(rank1_factor, np.float32), device=self.device))
+        self.f_in = self.f_out = None
+        if rank1_factor is not None:
+            f_in, f_out = (rank1_factor if isinstance(rank1_factor, (tuple, list))
+                           else (rank1_factor, rank1_factor))
+            self.f_in, self.f_out = (
+                torch.tensor(np.asarray(f, np.float32), device=self.device)
+                for f in (f_in, f_out))
+            if self.f_in.shape != (num_in,) or self.f_out.shape != (num_out,):
+                raise ValueError(f"rank1_factor {tuple(self.f_in.shape)} / "
+                                 f"{tuple(self.f_out.shape)}: want ({num_in},) table "
+                                 f"and ({num_out},) output factors")
+
+    @property
+    def num_pairs(self) -> int:
+        """Pair rows the forward rewrite appends."""
+        return self.plan_fwd.num_pairs
 
     def apply_static(self, h: torch.Tensor) -> torch.Tensor:
-        """GCN factorized norms: diag(f) A_unit diag(f) h."""
-        if self.f is None:
+        """GCN factorized norms: diag(f_out) A_unit diag(f_in) h."""
+        if self.f_in is None:
             raise RuntimeError("op built without rank1_factor: use apply_unit / apply_dst")
-        f = self.f.to(h.dtype)[:, None]
-        u = ReuseUnitFn.apply(h * f, self)
-        return u * f.to(u.dtype)
+        u = ReuseUnitFn.apply(h * self.f_in.to(h.dtype)[:, None], self)
+        return u * self.f_out.to(u.dtype)[:, None]
 
     def apply_dst(self, h: torch.Tensor, dst_val: torch.Tensor) -> torch.Tensor:
         """GAT dst-only attention: diag(dst_val) A_unit h."""

@@ -170,11 +170,15 @@ def _launch_segsum(g: torch.Tensor, order: torch.Tensor, row_ptr: torch.Tensor,
 
 def row_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """K9 -> (len(idx), F) in x's dtype. CPU tensors run the plain
-    version; CUDA tensors launch the kernel or raise."""
+    version; CUDA tensors launch the kernel or raise. A table without rows
+    (a rank that received no ghost row) gives zero rows on either device:
+    every slot of its placement map is a dead one."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"row_gather: unsupported device {x.device}")
+    if x.shape[0] == 0:
+        return torch.zeros((idx.shape[0], x.shape[1]), dtype=x.dtype, device=x.device)
     if x.device.type == "cpu":
         return row_gather_plain(x, idx)
-    if x.device.type != "cuda":
-        raise ValueError(f"row_gather: unsupported device {x.device}")
     x = x.contiguous()
     out = torch.empty((idx.shape[0], x.shape[1]), dtype=x.dtype, device=x.device)
     _launch_row_gather(x, idx, out)

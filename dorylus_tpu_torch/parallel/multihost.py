@@ -138,8 +138,15 @@ def _host(tag: str, shape: Sequence[int], dtype: torch.dtype) -> torch.Tensor:
 
 def _as_bytes(t: torch.Tensor) -> torch.Tensor:
     """(rows, F) of any dtype as (rows, F * itemsize) uint8: gloo then
-    moves bytes whatever the element type."""
-    return t.view(torch.uint8) if t.dtype != torch.uint8 else t
+    moves bytes whatever the element type. `t` is contiguous; it is
+    flattened first, because a one-column table may carry any stride on its
+    last axis, which a dtype view refuses."""
+    if t.dtype == torch.uint8:
+        return t
+    row_bytes = t[0].numel() * t.element_size() if t.shape[0] else 0
+    if not t.numel():
+        return t.new_empty((t.shape[0], row_bytes), dtype=torch.uint8)
+    return t.reshape(-1).view(torch.uint8).view(t.shape[0], row_bytes)
 
 
 def all_to_all_rows(inp: torch.Tensor, in_splits: list[int],

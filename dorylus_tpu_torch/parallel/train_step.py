@@ -16,12 +16,27 @@ in the same order), all-reduces the gradients and the loss in one buffer,
 and updates its replica. Evaluation sums (correct, loss, count) over the
 ranks. The loss denominator is |V_global| * 0.66 on every rank.
 
-Scope: kernel="hyb" for GCN and GAT, with the fused-overlap plan
-(overlap on: the JAX default for hyb) or the combined plan; where
-kernel="auto" resolves to "xla" on the per-shard edge count, the combined
-edgewise path (EdgeSpMM over the shard's real edges, gathering from
-`halo_exchange`'s table). Both halo wire formats. Everything else raises
-NotImplementedError naming its ROADMAP.md item.
+Scope: every kernel / overlap / reuse combination of the JAX engine on
+the graph axis, for GCN and GAT, on both halo wire formats:
+
+  kernel="hyb"     overlap on (the default): the fused-overlap plan; off:
+                   the combined plan (ops/hyb_sharded.py);
+  kernel="degree"  overlap on (the default): the (interior, boundary) plan
+                   pair; off: the combined plan (ops/degree_sharded.py);
+  kernel="xla"     (and "auto" up to 8M edges per shard) overlap off (the
+                   default): EdgeSpMM over the shard's real edges, gathering
+                   from `halo_exchange`'s table; overlap=True/"on": the
+                   edgewise split, two EdgeSpMM over the interior and the
+                   boundary edges;
+  reuse="pairs"    on hyb: the per-shard pair rewrite (ops/reuse_sharded.py)
+                   on the combined table, which turns overlap off; on any
+                   other kernel it is logged and off, as in JAX.
+
+With an overlap plan the models get the ghost rows alone from the exchange
+and the local rows' work does not depend on it. (`HaloRecvFn` still waits
+for the exchange before it returns, so nothing runs beside it yet.)
+Tensor parallelism, bounded staleness, checkpoints and profiling raise
+NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -37,39 +52,36 @@ from dorylus_tpu_torch.common.config import LayerConfig, TrainConfig, resolve_ke
 from dorylus_tpu_torch.common.logging import log
 from dorylus_tpu_torch.common.metrics import EpochRecord, RunReport
 from dorylus_tpu_torch.engine.convergence import ConvergeMonitor
-from dorylus_tpu_torch.engine.engine import _DTYPES, eval_flags, resolve_device
+from dorylus_tpu_torch.engine.engine import (_DTYPES, _max_agg_width, eval_flags,
+                                             resolve_device, resolve_reuse_budget)
 from dorylus_tpu_torch.graph.graph import Graph
-from dorylus_tpu_torch.graph.partition import Shard, ShardMeta, partition_graph
+from dorylus_tpu_torch.graph.partition import (Shard, ShardMeta, partition_graph,
+                                               shard_edges)
 from dorylus_tpu_torch.models.base import GraphBatch
 from dorylus_tpu_torch.models.gat import GAT
 from dorylus_tpu_torch.models.gcn import GCN
 from dorylus_tpu_torch.ops.activations import accuracy_and_loss, row_softmax
+from dorylus_tpu_torch.ops.degree_sharded import ShardedDegreeSpMM
 from dorylus_tpu_torch.ops.hyb_sharded import ShardedHybSpMM
+from dorylus_tpu_torch.ops.reuse_sharded import ShardedReuseSpMM, exchange_rank1_factor
 from dorylus_tpu_torch.ops.spmm import EdgeSpMM
 from dorylus_tpu_torch.optim.adam import adam_init, adam_update, decay_lr, sgd_update
 from dorylus_tpu_torch.parallel import multihost
 from dorylus_tpu_torch.parallel.halo import HaloPlan, make_halo_fn
 
 
-def _unsupported(cfg: TrainConfig, n: int) -> Optional[str]:
+def _unsupported(cfg: TrainConfig) -> Optional[str]:
     """The first configuration outside the ported slice, with its ROADMAP
     item, or None."""
     checks = [
         (cfg.model not in ("gcn", "gat"), f"model={cfg.model!r}"),
-        (cfg.kernel == "degree",
-         "kernel=\"degree\": ShardedDegreeSpMM is still to port (queue 2 item 8)"),
         (cfg.kernel not in ("hyb", "xla", "degree"), f"kernel={cfg.kernel!r}"),
-        (cfg.reuse == "pairs",
-         "reuse=\"pairs\": ShardedReuseSpMM is still to port (queue 2 item 8)"),
         (cfg.feat_shards > 1,
          "feat_shards > 1: tensor parallelism is queue 1 item 13"),
         (bool(cfg.staleness), f"staleness={cfg.staleness}: bounded staleness "
                               "is still to port (queue 1 item 3)"),
         (bool(cfg.checkpoint_dir) or cfg.resume,
          "checkpoint_dir/resume: checkpoint interop is queue 1 item 7"),
-        (cfg.kernel == "xla" and bool(cfg.overlap) and n > 1,
-         "overlap on kernel=\"xla\": the edgewise interior/boundary split is "
-         "still to port (queue 2 item 8)"),
         (cfg.param_dtype != "float32", f"param_dtype={cfg.param_dtype!r}"),
         (cfg.compute_dtype not in _DTYPES or cfg.agg_dtype not in _DTYPES,
          f"compute_dtype={cfg.compute_dtype!r} / agg_dtype={cfg.agg_dtype!r}"),
@@ -79,24 +91,37 @@ def _unsupported(cfg: TrainConfig, n: int) -> Optional[str]:
 
 
 def shard_batch(shard: Shard, denom: float, device: torch.device,
-                edge_arrays: bool) -> GraphBatch:
+                edge_arrays: bool, split: Optional[str] = None) -> GraphBatch:
     """One shard's GraphBatch on `device` (JAX `_local_batch`): vp rows,
     the shard's real edges (or zero-length stubs when the plans carry what
-    aggregation reads), the global loss denominator."""
-    e = shard.num_edges if edge_arrays else 0
-
+    aggregation reads), the global loss denominator. split: None (no
+    overlap split: the six split fields stay None), "stubs" (zero-length
+    split arrays: the split ops' plans carry what aggregation reads) or
+    "edges" (the interior and boundary edges of the edgewise split)."""
     def t(a, dtype=None):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
+    def edge_fields(names, src, dst, val):
+        return dict(zip(names, (t(src, torch.int32), t(dst, torch.int32),
+                                t(val, torch.float32))))
+
+    src, dst, val = shard_edges(shard, "combined")
+    e = len(src) if edge_arrays else 0
+    fields = edge_fields(("src", "dst", "edge_val"), src[:e], dst[:e], val[:e])
+    if split is not None:
+        for part, names in (("interior", ("src_int", "dst_int", "val_int")),
+                            ("boundary", ("src_bnd", "dst_bnd", "val_bnd"))):
+            arrays = shard_edges(shard, part)
+            if split == "stubs":
+                arrays = tuple(a[:0] for a in arrays)
+            fields.update(edge_fields(names, *arrays))
     return GraphBatch(
         x=t(shard.x, torch.float32), onehot=t(shard.onehot),
-        src=t(shard.src[:e], torch.int32), dst=t(shard.dst[:e], torch.int32),
-        edge_val=t(shard.edge_val[:e], torch.float32),
         self_val=t(shard.self_val, torch.float32),
         train_mask=t(shard.train_mask, torch.float32),
         val_mask=t(shard.val_mask, torch.float32),
         test_mask=t(shard.test_mask, torch.float32),
-        denom=torch.tensor(np.float32(denom), device=device))
+        denom=torch.tensor(np.float32(denom), device=device), **fields)
 
 
 class ShardedEngine:
@@ -134,18 +159,32 @@ class ShardedEngine:
             log("kernel auto -> %s (%d edges/shard)", kernel, meta.ep)
             cfg = dataclasses.replace(cfg, kernel=kernel)
         if isinstance(cfg.overlap, str):
-            # overlap="auto" as JAX resolves it off a TPU: hyb (and degree)
+            # overlap="auto" as JAX resolves it off a TPU: hyb and degree
             # take an overlap plan, the edgewise path the combined one.
             cfg = dataclasses.replace(
                 cfg, overlap=(cfg.overlap == "on" if cfg.overlap != "auto"
                               else kernel in ("hyb", "degree")))
-        problem = _unsupported(cfg, n)
+        problem = _unsupported(cfg)
         if problem is not None:
             raise NotImplementedError(f"dorylus_tpu_torch ShardedEngine: {problem} "
                                       "(see ROADMAP.md)")
         if cfg.reuse == "auto":
             log("reuse auto -> off (the payoff gate's constants are TPU-fitted)")
             cfg = dataclasses.replace(cfg, reuse="off")
+        reuse_on, reuse_cap = cfg.reuse == "pairs" and kernel == "hyb", 0
+        if cfg.reuse == "pairs" and not reuse_on:
+            log("pair reuse requires kernel=hyb (have %s) — off", kernel)
+        table_rows = meta.vp + n * meta.max_h
+        if reuse_on:
+            # Budget against the per-shard GATHER table (local + ghost rows).
+            width = _max_agg_width(layers, cfg, table_rows)
+            reuse_cap, reuse_on = resolve_reuse_budget(cfg, table_rows, width)
+        if reuse_on and cfg.overlap and n > 1:
+            # A pair may combine an interior and a ghost row: reuse runs the
+            # combined-plan path.
+            cfg = dataclasses.replace(cfg, overlap=False)
+            log("pair reuse: interior/boundary overlap split disabled (rewrites "
+                "span the combined edge set)")
         overlap = bool(cfg.overlap) and n > 1
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -160,30 +199,54 @@ class ShardedEngine:
             wire = "ragged" if cfg.halo == "auto" else cfg.halo
             self.halo_plan = HaloPlan(shard, n, wire, self.device)
         self.halo = make_halo_fn(self.halo_plan, overlap, n > 1)
-        spmm_op = spmm_split = edge_op = None
-        if kernel == "hyb":
-            op = ShardedHybSpMM(
-                shard, n, edges="fused" if overlap else "combined",
-                static_vals=not gat,
-                gather_dtype=torch.bfloat16 if cfg.agg_dtype == "bfloat16" else None,
-                device=self.device)
+        spmm_op = spmm_split = edge_op = edge_split = None
+        gather_dtype = torch.bfloat16 if cfg.agg_dtype == "bfloat16" else None
+        kw = dict(gather_dtype=gather_dtype, device=self.device)
+        if reuse_on:
+            f_in = None if gat else exchange_rank1_factor(np.sqrt(shard.self_val),
+                                                          self.halo_plan)
+            spmm_op = ShardedReuseSpMM(shard, n, rank1_factor=f_in, passes=cfg.reuse_passes,
+                                       max_pairs=reuse_cap, **kw)
+            st = spmm_op.plan_fwd.stats
+            log("sharded pair reuse, rank %d: %d fwd pairs, gathered rows %d -> %d "
+                "(-%.1f%%)", me, spmm_op.num_pairs, st["rows_before"], st["rows_after"],
+                100 * st["row_reduction"])
+        elif kernel == "hyb":
+            op = ShardedHybSpMM(shard, n, edges="fused" if overlap else "combined",
+                                static_vals=not gat, **kw)
             spmm_op, spmm_split = (None, op) if overlap else (op, None)
+        elif kernel == "degree":
+            if overlap:
+                # The models never touch the combined plan on this path:
+                # it is not built.
+                spmm_split = tuple(ShardedDegreeSpMM(shard, n, edges=e, static_vals=not gat,
+                                                     **kw)
+                                   for e in ("interior", "boundary"))
+            else:
+                spmm_op = ShardedDegreeSpMM(shard, n, static_vals=not gat, **kw)
         else:
             if cfg.edge_chunk:
                 log("edge_chunk ignored: the CSR kernels build no (E, F) "
                     "message tensor to bound")
-            e = shard.num_edges
-            edge_op = EdgeSpMM(shard.src[:e], shard.dst[:e],
-                               meta.vp + n * meta.max_h, meta.vp, device=self.device)
+            if overlap:
+                edge_split = tuple(
+                    EdgeSpMM(*shard_edges(shard, e)[:2], rows, meta.vp, device=self.device)
+                    for e, rows in (("interior", meta.vp), ("boundary", n * meta.max_h)))
+            else:
+                edge_op = EdgeSpMM(*shard_edges(shard, "combined")[:2], table_rows,
+                                   meta.vp, device=self.device)
+        # With an overlap plan the batch carries the split: zero-length
+        # stubs where the plans hold what aggregation reads (the JAX rule),
+        # the interior and boundary edges for the edgewise split.
+        split = None if not overlap else "edges" if edge_split is not None else "stubs"
         self.batch = shard_batch(shard, meta.denom, self.device,
-                                 edge_arrays=edge_op is not None)
+                                 edge_arrays=edge_op is not None, split=split)
+        model_kw = dict(spmm_op=spmm_op, edge_op=edge_op, spmm_split=spmm_split,
+                        edge_split=edge_split)
         if gat:
-            self.model = GAT(layers, spmm_op=spmm_op, edge_op=edge_op,
-                             spmm_split=spmm_split)
+            self.model = GAT(layers, **model_kw)
         else:
-            self.model = GCN(layers, spmm_op=spmm_op,
-                             optimize_order=cfg.optimize_order, edge_op=edge_op,
-                             spmm_split=spmm_split)
+            self.model = GCN(layers, optimize_order=cfg.optimize_order, **model_kw)
         self.params = self.model.init_params(seed=cfg.seed)
         self.opt_state = adam_init(self.params) if cfg.adam else None
         self.report = RunReport()

@@ -12,6 +12,7 @@ import torch
 
 from dorylus_tpu_torch.common.config import LayerConfig, TrainConfig
 from dorylus_tpu_torch.graph.partition import partition_graph
+from dorylus_tpu_torch.ops.reuse_sharded import ShardedReuseSpMM
 from dorylus_tpu_torch.parallel import halo
 from dorylus_tpu_torch.parallel.train_step import ShardedEngine
 
@@ -30,6 +31,18 @@ def engine_rank(rank, world, device, graph, dims, cfg_kw, epochs, opts):
            "params": {k: p.detach().cpu().numpy() for k, p in eng.params.items()},
            "foreign_modules": sorted(m for m in sys.modules
                                      if m.split(".")[0] in ("dorylus_tpu", "bench"))}
+    split = eng.model.spmm_split
+    op = eng.model.spmm_op
+    out["plan"] = ("edge_split" if eng.model.edge_split is not None
+                   else "pair" if isinstance(split, tuple)
+                   else "fused" if split is not None
+                   else "edge_op" if op is None else type(op).__name__)
+    out["boundary_edges"] = eng.shard.num_edges - eng.shard.num_int
+    if isinstance(op, ShardedReuseSpMM):
+        out["pairs"] = (op.plan_fwd.num_pairs, op.plan_bwd.num_pairs)
+        if op.f_in is not None:
+            out["f_in"], out["f_out"] = op.f_in.cpu().numpy(), op.f_out.cpu().numpy()
+            out["recv_cnt"] = np.asarray(eng.halo_plan.recv_cnt)
     if opts.get("predict"):
         out["predict"] = eng.predict()
     return out

@@ -224,12 +224,21 @@ for graph, model, kernel, reuse in runs:
 sys.path.insert(0, "tests")
 import _torch_ranks
 from dorylus_tpu_torch.parallel.multihost import spawn_local
-for model in ("gcn", "gat"):
-    res = spawn_local(2, _torch_ranks.engine_rank,
-                      (g, [12, 6, 3], dict(model=model, kernel="hyb"), 2, {}),
+# one launch per graph: hyb (the fused plan) and kernel="degree" (the
+# interior/boundary pair) on the planted graph, reuse="pairs" on the
+# community graph, both models
+for graph, cfgs, plans in (
+        (g, [dict(kernel="hyb"), dict(kernel="degree")], ["fused", "pair"]),
+        (gc, [dict(kernel="hyb", reuse="pairs")], ["ShardedReuseSpMM"])):
+    runs = [(dict(model=model, **kw), 2, {}) for kw in cfgs for model in ("gcn", "gat")]
+    res = spawn_local(2, _torch_ranks.engines_rank, (graph, [12, 6, 3], runs),
                       backend="gloo", device="cpu", timeout_s=120)
-    assert all(len(r["losses"]) == 2 and not r["foreign_modules"] for r in res), res
-    assert res[0]["losses"] == res[1]["losses"]
+    for i, (kw, _, _) in enumerate(runs):
+        assert all(len(r[i]["losses"]) == 2 and not r[i]["foreign_modules"] for r in res), res
+        assert res[0][i]["losses"] == res[1][i]["losses"]
+        assert res[0][i]["plan"] == plans[i // 2], (kw, res[0][i]["plan"])
+        if kw.get("reuse") == "pairs":
+            assert res[0][i]["pairs"][0] > 0
 assert not any(m.split(".")[0] in ("jax", "dorylus_tpu", "bench")
                for m, v in sys.modules.items() if v is not None)
 print("OK", len(names))

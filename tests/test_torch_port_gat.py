@@ -141,6 +141,9 @@ def test_build_batch_for_gat_matches_jax(graph):
     jb = jbuild_batch(graph, for_gat=True)
     tb = tbuild_batch(graph, "cpu", for_gat=True)
     for name in tb._fields:
+        if getattr(tb, name) is None:  # the overlap split: unused on one device
+            assert getattr(jb, name) is None, name
+            continue
         np.testing.assert_array_equal(getattr(tb, name).numpy(),
                                       np.asarray(getattr(jb, name)), err_msg=name)
     assert float(tb.edge_val.min()) == float(tb.edge_val.max()) == 1.0

@@ -104,6 +104,9 @@ def test_build_batch_matches_jax(graph):
     jb = jbuild_batch(graph, edge_arrays=True)
     tb = tbuild_batch(graph, "cpu", edge_arrays=True)
     for name in tb._fields:
+        if getattr(tb, name) is None:  # the overlap split: unused on one device
+            assert getattr(jb, name) is None, name
+            continue
         np.testing.assert_array_equal(getattr(tb, name).numpy(),
                                       np.asarray(getattr(jb, name)), err_msg=name)
     assert tb.onehot.dtype == torch.uint8

@@ -4,7 +4,10 @@ edgewise K3 (CSR SpMM), K4 (SDDMM), K5 (sorted segment-sum), K7 (dynamic
 values with the fused SDDMM) on hybrid-ELL and degree plans, K1/K2 on
 degree plans, K6 (the pair-table build) with K2 over a rewritten plan, and
 the sharded engine's K8 (two-table hyb pass), K9 (row gather) and K10
-(gathered sorted segment-sum), with a 4-rank run on the one card (gloo).
+(gathered sorted segment-sum), with a 4-rank run on the one card (gloo);
+a rank's three sharded degree plans, the interior and boundary hyb plans,
+the non-square reuse pass of a shard, the probes P1-P4, and the degree
+pair, pair reuse and the edgewise split on 4 ranks of the one card.
 
 Marked `gpu`: each test skips where torch sees no CUDA device (the kernel
 has no CPU or interpret mode). On a machine with a card and without jax:
@@ -473,3 +476,277 @@ def test_four_ranks_on_one_card_match_the_cpu(cuda, model):
     a, b = np.array(on_card[0]["losses"]), np.array(on_cpu[0]["losses"])
     assert np.isfinite(a).all()
     np.testing.assert_allclose(a, b, rtol=1e-5)
+
+
+@pytest.mark.parametrize("f", [41, 128])
+@pytest.mark.parametrize("narrow", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("edges", ["combined", "interior", "boundary"])
+def test_sharded_degree_plans_match_plain(cuda, edges, narrow, f):
+    """A rank's three degree plans on the card (K1 static, K2 dst, K7
+    dynamic, forward and gradients) against `degree_pass_plain`; and the
+    interior and boundary passes add up to the combined one."""
+    from dorylus_tpu_torch.ops import degree_spmm as dg
+    from dorylus_tpu_torch.ops.degree_sharded import ShardedDegreeSpMM
+
+    sg = _hub_shard()
+    shard, n = sg.shards[1], sg.n_shards
+    gd = torch.bfloat16 if narrow else None
+    op = ShardedDegreeSpMM(shard, n, edges=edges, static_vals=True, gather_dtype=gd,
+                           device=cuda)
+    rng = np.random.default_rng(f)
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape).astype(np.float32), device=cuda)
+
+    table, gout, dv, val = t(op.num_in, f), t(op.vp, f), t(op.vp), t(op.num_edges)
+    before = dg.DEGREE_LAUNCHES
+
+    def plain(tb, plan, num, mode, other=None):
+        return dg.degree_pass_plain(tb, plan, num, gd, mode, val, other)
+
+    tk = table.clone().requires_grad_(True)
+    out = op.apply_static(tk)
+    out.backward(gout)
+    _close(out.detach(), plain(table, op.fwd, op.vp, "static"), narrow)
+    _close(tk.grad, plain(gout, op.bwd, op.num_in, "static"), narrow)
+    tk, dk = table.clone().requires_grad_(True), dv.clone().requires_grad_(True)
+    out = op.apply_dst(tk, dk)
+    out.backward(gout)
+    u = plain(table, op.fwd, op.vp, "mask")
+    _close(out.detach(), u * dv[:, None], narrow)
+    _close(tk.grad, plain(gout * dv[:, None], op.bwd, op.num_in, "mask"), narrow)
+    _close(dk.grad, (u * gout).sum(-1), narrow)
+    tk, vk = table.clone().requires_grad_(True), val.clone().requires_grad_(True)
+    out = op.apply(tk, vk)
+    out.backward(gout)
+    _close(out.detach(), plain(table, op.fwd, op.vp, "dynamic"), narrow)
+    ref_dh, ref_dval = plain(gout, op.bwd, op.num_in, "dynamic", other=table)
+    _close(tk.grad, ref_dh, narrow)
+    _close(vk.grad, ref_dval, narrow)
+    torch.cuda.synchronize()
+    assert dg.DEGREE_LAUNCHES >= before + 6
+    if edges == "combined":
+        op_i, op_b = (ShardedDegreeSpMM(shard, n, edges=e, static_vals=True, gather_dtype=gd,
+                                        device=cuda) for e in ("interior", "boundary"))
+        both = op_i.apply_static(table[: op.vp]) + op_b.apply_static(table[op.vp:])
+        _close(both, op.apply_static(table), narrow)
+
+
+def test_sharded_degree_plan_without_edges(cuda):
+    """A rank without boundary edges: the boundary op launches nothing,
+    returns zeros and hands the exchange a zero gradient of its shape."""
+    import dataclasses
+
+    from dorylus_tpu_torch.ops import degree_spmm as dg
+    from dorylus_tpu_torch.ops.degree_sharded import ShardedDegreeSpMM
+
+    sg = _hub_shard()
+    shard = sg.shards[0]
+    e = shard.num_edges
+    keep = np.asarray(shard.src[:e]) < sg.vp
+    local = dataclasses.replace(shard, src=shard.src[:e][keep], dst=shard.dst[:e][keep],
+                                edge_val=shard.edge_val[:e][keep], num_edges=int(keep.sum()))
+    for static in (True, False):
+        op = ShardedDegreeSpMM(local, sg.n_shards, edges="boundary", static_vals=static,
+                               device=cuda)
+        ghosts = torch.ones((op.num_in, 8), device=cuda, requires_grad=True)
+        before = dg.DEGREE_LAUNCHES
+        out = (op.apply_static(ghosts) if static
+               else op.apply_dst(ghosts, torch.ones(op.vp, device=cuda)))
+        out.sum().backward()
+        assert dg.DEGREE_LAUNCHES == before
+        assert out.shape == (op.vp, 8) and float(out.detach().abs().max()) == 0.0
+        assert ghosts.grad.shape == ghosts.shape and float(ghosts.grad.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("f", [41, 128])
+@pytest.mark.parametrize("narrow", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("edges", ["interior", "boundary"])
+def test_sharded_hyb_split_plans_match_plain(cuda, edges, narrow, f):
+    """ShardedHybSpMM's interior and boundary plans on K1/K2 against the
+    plain pass."""
+    from dorylus_tpu_torch.ops import hyb_sharded as hs
+    from dorylus_tpu_torch.ops import hyb_spmm as hyb
+
+    sg = _hub_shard()
+    gd = torch.bfloat16 if narrow else None
+    op = hs.ShardedHybSpMM(sg.shards[1], sg.n_shards, edges=edges, static_vals=True,
+                           gather_dtype=gd, max_width=16, lam_slots=256, device=cuda)
+    rng = np.random.default_rng(f + 1)
+    table = torch.tensor(rng.normal(size=(op.num_in, f)).astype(np.float32), device=cuda)
+    gout = torch.tensor(rng.normal(size=(op.vp, f)).astype(np.float32), device=cuda)
+    dv = torch.tensor(rng.normal(size=op.vp).astype(np.float32), device=cuda)
+    tk = table.clone().requires_grad_(True)
+    out = op.apply_static(tk)
+    out.backward(gout)
+    _close(out.detach(), hyb._hyb_pass_plain(table, op.fwd, op.vp, gd, "static"), narrow)
+    _close(tk.grad, hyb._hyb_pass_plain(gout, op.bwd, op.num_in, gd, "static"), narrow)
+    tk, dk = table.clone().requires_grad_(True), dv.clone().requires_grad_(True)
+    out = op.apply_dst(tk, dk)
+    out.backward(gout)
+    u = hyb._hyb_pass_plain(table, op.fwd, op.vp, gd, "mask")
+    _close(out.detach(), u * dv[:, None], narrow)
+    _close(dk.grad, (u * gout).sum(-1), narrow)
+
+
+def _community_shard(n=4):
+    from dorylus_tpu_torch.graph.graph import Graph, community_core_edges
+    from dorylus_tpu_torch.graph.partition import partition_graph
+
+    v = 4000
+    src, dst = community_core_edges(v, 20, comm=40, core=30, p_core=0.85, seed=0)
+    rng = np.random.default_rng(4)
+    g = Graph(num_vertices=v, src=src, dst=dst,
+              features=rng.normal(size=(v, 8)).astype(np.float32),
+              labels=(np.arange(v) % 3).astype(np.int32), num_classes=3).finalize()
+    return partition_graph(g, n, method="hash")
+
+
+@pytest.mark.parametrize("f", [41, 128])
+@pytest.mark.parametrize("narrow", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("passes", [1, 2])
+def test_sharded_reuse_pass_matches_plain(cuda, passes, narrow, f):
+    """The non-square reuse op of a shard on the card (K6 at base
+    vp + n * max_h forward and vp backward, then K2) against the plain
+    build and pass, and against the unrewritten combined plan."""
+    from dorylus_tpu_torch.ops import hyb_spmm as hyb
+    from dorylus_tpu_torch.ops import reuse_spmm as ru
+    from dorylus_tpu_torch.ops.hyb_sharded import ShardedHybSpMM
+    from dorylus_tpu_torch.ops.reuse_sharded import ShardedReuseSpMM
+
+    sg = _community_shard()
+    shard, n = sg.shards[1], sg.n_shards
+    gd = torch.bfloat16 if narrow else None
+    rng = np.random.default_rng(f + passes)
+    f_local = rng.uniform(0.2, 1.0, size=sg.vp).astype(np.float32)
+    f_ghost = rng.uniform(0.2, 1.0, size=n * sg.max_h).astype(np.float32)
+    op = ShardedReuseSpMM(shard, n, rank1_factor=np.concatenate([f_local, f_ghost]),
+                          gather_dtype=gd, passes=passes, device=cuda)
+    assert op.num_pairs > 0 and op.plan_bwd.num_pairs > 0
+    assert (op.num_in, op.num_out) == (sg.vp + n * sg.max_h, sg.vp)
+    table = torch.tensor(rng.normal(size=(op.num_in, f)).astype(np.float32), device=cuda)
+    gout = torch.tensor(rng.normal(size=(op.vp, f)).astype(np.float32), device=cuda)
+    before = (ru.PAIR_LAUNCHES, hyb.MASK_LAUNCHES)
+    tk = table.clone().requires_grad_(True)
+    out = op.apply_unit(tk)
+    out.backward(gout)
+    torch.cuda.synchronize()
+    assert ru.PAIR_LAUNCHES > before[0] and hyb.MASK_LAUNCHES > before[1]
+    tbl = ru.build_pair_table(table, op.lvl_fwd, op.fwd_table_size)
+    assert torch.equal(tbl, ru.build_pair_table_plain(table, op.lvl_fwd))
+    _close(out.detach(), hyb.hyb_mask_pass_plain(tbl, op.fwd, op.vp, gd), narrow)
+    gtbl = ru.build_pair_table(gout, op.lvl_bwd, op.bwd_table_size)
+    assert torch.equal(gtbl, ru.build_pair_table_plain(gout, op.lvl_bwd))
+    _close(tk.grad, hyb.hyb_mask_pass_plain(gtbl, op.bwd, op.num_in, gd), narrow)
+    plain_op = ShardedHybSpMM(shard, n, gather_dtype=gd, device=cuda)
+    tk2 = table.clone().requires_grad_(True)
+    ref = plain_op.apply_unit(tk2)
+    ref.backward(gout)
+    _close(out.detach(), ref.detach(), narrow)
+    _close(tk.grad, tk2.grad, narrow)
+    fi, fo = op.f_in[:, None], op.f_out[:, None]
+    _close(op.apply_static(table), plain_op.apply_unit(table * fi) * fo, narrow)
+
+
+def _probe_inputs(cuda, streams, n_ops, hi, seed):
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.integers(0, hi, size=(streams, n_ops)).astype(np.int32),
+                        device=cuda)
+
+
+def test_probe_shared_memory_kernels_match_plain(cuda):
+    """P1 (to 1e-4 * max|ref|) and P2 (bit for bit) on a table that fills a
+    block's shared memory and on a small one, ops not a multiple of the
+    staged chunk."""
+    from dorylus_tpu_torch.tools import probe_prims as pp
+
+    full = pp.table_blocks(cuda)
+    assert 48 <= full <= 64  # 227 KB of shared memory: 56 row-blocks of 4 KB
+    rng = np.random.default_rng(0)
+    for blocks, streams, n_ops in ((full, 5, 1000), (3, 2, 255), (full, 1, 1)):
+        tab = torch.tensor(rng.normal(size=(blocks * 8, 128)).astype(np.float32), device=cuda)
+        idx = _probe_inputs(cuda, streams, n_ops, blocks, seed=n_ops)
+        before = dict(pp.LAUNCHES)
+        got, ref = pp.dyn_load(tab, idx), pp.dyn_load_plain(tab, idx)
+        assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+        assert torch.equal(pp.dyn_rmw(idx, blocks), pp.dyn_rmw_plain(idx, blocks))
+        assert (pp.LAUNCHES["P1"], pp.LAUNCHES["P2"]) == (before["P1"] + 1, before["P2"] + 1)
+
+
+def test_probe_row_copy_matches_plain(cuda):
+    """P3 bit for bit: each stream's ring holds the rows of its last 16
+    ops, for streams that do not fill the last block and ops not a multiple
+    of 32."""
+    from dorylus_tpu_torch.tools import probe_prims as pp
+
+    rng = np.random.default_rng(1)
+    tab = torch.tensor(rng.normal(size=(5000, 128)).astype(np.float32), device=cuda)
+    for streams, n_ops in ((11, 1000), (8, 16), (3, 77)):
+        idx = _probe_inputs(cuda, streams, n_ops, 5000, seed=n_ops)
+        assert torch.equal(pp.row_copy(tab, idx), pp.row_copy_plain(tab, idx))
+
+
+def test_probe_lane_gather_matches_plain(cuda):
+    """P4 to 1e-4 * max|ref|: indexed shuffles over a register tile."""
+    from dorylus_tpu_torch.tools import probe_prims as pp
+
+    rng = np.random.default_rng(2)
+    tab = torch.tensor(rng.normal(size=(11, 8, 128)).astype(np.float32), device=cuda)
+    ids = torch.tensor(rng.integers(0, 128, size=(64, 128)).astype(np.int32), device=cuda)
+    for n_ops in (1, 64, 333):
+        got, ref = pp.lane_gather(tab, ids, n_ops), pp.lane_gather_plain(tab, ids, n_ops)
+        assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+def test_probe_kernels_refuse_what_they_do_not_take(cuda):
+    from dorylus_tpu_torch.tools import probe_prims as pp
+
+    tab = torch.zeros((16, 128), device=cuda)
+    idx = torch.zeros((2, 32), dtype=torch.int32, device=cuda)
+    before = dict(pp.LAUNCHES)
+    with pytest.raises(ValueError, match="float32"):
+        pp.dyn_load(tab.half(), idx)
+    with pytest.raises(ValueError, match="int32"):
+        pp.dyn_load(tab, idx.long())
+    with pytest.raises(ValueError, match="outside"):
+        pp.dyn_load(tab, idx + 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        pp.dyn_load(torch.zeros((8 * 100, 128), device=cuda), idx)
+    with pytest.raises(ValueError, match="shared memory"):
+        pp.dyn_rmw(idx, 100)
+    with pytest.raises(ValueError, match="at least 16"):
+        pp.row_copy(tab, idx[:, :8])
+    with pytest.raises(ValueError, match="float32"):
+        pp.row_copy(tab.double(), idx)
+    with pytest.raises(ValueError, match="ids"):
+        pp.lane_gather(torch.zeros((2, 8, 128), device=cuda), idx, 4)
+    assert pp.LAUNCHES == before
+
+
+@pytest.mark.parametrize("model", ["gcn", "gat"])
+def test_new_sharded_paths_on_one_card_match_the_cpu(cuda, model):
+    """4 gloo ranks on cuda:0 against 4 on the CPU for the degree pair, the
+    combined degree plan, pair reuse and the edgewise split: the same
+    losses, rtol 1e-5."""
+    import _torch_ranks as ranks
+    from dorylus_tpu_torch.graph.graph import clustered_synthetic_graph
+    from dorylus_tpu_torch.ops import cuda_build, hyb_spmm, reuse_spmm, spmm
+    from dorylus_tpu_torch.parallel import halo
+    from dorylus_tpu_torch.parallel.multihost import spawn_local
+
+    cuda_build.compile_sources([hyb_spmm._CSRC, hyb_spmm._DYN_CSRC, reuse_spmm._CSRC,
+                                spmm._CSRC, halo._CSRC])
+    g = clustered_synthetic_graph(600, 8, 33, 5, seed=11, window=128, cut=0.2)
+    base = dict(model=model, reuse="off", learning_rate=0.01 if model == "gcn" else 0.005)
+    runs = [(dict(base, kernel="degree"), 3, {}),
+            (dict(base, kernel="degree", overlap=False), 3, {}),
+            (dict(base, kernel="hyb", reuse="pairs", reuse_max_pairs=0), 3, {}),
+            (dict(base, kernel="xla", overlap=True), 3, {})]
+    args = (g, [33, 16, 5], runs)
+    on_card = spawn_local(4, ranks.engines_rank, args, backend="gloo", device="cuda:0",
+                          timeout_s=300)
+    on_cpu = spawn_local(4, ranks.engines_rank, args, backend="gloo", device="cpu",
+                         timeout_s=300)
+    for a, b in zip(on_card[0], on_cpu[0]):
+        assert np.isfinite(a["losses"]).all()
+        np.testing.assert_allclose(a["losses"], b["losses"], rtol=1e-5)

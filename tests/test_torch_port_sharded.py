@@ -177,8 +177,12 @@ def test_sharded_op_refusals():
     g = hub_graph()
     sg = tpart.partition_graph(g, 2)
     shard = sg.shards[0]
-    with pytest.raises(NotImplementedError, match="queue 2 item 8"):
-        ShardedHybSpMM(shard, 2, edges="interior")
+    with pytest.raises(ValueError, match="edges='split'"):
+        ShardedHybSpMM(shard, 2, edges="split")
+    inter = ShardedHybSpMM(shard, 2, edges="interior")
+    assert (inter.num_in, inter.num_out) == (sg.vp, sg.vp)
+    with pytest.raises(RuntimeError, match="edges='interior'"):
+        inter.apply_unit_fused(torch.zeros((sg.vp, 3)), torch.zeros((2 * sg.max_h, 3)))
     comb = ShardedHybSpMM(shard, 2, edges="combined", static_vals=False)
     fused = ShardedHybSpMM(shard, 2, edges="fused", static_vals=False)
     h, gh = torch.zeros((sg.vp, 3)), torch.zeros((2 * sg.max_h, 3))
@@ -275,8 +279,8 @@ def test_halo_exchanges_run_at_the_layer_output_widths():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(kernel="degree"), "queue 2 item 8"),
-    (dict(kernel="hyb", reuse="pairs"), "queue 2 item 8"),
+    (dict(kernel="degree", feat_shards=2), "queue 1 item 13"),
+    (dict(kernel="hyb", reuse="pairs", staleness=2), "queue 1 item 3"),
     (dict(kernel="hyb", feat_shards=2), "queue 1 item 13"),
     (dict(kernel="hyb", staleness=1), "queue 1 item 3"),
     (dict(kernel="hyb", checkpoint_dir="/tmp/x"), "queue 1 item 7"),
@@ -312,14 +316,24 @@ def test_device_none_means_the_card(make):
 
 
 def test_split_op_pair_is_refused():
-    """The models take the fused op only; JAX's (interior, boundary) op
-    pair raises, naming its roadmap item."""
+    """The models take the fused op or an (interior, boundary) pair that
+    writes the same rows; anything else handed in as `spmm_split` or
+    `edge_split` is refused at construction."""
     from dorylus_tpu_torch.models.gat import GAT
     from dorylus_tpu_torch.models.gcn import GCN
+    from dorylus_tpu_torch.ops.spmm import EdgeSpMM
 
     g = synthetic_graph(120, 4, 16, 5, seed=1)
     shard = tpart.partition_graph(g, 2).shards[0]
     comb = ShardedHybSpMM(shard, 2, edges="combined")
+    static = ShardedHybSpMM(shard, 2, edges="interior", static_vals=True)
+    fused = ShardedHybSpMM(shard, 2, edges="fused")
+    other = ShardedHybSpMM(tpart.partition_graph(g, 3).shards[0], 3, edges="boundary")
+    eop = EdgeSpMM(shard.src[:0], shard.dst[:0], 8, 8)
     for model in (GCN, GAT):
-        with pytest.raises(NotImplementedError, match="queue 2 item 8"):
-            model(LayerConfig(DIMS), spmm_split=(comb, comb))
+        for bad in ((comb, comb, comb), comb, (fused, fused), (comb, static), (comb, other)):
+            with pytest.raises(ValueError, match="spmm_split"):
+                model(LayerConfig(DIMS), spmm_split=bad)
+        with pytest.raises(ValueError, match="edge_split"):
+            model(LayerConfig(DIMS), edge_split=(eop,))
+        model(LayerConfig(DIMS), spmm_split=(comb, comb))  # a well-formed pair
