@@ -52,9 +52,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
      and vp, the non-square reuse pass forward and dh vs plain and vs the
      unrewritten combined plan;
   3j. the primitive probes P1-P4 (tools/probe_prims.py): their rates on one
-     block and on a grid that fills the card, 100,000 ops a stream, each
-     timed launch held against its plain version on the same inputs (P2, P3
-     bit for bit; P1, P4 to 1e-4), after a fast check at 2,000 ops; then the
+     block and on a grid that fills the card, 100,000 ops a stream (P3 on
+     tables of 32 MB, 60 MB and 1 GB of 512-byte rows and on 60 MB of
+     256-byte rows), each timed launch held against its plain version on
+     the same inputs (P2, P3 bit for bit; P1, P4 to 1e-4), after a fast
+     check at 2,000 ops; then the
      one PyTorch call of P1's, P2's and P3's function (`embedding_bag`,
      `bincount`, `index_select`), timed on those inputs;
   4. main path, GCN: Engine.run() of the Reddit-config GCN (602-128-41,
@@ -117,11 +119,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
      reuse="pairs": rtol 1e-5;
   6c. only where torch.cuda.device_count() >= 2: phase 6's GCN over NCCL,
      one rank per card; else one line says the NCCL path was not run.
+K1, K2 and K8 (and the degree passes on K1) are one launch a pass over
+every part of their plan (the gather core, csrc/gather_pass.cuh); their
+timed rows carry the pass ms (CUDA events: the table's cast, the
+zero-filled output and the launch) and, apart, the kernel's own device ms
+and the rest's (torch.profiler, `*_kernel_ms` / `*_other_ms`).
 Each main path runs with every launch count set to 0 just before it and
 read just after (in each rank, for the sharded engine). Then one JSON line
-with the kernels' numbers (K1-K10, K7's fused backward, the degree, reuse,
-sharded-degree and sharded-reuse passes, which run on K1/K2/K7 and K6 + K2,
-and the probes P1-P4): beside each kernel's time
+with the kernels' numbers (K1-K10, K7's fused backward, the fused plan's
+backward, the degree, reuse, sharded-degree and sharded-reuse passes, which
+run on K1/K2/K7 and K6 + K2, and the probes P1-P4): beside each kernel's time
 its plain version's, its bound (the bytes it must move over 3.35 TB/s, or
 its operations over 67 TFLOP/s of f32, whichever is larger, from this
 run's inputs) and, where one PyTorch call computes the same function, that
@@ -227,6 +234,19 @@ def dyn_bwd_bound(op, f: int, elt: int, val: torch.Tensor) -> dict:
                  + op.num_in * f * 4, 4.0 * live * f)
 
 
+def kernel_split(res: dict, key: str, plan: dict, fn, iters: int = 20) -> None:
+    """The gather kernels' device ms per call of fn (`{key}_kernel_ms`)
+    apart from the rest of its device time (`{key}_other_ms`: the table's
+    cast and the zero-filled output), by torch.profiler, beside the pass ms
+    that CUDA events give; and the hub rows of the plan (`{key}_top_rows`):
+    the hub top runs in the pass's one launch, its blocks first."""
+    from dorylus_tpu_torch.tools.gather_bench import device_split
+
+    res[f"{key}_kernel_ms"], res[f"{key}_other_ms"] = device_split(torch, fn, iters)
+    top = plan.get("top")
+    res[f"{key}_top_rows"] = 0 if top is None else int(top["v"].shape[0])
+
+
 def library_ms(fn, label: str):
     """Time of one PyTorch call that computes a kernel's function, or None
     with the reason printed where this PyTorch build refuses the call."""
@@ -317,6 +337,7 @@ def compare(name: str, op, f: int, seed: int, timed: bool, csr: dict | None = No
           hyb_static_pass_plain(gout, op.bwd, op.num_in, gd)[: h.shape[0]], dtype)
     if timed:
         res["fwd_ms"] = cuda_ms(lambda: hyb_static_pass(h, op.fwd, op.num_out, gd), 20)
+        kernel_split(res, "fwd", op.fwd, lambda: hyb_static_pass(h, op.fwd, op.num_out, gd))
         res["fwd_plain_ms"] = cuda_ms(
             lambda: hyb_static_pass_plain(h, op.fwd, op.num_out, gd), 5)
         res["bwd_ms"] = cuda_ms(lambda: hyb_static_pass(gout, op.bwd, op.num_in, gd), 20)
@@ -360,6 +381,7 @@ def compare_mask(name: str, op, f: int, seed: int, timed: bool,
     close(res, "K2", "d_dst", dd.grad, (u * gout).sum(-1), dtype)
     if timed:
         res["fwd_ms"] = cuda_ms(lambda: hyb_mask_pass(h, op.fwd, op.num_out, gd), 20)
+        kernel_split(res, "fwd", op.fwd, lambda: hyb_mask_pass(h, op.fwd, op.num_out, gd))
         res["fwd_plain_ms"] = cuda_ms(
             lambda: hyb_mask_pass_plain(h, op.fwd, op.num_out, gd), 5)
         res["bwd_ms"] = cuda_ms(lambda: hyb_mask_pass(gout, op.bwd, op.num_in, gd), 20)
@@ -544,6 +566,9 @@ def compare_degree(name: str, op, f: int, seed: int, timed: bool,
                                  ("dyn", "dynamic", 20)):
             res[f"{key}_fwd_ms"] = cuda_ms(
                 lambda: degree_pass(h, op.fwd, op.num_out, gd, mode, val), iters)
+            if mode == "static":
+                kernel_split(res, "static_fwd", op.fwd,
+                             lambda: degree_pass(h, op.fwd, op.num_out, gd, mode, val))
             res[f"{key}_fwd_plain_ms"] = cuda_ms(
                 lambda: plain(h, op.fwd, op.num_out, mode), 3)
         res["static_bwd_ms"] = cuda_ms(
@@ -595,9 +620,28 @@ def compare_pairs(name: str, levels, table_size: int, v: int, f: int, dtype: str
     pairs = sum(int(p.shape[0]) for p in levels)
     res.update(bound(2 * nbytes(h) + nbytes(*levels) + 3 * pairs * f * h.element_size(),
                      pairs * f))
-    a, b = levels[0][:, 0].long(), levels[0][:, 1].long()
-    res["library_ms"] = library_ms(lambda: h.index_select(0, a) + h.index_select(0, b),
-                                   "index_select + add (first level)")
+    # The same function by PyTorch calls: h copied into the table
+    # (`copy_`), then each level's rows in one `embedding_bag` (a bag of
+    # the pair's two rows, summed) from the table the level reads; the
+    # library time is the sum of those calls, and each level's beside
+    # level_ms.
+    lib_tbl = torch.empty_like(tbl)
+    copy_ms = library_ms(lambda: lib_tbl[:v].copy_(h), "copy_")
+    lib_tbl[:v].copy_(h)
+    res["library_level_ms"] = []
+    base = v
+    for p in levels:
+        bags, rows = p.long(), tbl[:base]
+        got = torch.nn.functional.embedding_bag(bags, rows, mode="sum")
+        close(res, None, f"library_level{len(res['library_level_ms'])}", got,
+              tbl[base: base + p.shape[0]], dtype)
+        res["library_level_ms"].append(library_ms(
+            lambda: torch.nn.functional.embedding_bag(bags, rows, mode="sum"),
+            "embedding_bag"))
+        base += p.shape[0]
+    res["library_ms"] = (None if copy_ms is None or None in res["library_level_ms"]
+                         else copy_ms + sum(res["library_level_ms"]))
+    del lib_tbl
     print("compare " + json.dumps(res), flush=True)
     return res
 
@@ -676,7 +720,7 @@ def refuses_bad_input(op, eop, rop, fop) -> None:
     """Every kernel launcher raises on a float16 or float64 table and counts
     no launch; none falls back to its plain version. op: a dynamic
     HybSpMM with static values; rop: a ReuseSpMM with at least one level;
-    fop: a fused ShardedHybSpMM with static values and a mixed bucket."""
+    fop: a fused ShardedHybSpMM with static values."""
     from dorylus_tpu_torch.ops import hyb_sharded, hyb_spmm, reuse_spmm, spmm
     from dorylus_tpu_torch.parallel import halo
 
@@ -685,15 +729,14 @@ def refuses_bad_input(op, eop, rop, fop) -> None:
     e = eop.num_edges
     col = eop.t_col
     val = torch.ones(e, device="cuda")
-    fpart = fop.fwd["buckets"][fop.n_pure]
     fout = torch.zeros((fop.vp, 8), device="cuda")
     idx = torch.zeros(4, dtype=torch.int32, device="cuda")
     before = launch_counts()
     for bad in (torch.float16, torch.float64):
         tb = torch.zeros((op.num_in, 8), dtype=bad, device="cuda")
         calls = {
-            "K1": lambda: hyb_spmm._launch_part(tb, part, out),
-            "K2": lambda: hyb_spmm._launch_part(tb, part, out, unit=True),
+            "K1": lambda: hyb_spmm._launch_pass(tb, op.fwd, out),
+            "K2": lambda: hyb_spmm._launch_pass(tb, op.fwd, out, unit=True),
             "K3": lambda: spmm._launch_csr_spmm(tb, eop.row_ptr, col, val, None, out),
             "K4": lambda: spmm._launch_sddmm(tb, tb, eop.row_ptr, col,
                                              torch.zeros(e, device="cuda")),
@@ -704,10 +747,10 @@ def refuses_bad_input(op, eop, rop, fop) -> None:
                 rop.lvl_fwd[0], rop.num_in),
             "K7": lambda: hyb_spmm._launch_dyn_part(
                 tb, part, torch.ones(op.fwd["n_edges"], device="cuda"), out),
-            "K8": lambda: hyb_sharded._launch_fused_part(
+            "K8": lambda: hyb_sharded._launch_fused_pass(
                 torch.zeros((fop.vp, 8), dtype=bad, device="cuda"),
                 torch.zeros((fop.table - fop.vp, 8), dtype=bad, device="cuda"),
-                fpart, fout, unit=False),
+                fop.fwd, fout, unit=False),
             "K9": lambda: halo._launch_row_gather(
                 tb, idx, torch.zeros((4, 8), dtype=bad, device="cuda")),
             "K10": lambda: halo._launch_segsum(
@@ -889,10 +932,14 @@ def compare_fused(name: str, op, f: int, seed: int, timed: bool,
     if timed:
         res["fwd_ms"] = cuda_ms(
             lambda: hyb_sharded.fused_pass(h, gh, op.fwd, op.n_pure, gd, mode), 20)
+        kernel_split(res, "fwd", op.fwd,
+                     lambda: hyb_sharded.fused_pass(h, gh, op.fwd, op.n_pure, gd, mode))
         res["fwd_plain_ms"] = cuda_ms(
             lambda: hyb_sharded.fused_pass_plain(h, gh, op.fwd, op.n_pure, gd, mode), 3)
         # the backward is K1/K2 over the transpose plan into one buffer
         res["bwd_ms"] = cuda_ms(lambda: op._pass(gout, op.bwd, op.table, mode), 20)
+        res["bwd_plain_ms"] = cuda_ms(lambda: _hyb_pass_plain(gout, op.bwd, op.table, gd, mode),
+                                      3)
         elt = 2 if gd is torch.bfloat16 else 4
         # the pass reads the rows its edges address, not the whole padded
         # ghost layout (the rank's own block and the slots past each pair's
@@ -904,6 +951,13 @@ def compare_fused(name: str, op, f: int, seed: int, timed: bool,
         # times the concatenated table (joined outside the timed call)
         spmm_library(res, csr, csr["norm" if mode == "static" else "ones"], (vp, op.table),
                      torch.cat([h, gh]), DTYPES[dtype])
+        # the backward (JAX `_fused_bwd_pass`): the transpose plan over gout
+        # into one (table, F) buffer; its bound, and sparse.mm of the
+        # transposed CSR with gout
+        res["bwd"] = pass_bound(vp, f, elt, live_slots(op.bwd), op.table,
+                                4 + (elt if mode == "static" else 0))
+        spmm_library(res["bwd"], csr["t"], csr["t"]["norm" if mode == "static" else "ones"],
+                     (op.table, vp), gout, DTYPES[dtype])
     print("compare " + json.dumps(res), flush=True)
     torch.cuda.empty_cache()
     return res
@@ -1429,6 +1483,12 @@ def main() -> None:
     csr0["norm"] = torch.tensor(shard0.edge_val[:ne0], device="cuda")
     csr0["ones"] = torch.ones_like(csr0["norm"])
     csr0["src_rows"] = int(np.unique(shard0.src[:ne0]).size)
+    # the transpose (table rows x vp) for the fused backward's yardstick
+    order0 = np.argsort(shard0.src[:ne0], kind="stable")
+    csr0["t"] = csr_pattern(shard0.dst[:ne0][order0], shard0.src[:ne0][order0],
+                            sg.vp + RANKS * sg.max_h)
+    csr0["t"]["norm"] = csr0["norm"][torch.as_tensor(order0, device="cuda")]
+    csr0["t"]["ones"] = csr0["ones"]
     fused_results = []
     for gd in (torch.bfloat16, None):
         for static in (True, False):
@@ -1967,6 +2027,11 @@ def main() -> None:
                dyn_counts, k7["fwd_ms"], k7["fwd_plain_ms"], k7),
         "K8": ("fused_pass", "fused_spmm.cu", "dorylus_tpu/ops/hyb_sharded.py:501",
                sharded["launches"]["K8"], k8["fwd_ms"], k8["fwd_plain_ms"], k8),
+        # the fused plan's backward (JAX `_fused_bwd_pass`): K1 over the
+        # transpose plan into one buffer, its launches those of the fused runs
+        "K8 backward": ("fused_bwd_pass", "hyb_spmm.cu", "dorylus_tpu/ops/hyb_sharded.py:508",
+                        sharded["launches"]["K1"], k8["bwd_ms"], k8["bwd_plain_ms"],
+                        k8["bwd"]),
         "K9": ("halo_row_gather", "halo.cu", "dorylus_tpu/parallel/halo.py:118",
                sharded["launches"]["K9"], kh["K9_ms"], kh["K9_plain_ms"], kh["K9"]),
         "K10": ("halo_segsum", "halo.cu", "dorylus_tpu/parallel/halo.py:132",

@@ -327,6 +327,13 @@ class Engine:
         self.report.test_accuracy = c / max(1.0, n)
         return self.report
 
+    def output(self, path: Optional[str] = None) -> str:
+        """Write/return the final report (JAX `Engine.output`; analog of
+        output_<node>, engine/utils.cpp:109-212)."""
+        if path:
+            self.report.write(path)
+        return self.report.summary()
+
     def predict(self, softmax: bool = False) -> np.ndarray:
         """Per-vertex final-layer outputs (V, C): raw logits by default,
         softmax rows if asked."""

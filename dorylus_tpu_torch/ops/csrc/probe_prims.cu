@@ -26,7 +26,10 @@
 //                 `cp.async` pieces of 16 bytes, one per lane, committed as
 //                 one group, so "wait for slot i % 16" is
 //                 `cp.async.wait_group 15`. The ring's final rows are
-//                 written out.
+//                 written out. With 256-byte rows (the bf16 F=128 row the
+//                 gather kernels read) a half-warp is one stream, so a warp
+//                 keeps the same bytes in flight as at 512: whether the rows
+//                 or the bytes a second bind shows in the rates.
 //   P4 lane_gather N gathers along the 128 columns of an (8, 128) f32 tile
 //                 held in REGISTERS, out[r, c] = tile[r, ids[c]], summed.
 //                 (Mosaic D: lane dynamic_gather on a vreg tile.) A warp is
@@ -37,7 +40,7 @@
 //                 128 indexed shuffles a lane per op.
 //
 // What bounds them: P1/P2 shared-memory bandwidth (4 KB, or 4 KB read and
-// 4 KB written, per op and block); P3 the latency of a 512-byte row from
+// 4 KB written, per op and block); P3 the latency of a 256- or 512-byte row from
 // device memory (or L2) over the 16 copies a stream keeps in flight; P4 the
 // shuffle issue rate. They are probes: their times ARE the result, and
 // nothing in the training path calls them. The wrappers
@@ -61,7 +64,6 @@ constexpr int kTileThreads = 256; // P1/P2: one float4 of the tile per thread
 constexpr int kIdxChunk = 256;    // P1/P2: indices staged per round
 constexpr int kWarps = 8;         // P3/P4: streams (warps) per block
 constexpr int kDepth = 16;        // P3: ring depth, as the Mosaic probe's
-constexpr int kRow = 128;         // P3: floats per table row
 constexpr int kIdRows = 64;       // P4: id rows, cycled
 constexpr int kCols = 128;
 
@@ -130,42 +132,53 @@ dyn_rmw_kernel(int tab_blocks, const int32_t* __restrict__ idx, int n_ops,
   for (int b = 0; b < tab_blocks; ++b) o[b * kTileVec + t] = smem[b * kTileVec + t];
 }
 
+// lanes: 32 (512-byte rows, the Mosaic probe's 128 f32) or 16 (256-byte
+// rows). A row is lanes pieces of 16 bytes, one per lane, and those lanes are
+// one stream with a ring of its own: a warp holds 32 / lanes streams, so the
+// bytes a warp keeps in flight are the same for both widths and only the row
+// count differs.
 __global__ void __launch_bounds__(32 * kWarps)
 row_copy_kernel(const float* __restrict__ tab, const int32_t* __restrict__ idx,
-                int n_streams, int n_ops, float* __restrict__ out) {
-  extern __shared__ float4 smem[];  // kWarps rings of kDepth rows
+                int n_streams, int n_ops, int lanes, float* __restrict__ out) {
+  const int cols = 4 * lanes;  // floats of a row
+  extern __shared__ float4 smem[];  // kWarps * 32 / lanes rings of kDepth rows
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int s = blockIdx.x * kWarps + warp;
-  if (s >= n_streams) return;  // uniform across the warp; no block barrier below
-  float* ring = reinterpret_cast<float*>(smem) + warp * (kDepth * kRow);
-  const int32_t* mine = idx + (size_t)s * n_ops;
-  int next = lane < n_ops ? mine[lane] : 0;
-  for (int i0 = 0; i0 < n_ops; i0 += 32) {
+  const int gl = lane % lanes;
+  const int s = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * (32 / lanes) + lane / lanes;
+  if ((s - s % (32 / lanes)) >= n_streams) return;  // uniform across the warp
+  // a lane of a stream past n_streams joins the shuffles and copies nothing
+  const bool live = s < n_streams;
+  float* ring = reinterpret_cast<float*>(smem) + (threadIdx.x / lanes) * (kDepth * cols);
+  const int32_t* mine = idx + (size_t)(live ? s : 0) * n_ops;
+  int next = live && gl < n_ops ? mine[gl] : 0;
+  for (int i0 = 0; i0 < n_ops; i0 += lanes) {
     const int cur = next;
-    if (i0 + 32 + lane < n_ops) next = mine[i0 + 32 + lane];
-    const int m = min(32, n_ops - i0);
+    if (live && i0 + lanes + gl < n_ops) next = mine[i0 + lanes + gl];
+    const int m = min(lanes, n_ops - i0);
     for (int j = 0; j < m; ++j) {
       const int i = i0 + j;
-      const int r = __shfl_sync(kFullMask, cur, j);
+      const int r = __shfl_sync(kFullMask, cur, j, lanes);
       if (i >= kDepth) {
         // this lane's piece of the slot's previous row has landed
         asm volatile("cp.async.wait_group %0;\n" ::"n"(kDepth - 1) : "memory");
       }
-      const float* src = tab + (size_t)r * kRow + 4 * lane;
-      const unsigned dst = static_cast<unsigned>(
-          __cvta_generic_to_shared(ring + (i % kDepth) * kRow + 4 * lane));
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src)
-                   : "memory");
+      if (live) {
+        const float* src = tab + (size_t)r * cols + 4 * gl;
+        const unsigned dst = static_cast<unsigned>(
+            __cvta_generic_to_shared(ring + (i % kDepth) * cols + 4 * gl));
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src)
+                     : "memory");
+      }
       asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
   }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncwarp();
+  if (!live) return;
   // each lane reads back the pieces it copied
-  float4* o = reinterpret_cast<float4*>(out + (size_t)s * (kDepth * kRow));
+  float4* o = reinterpret_cast<float4*>(out + (size_t)s * (kDepth * cols));
   const float4* r4 = reinterpret_cast<const float4*>(ring);
-  for (int slot = 0; slot < kDepth; ++slot) o[slot * 32 + lane] = r4[slot * 32 + lane];
+  for (int slot = 0; slot < kDepth; ++slot) o[slot * lanes + gl] = r4[slot * lanes + gl];
 }
 
 __global__ void __launch_bounds__(32 * kWarps)
@@ -270,22 +283,27 @@ int probe_dyn_rmw(int device, int tab_blocks, const void* idx, int n_streams, in
   return static_cast<int>(cudaGetLastError());
 }
 
-// P3. tab: (rows, 128) f32 in device memory; idx: (n_streams, n_ops) int32
-// in [0, rows), n_ops >= 16; out: (n_streams, 16, 128) f32, each stream's
-// ring (slot i % 16 holds the row of its last op i).
-int probe_row_copy(int device, const void* tab, const void* idx, int n_streams, int n_ops,
-                   void* out, void* stream) {
+// P3. tab: (rows, row_bytes / 4) f32 in device memory, row_bytes 512 or
+// 256; idx: (n_streams, n_ops) int32 in [0, rows), n_ops >= 16; out:
+// (n_streams, 16, row_bytes / 4) f32, each stream's ring (slot i % 16 holds
+// the row of its last op i).
+int probe_row_copy(int device, const void* tab, int row_bytes, const void* idx, int n_streams,
+                   int n_ops, void* out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_streams <= 0) return 0;
-  if (n_ops < kDepth) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = (size_t)kWarps * kDepth * kRow * sizeof(float);
+  if (n_ops < kDepth || (row_bytes != 512 && row_bytes != 256)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // every warp holds 512 bytes of each of its kDepth ring slots
+  const size_t bytes = (size_t)kWarps * kDepth * 512;
+  const int per_block = kWarps * (512 / row_bytes);
+  const int blocks = (n_streams + per_block - 1) / per_block;
   err = allow_shared(row_copy_kernel, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n_streams + kWarps - 1) / kWarps;
   row_copy_kernel<<<blocks, 32 * kWarps, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(tab), static_cast<const int32_t*>(idx), n_streams, n_ops,
-      static_cast<float*>(out));
+      row_bytes / 16, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,8 +5,8 @@ package's.
 cannot be imported here. `build_degree_plan` is copied from it with the
 out-block maps left out: the port always builds with out_block_rows=0.
 Those maps (`out_idx`, `out_loc`) block the final segment reduction below a
-TPU VMEM cliff; the CUDA kernels write each output row once from one warp,
-so they have nothing to block (ROADMAP.md "Not to port").
+TPU VMEM cliff; the CUDA kernels write each output row once from one team of
+lanes, so they have nothing to block (ROADMAP.md "Not to port").
 `tests/test_torch_port_degree.py` pins the copy to the original array for
 array.
 

@@ -21,9 +21,9 @@ On the card a degree plan is one hub part of the hybrid-ELL kernels: rows =
 slot_src, cnt = live_cnt, one output row per vertex with block rows, and
 row_ptr the vertex's run of block rows (block_row is ascending). So static
 and unit passes launch K1 / K2 (csrc/hyb_spmm.cu), and the dynamic pass K7
-(csrc/dyn_spmm.cu, with s2e = slot_to_edge), once per plan: each warp
-sums a vertex's block rows in registers, which is the final segment-sum,
-and writes the vertex's row once. Isolated vertices have no block row and
+(csrc/dyn_spmm.cu, with s2e = slot_to_edge), once per plan: the lanes that
+own a vertex sum its block rows in registers, which is the final
+segment-sum, and write the vertex's row once. Isolated vertices have no block row and
 keep the zero fill, as JAX's segment_sum leaves them.
 
 The plain version (`degree_pass_plain`) is a line-for-line port of
@@ -44,6 +44,7 @@ import torch
 
 from dorylus_tpu_torch.common.logging import log
 from dorylus_tpu_torch.ops.degree_plan import build_degree_plan
+from dorylus_tpu_torch.ops.gather_parts import PartTable
 from dorylus_tpu_torch.ops.hyb_spmm import (HybDstFn, HybDynFn, HybStaticFn,
                                             HybUnitFn, _is_narrow, kernel_pass,
                                             reduce_slots_plain, val_ext_of)
@@ -56,8 +57,8 @@ DEGREE_LAUNCHES = 0
 
 def _upload(plan: dict, n_src: int, n_edges: int, vals: np.ndarray | None,
             vals_dtype: torch.dtype, device: torch.device) -> dict:
-    """numpy degree plan -> the kernels' hub part plus what the plain
-    version reads, as tensors on `device`."""
+    """numpy degree plan -> the kernels' hub part and its descriptor table
+    (`parts`) plus what the plain version reads, as tensors on `device`."""
     def t(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
 
@@ -71,7 +72,7 @@ def _upload(plan: dict, n_src: int, n_edges: int, vals: np.ndarray | None,
             "s2e": t(plan["slot_to_edge"], torch.int32)}
     if vals is not None:
         part["vals"] = t(vals, torch.float32).to(vals_dtype)
-    return {"part": part, "block_row": t(block_row, torch.int64),
+    return {"part": part, "parts": PartTable([part]), "block_row": t(block_row, torch.int64),
             "edge_to_slot": t(plan["edge_to_slot"], torch.int32),
             "n_src": n_src, "n_edges": n_edges}
 
@@ -106,9 +107,8 @@ def degree_pass(table: torch.Tensor, plan: dict, num_out: int,
     global DEGREE_LAUNCHES
     if table.device.type == "cpu":
         return degree_pass_plain(table, plan, num_out, gather_dtype, mode, val, other)
-    result, launched = kernel_pass(f"degree_{mode}_pass", table, [plan["part"]],
-                                   plan["n_src"], num_out, gather_dtype, mode, val,
-                                   other, plan["n_edges"])
+    result, launched = kernel_pass(f"degree_{mode}_pass", table, plan, num_out,
+                                   gather_dtype, mode, val, other)
     DEGREE_LAUNCHES += launched
     return result
 

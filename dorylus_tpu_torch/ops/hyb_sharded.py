@@ -36,11 +36,13 @@ rank owns its plan: it is built over the shard's REAL edges
 (`[:num_edges]`, so no pad edge exists and liveness needs no recount) with
 the rank's own width DP. dynamic=False only, as the JAX engine builds it.
 
-On the card the mixed part is K8 (csrc/fused_spmm.cu): K1/K2's work shape
-with two table pointers, so h and ghosts are never concatenated; the pure
-buckets run the one-table kernel (K1/K2) on h. `fused_pass` dispatches on
-the device: CPU tensors take the plain version (`_hyb_pass_plain` with
-`h_local` / `n_pure`), CUDA tensors launch the kernels or raise.
+On the card the forward pass is K8 (csrc/fused_spmm.cu): K1/K2's gather
+core with two table pointers, so h and ghosts are never concatenated, and
+one launch over every part: the descriptor of a pure bucket carries no
+split (it reads h alone), a mixed bucket's and the hub top's carry
+split = vp. `fused_pass` dispatches on the device: CPU tensors take the
+plain version (`_hyb_pass_plain` with `h_local` / `n_pure`), CUDA tensors
+launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -52,14 +54,13 @@ import torch
 
 from dorylus_tpu_torch.graph.partition import Shard, shard_edges
 from dorylus_tpu_torch.ops import cuda_build
+from dorylus_tpu_torch.ops.gather_parts import LOCAL_ONLY, PartTable, gather_table
 from dorylus_tpu_torch.ops.hyb_plan import _LAMBDA_SLOTS, build_hyb_plan
-from dorylus_tpu_torch.ops.hyb_spmm import (_DTYPE_CODE, HybDstFn, HybStaticFn,
-                                            HybUnitFn, _check, _check_part,
-                                            _device_index, _hyb_pass,
-                                            _hyb_pass_plain, _is_narrow,
-                                            _launch_part, _upload)
+from dorylus_tpu_torch.ops.hyb_spmm import (HybDstFn, HybStaticFn, HybUnitFn, _hyb_pass,
+                                            _hyb_pass_plain, _is_narrow, _upload,
+                                            launch_parts)
 
-# K8 launches made by this process, one per mixed plan part.
+# K8 launches made by this process, one per fused pass.
 FUSED_LAUNCHES = 0
 
 _CSRC = cuda_build.CSRC / "fused_spmm.cu"
@@ -75,8 +76,8 @@ def build_kernel() -> ctypes.CDLL:
         return _lib
     lib, info = cuda_build.load(_CSRC)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.fused_part.argtypes = [ci, ci, vp, vp, ci, ci, vp, vp, vp, ci, vp, vp, ci, vp, vp]
-    lib.fused_part.restype = ci
+    lib.fused_pass.argtypes = [ci, ci, ci, vp, vp, ci, ci, ci, vp, ci, ci, ci, vp, vp]
+    lib.fused_pass.restype = ci
     lib.fused_error_string.argtypes = [ci]
     lib.fused_error_string.restype = ctypes.c_char_p
     BUILD_INFO.update(info)
@@ -84,38 +85,17 @@ def build_kernel() -> ctypes.CDLL:
     return lib
 
 
-def _launch_fused_part(tb_h: torch.Tensor, tb_g: torch.Tensor, part: dict,
-                       out: torch.Tensor, unit: bool) -> bool:
-    """Launch K8 for one mixed plan part: slot index s < len(tb_h) reads
-    tb_h[s], any other tb_g[s - len(tb_h)]; the part's values weigh the
-    rows (static) or 1 does (unit=True, mask mode). Validates everything
-    the kernel assumes and raises on anything it does not take. Returns
-    whether it launched."""
+def _launch_fused_pass(tb_h: torch.Tensor, tb_g: torch.Tensor, plan: dict,
+                       out: torch.Tensor, unit: bool) -> int:
+    """K8 over every part of the fused plan: a slot index s below a part's
+    split (vp for mixed parts) reads tb_h[s], any other tb_g[s - vp]; the
+    part's values weigh the rows (static) or 1 does (unit=True, mask mode).
+    tb_h and tb_g are laid out by `gather_table`. Raises on anything the
+    kernel does not take. Returns the launches made."""
     global FUSED_LAUNCHES
-    vals = None if unit else part.get("vals")
-    _check(unit or vals is not None, "static mode needs a plan with values")
-    n_out = _check_part(tb_h, part, out, [], [tb_g] + ([vals] if vals is not None else []))
-    _check(tb_g.dtype == tb_h.dtype and tb_g.dim() == 2 and tb_g.shape[1] == tb_h.shape[1],
-           f"ghosts {tb_g.dtype} {tuple(tb_g.shape)} / h {tb_h.dtype} "
-           f"{tuple(tb_h.shape)} disagree")
-    _check(vals is None or (vals.dtype == tb_h.dtype and vals.shape == part["rows"].shape),
-           "vals must match the table dtype and the slot grid")
-    if n_out == 0:
-        return False
-    rows, row_ptr = part["rows"], part.get("row_ptr")
-    lib = build_kernel()
-    code = lib.fused_part(
-        _device_index(tb_h), _DTYPE_CODE[tb_h.dtype], tb_h.data_ptr(), tb_g.data_ptr(),
-        tb_h.shape[0], tb_h.shape[1], rows.data_ptr(),
-        vals.data_ptr() if vals is not None else None, part["cnt"].data_ptr(),
-        rows.shape[1], row_ptr.data_ptr() if row_ptr is not None else None,
-        part["v"].data_ptr(), n_out, out.data_ptr(),
-        torch.cuda.current_stream(tb_h.device).cuda_stream)
-    if code != 0:
-        raise RuntimeError(f"fused_part ({'mask' if unit else 'static'}) launch "
-                           f"failed: {lib.fused_error_string(code).decode()} ({code})")
-    FUSED_LAUNCHES += 1
-    return True
+    launched = launch_parts(build_kernel, "fused_pass", [tb_h, tb_g], plan, out, unit)
+    FUSED_LAUNCHES += launched
+    return launched
 
 
 def fused_pass_plain(h: torch.Tensor, ghosts: torch.Tensor, plan: dict, n_pure: int,
@@ -131,10 +111,9 @@ def fused_pass_plain(h: torch.Tensor, ghosts: torch.Tensor, plan: dict, n_pure: 
 def fused_pass(h: torch.Tensor, ghosts: torch.Tensor, plan: dict, n_pure: int,
                gather_dtype: torch.dtype | None, mode: str) -> torch.Tensor:
     """The fused forward pass -> (vp, F) f32. CPU tensors run the plain
-    version. CUDA tensors run the pure buckets on K1/K2 over h, launched
-    first (they need no ghost row), then the mixed buckets and the hub top
-    on K8 over the two tables; h and ghosts are each cast once to the
-    gather dtype. Anything else raises."""
+    version. CUDA tensors run K8 once over the pure buckets (which read h
+    alone), the mixed buckets and the hub top; h and ghosts are each cast
+    once to the gather dtype. Anything else raises."""
     if mode not in ("static", "mask"):
         raise ValueError(f"fused_pass: mode {mode!r} (static or mask)")
     if h.device.type == "cpu":
@@ -145,16 +124,8 @@ def fused_pass(h: torch.Tensor, ghosts: torch.Tensor, plan: dict, n_pure: int,
         raise ValueError(f"fused_pass: h {tuple(h.shape)} + ghosts {tuple(ghosts.shape)} "
                          f"hold fewer than the plan's {plan['n_src']} source rows")
     dt = gather_dtype if _is_narrow(gather_dtype) else torch.float32
-    tb_h, tb_g = h.to(dt).contiguous(), ghosts.to(dt).contiguous()
     out = torch.zeros((h.shape[0], h.shape[1]), dtype=torch.float32, device=h.device)
-    unit = mode == "mask"
-    for bi, part in enumerate(plan["buckets"]):
-        if bi < n_pure:
-            _launch_part(tb_h, part, out, unit)
-        else:
-            _launch_fused_part(tb_h, tb_g, part, out, unit)
-    if plan["top"] is not None:
-        _launch_fused_part(tb_h, tb_g, plan["top"], out, unit)
+    _launch_fused_pass(gather_table(h, dt), gather_table(ghosts, dt), plan, out, mode == "mask")
     return out
 
 
@@ -233,6 +204,14 @@ class ShardedHybSpMM:
         vals_dtype = gather_dtype if _is_narrow(gather_dtype) else torch.float32
         self.fwd = _upload(fwd, int(src.max()) + 1 if ne else 0, vals_dtype, self.device)
         self.bwd = _upload(bwd, int(dst.max()) + 1 if ne else 0, vals_dtype, self.device)
+        if self.fused:
+            # K8's descriptors: the pure buckets read h alone, the mixed
+            # buckets and the hub top split their slots at vp
+            f = self.fwd
+            parts = list(f["buckets"]) + ([f["top"]] if f["top"] is not None else [])
+            f["parts"] = PartTable(parts, [LOCAL_ONLY] * self.n_pure
+                                   + [vp] * (len(parts) - self.n_pure))
+            f["vp"] = vp
 
     def _pass(self, table, plan, num_out, mode, val=None, other=None):
         return _hyb_pass(table, plan, num_out, self.gather_dtype, mode, val, other)

@@ -30,9 +30,12 @@ Two implementations of the pass, on the same plan layout:
     sum, hub chunks summed per hub, output placed through `_n_iso` or
     `inv`, dval pulled back through `e2s`). They are the CPU path and the
     reference for the kernels.
-  * the CUDA kernels: csrc/hyb_spmm.cu (K1 static, K2 mask) and
-    csrc/dyn_spmm.cu (K7 dynamic, with the fused SDDMM), built with nvcc
-    at first use and bound with ctypes (ops/cuda_build.py).
+  * the CUDA kernels: csrc/hyb_spmm.cu (K1 static, K2 mask: one launch
+    per pass over every part of the plan, through the gather core
+    csrc/gather_pass.cuh and the plan's descriptor table,
+    ops/gather_parts.py) and csrc/dyn_spmm.cu (K7 dynamic, with the fused
+    SDDMM; one launch per part), built with nvcc at first use and bound
+    with ctypes (ops/cuda_build.py).
 
 `hyb_static_pass`, `hyb_mask_pass` and `hyb_dynamic_pass` dispatch on the
 table's device: a CPU tensor takes the plain version, a CUDA tensor
@@ -52,11 +55,13 @@ import numpy as np
 import torch
 
 from dorylus_tpu_torch.ops import cuda_build
+from dorylus_tpu_torch.ops.gather_parts import PartTable, gather_table, group_lanes
 from dorylus_tpu_torch.ops.hyb_plan import _LAMBDA_SLOTS, build_hyb_plan
 
-# Kernel launches made by this process, one per plan part: K1 (static
-# mode), K2 (mask mode) and K7 (dynamic mode). chip_smoke.py resets them
-# before each main path and reads them after.
+# Kernel launches made by this process: K1 (static mode) and K2 (mask
+# mode), one per pass (a plan of more than gather_parts.MAX_PARTS parts
+# takes one per MAX_PARTS), and K7 (dynamic mode), one per plan part.
+# chip_smoke.py resets them before each main path and reads them after.
 KERNEL_LAUNCHES = 0
 MASK_LAUNCHES = 0
 DYN_LAUNCHES = 0
@@ -205,8 +210,8 @@ def build_kernel() -> ctypes.CDLL:
         return _lib
     lib, info = cuda_build.load(_CSRC)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.hyb_part.argtypes = [ci, ci, vp, ci, vp, vp, vp, ci, vp, vp, ci, vp, vp]
-    lib.hyb_part.restype = ci
+    lib.hyb_pass.argtypes = [ci, ci, ci, vp, ci, ci, ci, vp, ci, ci, ci, vp, vp]
+    lib.hyb_pass.restype = ci
     lib.hyb_error_string.argtypes = [ci]
     lib.hyb_error_string.restype = ctypes.c_char_p
     BUILD_INFO.update(info)
@@ -239,8 +244,8 @@ def build_dyn_kernel() -> ctypes.CDLL:
 
 def _check_part(tb: torch.Tensor, part: dict, out: torch.Tensor,
                 extra_ints: list, extra: list) -> int:
-    """What every slot-pass launch assumes of its table, output and part;
-    returns the part's output row count."""
+    """What every K7 launch assumes of its table, output and part; returns
+    the part's output row count."""
     rows, cnt, out_idx = part["rows"], part["cnt"], part["v"]
     row_ptr = part.get("row_ptr")
     _check(tb.is_cuda, f"table must be a CUDA tensor, got {tb.device}")
@@ -268,42 +273,84 @@ def _device_index(t: torch.Tensor) -> int:
     return t.device.index if t.device.index is not None else torch.cuda.current_device()
 
 
-def _launch_part(tb: torch.Tensor, part: dict, out: torch.Tensor,
-                 unit: bool = False) -> bool:
-    """Launch the kernel for one plan part, accumulating its rows into
-    `out` (which the caller zero-filled): K1 with the part's values, or K2
-    (unit=True, mask mode; no values read). Validates everything the
-    kernel assumes and raises on anything it does not take. Returns
-    whether it launched (a part without output rows launches nothing)."""
+def check_pass_tables(tables: list, plan: dict, out: torch.Tensor, unit: bool) -> tuple:
+    """What a K1/K2/K8 launch assumes of its tables (laid out by
+    `gather_table`), its output and its plan, checked once a pass (the
+    plan's parts were checked at upload); returns (ld, g, column tiles)."""
+    tb = tables[0]
+    _check(tb.is_cuda, f"table must be a CUDA tensor, got {tb.device}")
+    _check(tb.dtype in _DTYPE_CODE,
+           f"table dtype {tb.dtype} (kernel takes float32 or bfloat16)")
+    _check(out.dtype == torch.float32, f"out dtype {out.dtype} (needs float32)")
+    vec = 16 // tb.element_size()
+    _check(tb.dim() == 2 and out.dim() == 2 and tb.shape[1] >= out.shape[1]
+           and tb.shape[1] % vec == 0,
+           f"table {tuple(tb.shape)} / out {tuple(out.shape)} widths differ (the table's "
+           f"rows hold out's columns, padded to a multiple of {vec})")
+    for t in tables:
+        _check(t.dtype == tb.dtype and t.dim() == 2 and t.shape[1] == tb.shape[1],
+               f"ghosts {t.dtype} {tuple(t.shape)} / h {tb.dtype} {tuple(tb.shape)} disagree")
+        _check(t.device == tb.device, f"tensor on {t.device}, table on {tb.device}")
+        _check(t.is_contiguous() and t.data_ptr() % 16 == 0,
+               "all tensors must be contiguous (tables 16-byte aligned)")
+    # a fused plan's mixed parts read the ghost rows from its vp local rows on
+    _check(len(tables) == (2 if "vp" in plan else 1)
+           and ("vp" not in plan or tb.shape[0] == plan["vp"]),
+           f"tables of {[t.shape[0] for t in tables]} rows for a plan of "
+           f"{plan.get('vp', 'no')} local rows")
+    pt = plan["parts"]
+    _check(out.device == tb.device and pt.device == tb.device,
+           f"out on {out.device}, plan on {pt.device}, table on {tb.device}")
+    _check(out.is_contiguous() and out.shape[0] >= pt.out_rows,
+           f"out {tuple(out.shape)} must be contiguous with {pt.out_rows} rows")
+    # (a plan without parts launches nothing: no values to check)
+    _check(unit or not pt.parts or pt.vals_dtype is not None,
+           "static mode needs a plan with values")
+    _check(unit or not pt.parts or pt.vals_dtype == tb.dtype,
+           f"vals dtype {pt.vals_dtype} differs from table dtype {tb.dtype}")
+    return (tb.shape[1],) + group_lanes(tb.shape[1], tb.element_size())
+
+
+def launch_parts(build, entry: str, tables: list, plan: dict, out: torch.Tensor,
+                 unit: bool) -> int:
+    """Run a static or mask pass over every part of `plan` through the
+    gather core: one launch per gather_parts.MAX_PARTS parts, all on the
+    current stream, of `entry` in the library `build()` loads (built after
+    the checks pass). tables: [table] (K1/K2) or [h, ghosts] (K8), each laid
+    out by `gather_table`. Returns the launches made."""
+    ld, g, tiles = check_pass_tables(tables, plan, out, unit)
+    _check(sum(t.shape[0] for t in tables) >= plan["n_src"],
+           f"tables of {[t.shape[0] for t in tables]} rows, the plan reads "
+           f"{plan['n_src']} source rows")
+    lib = build()
+    # each library names its entry `<name>_pass` and its error text `<name>_error_string`
+    lib_fn, errors = getattr(lib, entry), getattr(lib, entry.replace("_pass", "_error_string"))
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    launched = 0
+    for desc, _, n_blocks, address in plan["parts"].layout(g):
+        code = lib_fn(_device_index(out), _DTYPE_CODE[tables[0].dtype], int(unit),
+                      *[t.data_ptr() for t in tables], ld, out.shape[1], g,
+                      address, len(desc), n_blocks, tiles, out.data_ptr(), stream)
+        if code != 0:
+            raise RuntimeError(f"{entry} ({'mask' if unit else 'static'}) launch failed: "
+                               f"{errors(code).decode()} ({code})")
+        launched += 1
+    return launched
+
+
+def _launch_pass(tb: torch.Tensor, plan: dict, out: torch.Tensor, unit: bool = False) -> int:
+    """K1 (the plan's values) or K2 (unit=True, mask mode; no values read)
+    over every part of `plan`, accumulating into `out` (which the caller
+    zero-filled); tb is laid out by `gather_table` in the gather dtype.
+    Raises on anything the kernel does not take. Returns the launches
+    made (0 for a plan without output rows)."""
     global KERNEL_LAUNCHES, MASK_LAUNCHES
-    vals = None if unit else part.get("vals")
-    _check(unit or vals is not None, "static mode needs a plan with values")
-    n_out = _check_part(tb, part, out, [], [vals] if vals is not None else [])
-    _check(vals is None or vals.dtype == tb.dtype,
-           f"vals dtype {None if vals is None else vals.dtype} differs from "
-           f"table dtype {tb.dtype}")
-    _check(vals is None or vals.shape == part["rows"].shape,
-           f"vals {None if vals is None else tuple(vals.shape)} / rows "
-           f"{tuple(part['rows'].shape)} disagree")
-    if n_out == 0:
-        return False
-    rows, row_ptr = part["rows"], part.get("row_ptr")
-    lib = build_kernel()
-    code = lib.hyb_part(
-        _device_index(tb), _DTYPE_CODE[tb.dtype], tb.data_ptr(), tb.shape[1],
-        rows.data_ptr(), vals.data_ptr() if vals is not None else None,
-        part["cnt"].data_ptr(), rows.shape[1],
-        row_ptr.data_ptr() if row_ptr is not None else None,
-        part["v"].data_ptr(), n_out, out.data_ptr(),
-        torch.cuda.current_stream(tb.device).cuda_stream)
-    if code != 0:
-        raise RuntimeError(f"hyb_part ({'mask' if unit else 'static'}) launch "
-                           f"failed: {lib.hyb_error_string(code).decode()} ({code})")
+    launched = launch_parts(build_kernel, "hyb_pass", [tb], plan, out, unit)
     if unit:
-        MASK_LAUNCHES += 1
+        MASK_LAUNCHES += launched
     else:
-        KERNEL_LAUNCHES += 1
-    return True
+        KERNEL_LAUNCHES += launched
+    return launched
 
 
 def _launch_dyn_part(tb: torch.Tensor, part: dict, val: torch.Tensor,
@@ -351,29 +398,28 @@ def _launch_dyn_part(tb: torch.Tensor, part: dict, val: torch.Tensor,
     return True
 
 
-def kernel_pass(name: str, table: torch.Tensor, parts: list, n_src: int,
-                num_out: int, gather_dtype: torch.dtype | None, mode: str,
-                val: torch.Tensor | None = None, other: torch.Tensor | None = None,
-                n_edges: int | None = None):
-    """A slot pass on the card, one launch per part: K1 (static), K2
-    (mask) or K7 (dynamic; with `other` also the fused SDDMM, returned as
-    (out, dval)). The table must be a CUDA tensor; anything else raises.
-    Returns (result, launches)."""
+def kernel_pass(name: str, table: torch.Tensor, plan: dict, num_out: int,
+                gather_dtype: torch.dtype | None, mode: str,
+                val: torch.Tensor | None = None, other: torch.Tensor | None = None):
+    """A slot pass on the card: K1 (static) or K2 (mask), one launch over
+    every part of the plan, or K7 (dynamic; with `other` also the fused
+    SDDMM, returned as (out, dval)), one launch per part. The table must be
+    a CUDA tensor; anything else raises. Returns (result, launches)."""
     if table.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {table.device}")
-    if table.dim() != 2 or table.shape[0] < n_src:
+    if table.dim() != 2 or table.shape[0] < plan["n_src"]:
         raise ValueError(f"{name}: table {tuple(table.shape)} has fewer "
-                         f"than the plan's {n_src} source rows")
-    tb = table.to(gather_dtype if _is_narrow(gather_dtype) else torch.float32)
-    tb = tb.contiguous()
+                         f"than the plan's {plan['n_src']} source rows")
+    dt = gather_dtype if _is_narrow(gather_dtype) else torch.float32
     out = torch.zeros((num_out, table.shape[1]), dtype=torch.float32,
                       device=table.device)
     if mode != "dynamic":
-        launched = sum(_launch_part(tb, part, out, mode == "mask") for part in parts)
-        return out, launched
+        return out, _launch_pass(gather_table(table, dt), plan, out, mode == "mask")
+    n_edges = plan.get("n_edges")
     if val is None or val.shape != (n_edges,):
         raise ValueError(f"{name}: val {None if val is None else tuple(val.shape)} "
                          f"needs one value per edge ({n_edges})")
+    tb = table.to(dt).contiguous()
     val32 = val.float().contiguous()
     oth = dval = None
     if other is not None:
@@ -382,7 +428,8 @@ def kernel_pass(name: str, table: torch.Tensor, parts: list, n_src: int,
                              f"than the pass's {num_out} output rows")
         oth = other.to(tb.dtype).contiguous()
         dval = torch.zeros(n_edges, dtype=torch.float32, device=table.device)
-    launched = sum(_launch_dyn_part(tb, part, val32, out, oth, dval) for part in parts)
+    launched = sum(_launch_dyn_part(tb, part, val32, out, oth, dval)
+                   for part in plan["parts"].parts)
     return (out if other is None else (out, dval)), launched
 
 
@@ -395,24 +442,24 @@ def _hyb_pass(table: torch.Tensor, plan: dict, num_out: int,
               val: torch.Tensor | None = None, other: torch.Tensor | None = None):
     if table.device.type == "cpu":
         return _hyb_pass_plain(table, plan, num_out, gather_dtype, mode, val, other)
-    parts = list(plan["buckets"]) + ([plan["top"]] if plan["top"] is not None else [])
-    result, _ = kernel_pass(_PASS_NAMES[mode], table, parts, plan["n_src"], num_out,
-                            gather_dtype, mode, val, other, plan.get("n_edges"))
+    result, _ = kernel_pass(_PASS_NAMES[mode], table, plan, num_out, gather_dtype, mode, val,
+                            other)
     return result
 
 
 def hyb_static_pass(table: torch.Tensor, plan: dict, num_out: int,
                     gather_dtype: torch.dtype | None = None) -> torch.Tensor:
     """The static-mode pass -> (num_out, F) f32. CPU tensors run the plain
-    version; CUDA tensors run K1 (one launch per plan part) or raise."""
+    version; CUDA tensors run K1 (one launch over the plan's parts) or
+    raise."""
     return _hyb_pass(table, plan, num_out, gather_dtype, "static")
 
 
 def hyb_mask_pass(table: torch.Tensor, plan: dict, num_out: int,
                   gather_dtype: torch.dtype | None = None) -> torch.Tensor:
     """The mask-mode (unit-weight) pass -> (num_out, F) f32. CPU tensors
-    run the plain version; CUDA tensors run K2 (one launch per plan part)
-    or raise."""
+    run the plain version; CUDA tensors run K2 (one launch over the plan's
+    parts) or raise."""
     return _hyb_pass(table, plan, num_out, gather_dtype, "mask")
 
 
@@ -432,8 +479,10 @@ def _upload(plan: dict, n_src: int, vals_dtype: torch.dtype,
             device: torch.device, n_edges: int | None = None) -> dict:
     """numpy plan -> torch tensors on `device`; `vals` only where the plan
     has them (mask plans have none). Adds `n_src` (rows the gather table
-    must have) and, for the hub top, `row_ptr` (each hub's run of chunk
-    rows; rowv is ascending).
+    must have), for the hub top `row_ptr` (each hub's run of chunk rows;
+    rowv is ascending), and `parts`, the kernels' descriptor table of the
+    buckets and the top (ops/gather_parts.py), which checks every part
+    once.
 
     n_edges given (a dynamic op): the slot->edge maps ship too, `s2e` per
     part as int32 for the kernel and the plan's `e2s` (int32) for the
@@ -462,6 +511,7 @@ def _upload(plan: dict, n_src: int, vals_dtype: torch.dtype,
         row_ptr = np.searchsorted(top["rowv"], np.arange(n_hubs + 1))
         out["top"] = dict(part(top), rowv=t(top["rowv"], torch.int64),
                           row_ptr=t(row_ptr, torch.int32))
+    out["parts"] = PartTable(list(out["buckets"]) + ([out["top"]] if top is not None else []))
     if "_n_iso" in plan:
         out["n_iso"] = int(plan["_n_iso"])
     else:

@@ -13,12 +13,14 @@ four hand-written kernels in ops/csrc/probe_prims.cu:
                     shared-memory scratch (Mosaic B);
   P3 `row_copy`     per-row 512-byte asynchronous copies (`cp.async`, 32
                     pieces of 16 bytes a row) from device memory into a
-                    shared-memory ring of depth 16 (Mosaic C);
+                    shared-memory ring of depth 16 (Mosaic C); also with
+                    256-byte rows (a (rows, 64) table), where a half-warp is
+                    a stream, so rows and bytes a second part ways;
   P4 `lane_gather`  indexed warp shuffles over an (8, 128) register tile,
                     out[r, c] = tile[r, ids[c]], summed (Mosaic D).
 
 A "stream" is one serial chain of ops: a block for P1 and P2, a warp for P3
-and P4; `idx` carries one row of indices per stream. The Mosaic table of A
+(a half-warp at 256-byte rows) and P4; `idx` carries one row of indices per stream. The Mosaic table of A
 and B is 2 MB of VMEM; a block has at most 227 KB of shared memory, so the
 table here is the largest whole number of row-blocks that fits beside the
 kernel's index buffer (`table_blocks`: 56 row-blocks, 224 KB, on an H100).
@@ -51,6 +53,8 @@ LAUNCHES = {"P1": 0, "P2": 0, "P3": 0, "P4": 0}
 
 TILE_ROWS, COLS = 8, 128  # one row-block: 4 KB of f32
 DEPTH = 16  # P3's ring
+ROW_COLS = (128, 64)  # P3's row widths: 512- and 256-byte rows
+HALF_ROWS_60MB = 234_376  # P3's 256-byte-row table: 60 MB, the bf16 Reddit table's size
 ID_ROWS = 64  # P4's id rows, cycled
 WARPS = 8  # P3/P4 streams per block
 _IDX_BYTES = 1024  # P1/P2's staged-index buffer beside the table
@@ -83,9 +87,10 @@ def dyn_rmw_plain(idx: torch.Tensor, tab_blocks: int) -> torch.Tensor:
 
 def row_copy_plain(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """P3: each stream's ring after its last op: slot i % 16 holds
-    tab[idx[s, i]] for the last 16 ops i -> (S, 16, 128) f32."""
+    tab[idx[s, i]] for the last 16 ops i -> (S, 16, C) f32 for a (rows, C)
+    table."""
     n = idx.shape[1]
-    out = torch.empty((idx.shape[0], DEPTH, COLS), dtype=tab.dtype, device=tab.device)
+    out = torch.empty((idx.shape[0], DEPTH, tab.shape[1]), dtype=tab.dtype, device=tab.device)
     slots = torch.arange(n - DEPTH, n, device=tab.device) % DEPTH
     out[:, slots] = tab[idx[:, n - DEPTH:].long()]
     return out
@@ -115,7 +120,7 @@ def build_kernel() -> ctypes.CDLL:
     lib.probe_max_shared.argtypes = [ci]
     lib.probe_dyn_load.argtypes = [ci, vp, ci, vp, ci, ci, vp, vp]
     lib.probe_dyn_rmw.argtypes = [ci, ci, vp, ci, ci, vp, vp]
-    lib.probe_row_copy.argtypes = [ci, vp, vp, ci, ci, vp, vp]
+    lib.probe_row_copy.argtypes = [ci, vp, ci, vp, ci, ci, vp, vp]
     lib.probe_lane_gather.argtypes = [ci, vp, vp, ci, ci, vp, vp]
     for fn in (lib.probe_max_shared, lib.probe_dyn_load, lib.probe_dyn_rmw,
                lib.probe_row_copy, lib.probe_lane_gather):
@@ -204,17 +209,17 @@ def _launch_dyn_rmw(idx: torch.Tensor, out: torch.Tensor) -> None:
 
 
 def _launch_row_copy(tab: torch.Tensor, idx: torch.Tensor, out: torch.Tensor) -> None:
-    """P3."""
+    """P3, on a (rows, 128) or (rows, 64) table: 512- or 256-byte rows."""
     _check_tensors(tab.device, [tab, out], [idx])
-    _check(tab.dim() == 2 and tab.shape[1] == COLS and tab.shape[0] > 0,
-           f"table {tuple(tab.shape)}: want (rows, 128)")
+    _check(tab.dim() == 2 and tab.shape[1] in ROW_COLS and tab.shape[0] > 0,
+           f"table {tuple(tab.shape)}: want (rows, 128) or (rows, 64)")
     _check(idx.dim() == 2 and idx.shape[1] >= DEPTH,
            f"idx {tuple(idx.shape)}: want (streams, ops) with ops >= {DEPTH}")
-    _check(out.shape == (idx.shape[0], DEPTH, COLS), f"out {tuple(out.shape)}")
+    _check(out.shape == (idx.shape[0], DEPTH, tab.shape[1]), f"out {tuple(out.shape)}")
     lib = build_kernel()
     _raise_on(lib, "probe_row_copy", lib.probe_row_copy(
-        _dev_index(tab), tab.data_ptr(), idx.data_ptr(), idx.shape[0], idx.shape[1],
-        out.data_ptr(), _stream(tab)))
+        _dev_index(tab), tab.data_ptr(), tab.shape[1] * 4, idx.data_ptr(), idx.shape[0],
+        idx.shape[1], out.data_ptr(), _stream(tab)))
     LAUNCHES["P3"] += idx.shape[0] > 0
 
 
@@ -268,14 +273,15 @@ def dyn_rmw(idx: torch.Tensor, tab_blocks: int) -> torch.Tensor:
 
 
 def row_copy(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """P3 -> (S, 16, 128) f32, each stream's ring. tab (rows, 128) f32,
-    idx (S, N >= 16) int32 in [0, rows)."""
+    """P3 -> (S, 16, C) f32, each stream's ring. tab (rows, C) f32 with C
+    = 128 or 64, idx (S, N >= 16) int32 in [0, rows)."""
     _in_range("row_copy", idx, tab.shape[0])
     if idx.dim() != 2 or idx.shape[1] < DEPTH:
         raise ValueError(f"row_copy: idx {tuple(idx.shape)} needs at least {DEPTH} ops")
     if not _on_card("row_copy", tab):
         return row_copy_plain(tab, idx)
-    out = torch.empty((idx.shape[0], DEPTH, COLS), dtype=torch.float32, device=tab.device)
+    out = torch.empty((idx.shape[0], DEPTH, tab.shape[1]), dtype=torch.float32,
+                      device=tab.device)
     _launch_row_copy(tab, idx, out)
     return out
 
@@ -345,9 +351,12 @@ class Inputs:
         """P1/P2: the (8 * blocks, 128) table and (streams, n_ops) indices."""
         return self._draw(1, blocks, (self.tile_streams, n_ops), (blocks * TILE_ROWS, COLS))
 
-    def copies(self, rows: int, n_ops: int):
-        """P3: the (rows, 128) table and (streams, n_ops) row indices."""
-        return self._draw(2, rows, (self.copy_streams, n_ops), (rows, COLS))
+    def copies(self, rows: int, n_ops: int, cols: int = COLS):
+        """P3: the (rows, cols) table and (streams, n_ops) row indices; at 64
+        columns (256-byte rows) a half-warp is a stream, so twice the
+        streams fill the same grid."""
+        streams = self.copy_streams * (COLS // cols)
+        return self._draw(2 if cols == COLS else 4, rows, (streams, n_ops), (rows, cols))
 
     def gathers(self):
         """P4: the (streams, 8, 128) tiles and the (64, 128) id rows."""
@@ -371,8 +380,11 @@ def check_against_plain(device: str | torch.device = "cuda", check_ops: int = 20
     tab, idx = inp.tiles(blocks, check_ops)
     errs = {"P1": _close("P1", dyn_load(tab, idx), dyn_load_plain(tab, idx), exact=False),
             "P2": _close("P2", dyn_rmw(idx, blocks), dyn_rmw_plain(idx, blocks), exact=True)}
-    tab, idx = inp.copies(dma_rows, max(check_ops, DEPTH))
-    errs["P3"] = _close("P3", row_copy(tab, idx), row_copy_plain(tab, idx), exact=True)
+    errs["P3"] = 0.0
+    for cols in ROW_COLS:
+        tab, idx = inp.copies(dma_rows, max(check_ops, DEPTH), cols)
+        errs["P3"] = max(errs["P3"], _close(f"P3 ({cols * 4}-byte rows)", row_copy(tab, idx),
+                                            row_copy_plain(tab, idx), exact=True))
     tiles, ids = inp.gathers()
     errs["P4"] = _close("P4", lane_gather(tiles, ids, check_ops),
                         lane_gather_plain(tiles, ids, check_ops), exact=False)
@@ -380,7 +392,8 @@ def check_against_plain(device: str | torch.device = "cuda", check_ops: int = 20
 
 
 def measure(device: str | torch.device = "cuda", n_ops: int = 100_000,
-            dma_rows: tuple = (65_536, 1 << 21), seed: int = 0) -> dict:
+            dma_rows: tuple = (65_536, 1 << 21), half_rows: tuple = (HALF_ROWS_60MB,),
+            seed: int = 0, probes: tuple = tuple(LAUNCHES)) -> dict:
     """Time each kernel at n_ops ops a stream on one block (the per-SM
     rate) and on a grid that fills the card (P3 and P4 on one stream too).
     The plain version runs on the same inputs at the card's grid: it is
@@ -389,9 +402,9 @@ def measure(device: str | torch.device = "cuda", n_ops: int = 100_000,
     the largest over the tables), so what is compared is what is timed.
     Returns {"P1": {...}, ...}: per grid the ms, ops/s and, where an op
     moves bytes, bytes/s; P3 per table size (32 MB stays in the L2, 1 GB
-    does not)."""
+    does not) and, for each of `half_rows`, at 256-byte rows on a (rows,
+    64) table (`tables_256`)."""
     inp, blocks = card_inputs(device, seed)
-    dev = inp.dev
     tile_bytes = TILE_ROWS * COLS * 4
 
     def rates(ms, streams, op_bytes=None):
@@ -412,6 +425,17 @@ def measure(device: str | torch.device = "cuda", n_ops: int = 100_000,
 
     res: dict = {"table_blocks": blocks, "table_bytes": blocks * tile_bytes,
                  "sms": inp.tile_streams, "n_ops": n_ops}
+    if "P1" in probes or "P2" in probes:
+        _measure_tiles(res, inp, blocks, n_ops, rates, against_plain)
+    if "P3" in probes:
+        _measure_copies(res, inp, n_ops, dma_rows, half_rows, rates, against_plain)
+    if "P4" in probes:
+        _measure_gathers(res, inp, n_ops, rates, against_plain)
+    return res
+
+
+def _measure_tiles(res, inp, blocks, n_ops, rates, against_plain):
+    dev, tile_bytes = inp.dev, TILE_ROWS * COLS * 4
     streams = inp.tile_streams
     tab, idx = inp.tiles(blocks, n_ops)
     out1 = torch.empty((streams, TILE_ROWS, COLS), device=dev)
@@ -429,23 +453,29 @@ def measure(device: str | torch.device = "cuda", n_ops: int = 100_000,
     against_plain(res["P2"], "P2", out2, lambda: dyn_rmw_plain(idx, blocks), exact=True)
     del tab, idx, out1, out2
 
-    streams = inp.copy_streams
-    res["P3"] = {"op_bytes": COLS * 4, "depth": DEPTH, "tables": {}}
-    for rows in dma_rows:
-        tab, idx = inp.copies(rows, n_ops)
-        out = torch.empty((streams, DEPTH, COLS), device=dev)
-        row = {"table_bytes": rows * COLS * 4,
-               "one_stream": rates(_ms(lambda: _launch_row_copy(tab, idx[:1], out[:1])), 1,
-                                   COLS * 4),
-               "one_block": rates(_ms(lambda: _launch_row_copy(tab, idx[:WARPS], out[:WARPS])),
-                                  WARPS, COLS * 4),
-               "card": rates(_ms(lambda: _launch_row_copy(tab, idx, out)), streams, COLS * 4)}
-        against_plain(row, f"P3 ({rows} rows)", out, lambda: row_copy_plain(tab, idx),
-                      exact=True)
+
+def _measure_copies(res, inp, n_ops, dma_rows, half_rows, rates, against_plain):
+    dev = inp.dev
+    res["P3"] = {"op_bytes": COLS * 4, "depth": DEPTH, "tables": {}, "tables_256": {}}
+    for rows, cols in [(r, COLS) for r in dma_rows] + [(r, COLS // 2) for r in half_rows]:
+        tab, idx = inp.copies(rows, n_ops, cols)
+        streams, per_warp = idx.shape[0], COLS // cols
+        out = torch.empty((streams, DEPTH, cols), device=dev)
+        one = idx[:1], out[:1]
+        block = idx[:WARPS * per_warp], out[:WARPS * per_warp]
+        row = {"table_bytes": rows * cols * 4, "row_bytes": cols * 4,
+               "one_stream": rates(_ms(lambda: _launch_row_copy(tab, *one)), 1, cols * 4),
+               "one_block": rates(_ms(lambda: _launch_row_copy(tab, *block)),
+                                  WARPS * per_warp, cols * 4),
+               "card": rates(_ms(lambda: _launch_row_copy(tab, idx, out)), streams, cols * 4)}
+        against_plain(row, f"P3 ({rows} rows of {cols * 4} bytes)", out,
+                      lambda: row_copy_plain(tab, idx), exact=True)
         res["P3"]["max_abs_err"] = max(row["max_abs_err"], res["P3"].get("max_abs_err", 0.0))
-        res["P3"]["tables"][str(rows)] = row
+        res["P3"]["tables" if cols == COLS else "tables_256"][str(rows)] = row
         del tab, idx, out
 
+
+def _measure_gathers(res, inp, n_ops, rates, against_plain):
     streams = inp.gather_streams
     tiles, ids = inp.gathers()
     out = torch.empty_like(tiles)
@@ -465,17 +495,19 @@ def measure(device: str | torch.device = "cuda", n_ops: int = 100_000,
         "card": p4(_ms(lambda: _launch_lane_gather(tiles, ids, n_ops, out)), streams)}
     against_plain(res["P4"], "P4", out, lambda: lane_gather_plain(tiles, ids, n_ops),
                   exact=False)
-    return res
 
 
 def run(device: str | torch.device = "cuda", n_ops: int = 100_000, check_ops: int = 2000,
-        seed: int = 0, log=print) -> dict:
+        seed: int = 0, log=print, probes: tuple = tuple(LAUNCHES)) -> dict:
     """The probe: a fast check of P1-P4 against their plain versions, then
-    the measurement, which holds each timed launch against its plain version
-    at n_ops. Needs a card: raises without one."""
+    the measurement of `probes`, which holds each timed launch against its
+    plain version at n_ops; P3 on the 32 MB, 60 MB and 1 GB tables of
+    512-byte rows and on the 60 MB table of 256-byte rows. Needs a card:
+    raises without one."""
     check_against_plain(device, check_ops, seed=seed)
-    res = measure(device, n_ops, seed=seed)
-    for k in LAUNCHES:
+    res = measure(device, n_ops, dma_rows=(65_536, 117_188, 1 << 21), seed=seed,
+                  probes=probes)
+    for k in probes:
         log(f"probe {k}: " + json.dumps(res[k]))
     return res
 
@@ -484,6 +516,7 @@ def main(argv: list | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ops", type=int, default=100_000, help="ops per stream when timing")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--probes", default="P1,P2,P3,P4", help="which probes to time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("probe_prims: torch.cuda.is_available() is False: no GPU to measure",
@@ -492,7 +525,7 @@ def main(argv: list | None = None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     print(f"nvidia-smi: {smi.stdout.strip()}", flush=True)
-    res = run(args.device, n_ops=args.ops)
+    res = run(args.device, n_ops=args.ops, probes=tuple(args.probes.split(",")))
     print(json.dumps({"probe_prims": res, "launches": LAUNCHES}), flush=True)
     return 0
 

@@ -185,8 +185,7 @@ def test_degree_kernel_path_raises_off_cuda():
         with pytest.raises(ValueError, match="unsupported device"):
             tdeg.degree_pass(meta, op.fwd, num_out, None, mode, torch.tensor(val))
     with pytest.raises(ValueError, match="CUDA tensor"):
-        thyb._launch_part(torch.zeros((num_in, 4)), op.fwd["part"],
-                          torch.zeros((num_out, 4)))
+        thyb._launch_pass(torch.zeros((num_in, 4)), op.fwd, torch.zeros((num_out, 4)))
     assert tdeg.DEGREE_LAUNCHES == thyb.KERNEL_LAUNCHES == thyb.MASK_LAUNCHES == 0
     assert thyb.DYN_LAUNCHES == 0
 

@@ -6,8 +6,11 @@ degree plans, K6 (the pair-table build) with K2 over a rewritten plan, and
 the sharded engine's K8 (two-table hyb pass), K9 (row gather) and K10
 (gathered sorted segment-sum), with a 4-rank run on the one card (gloo);
 a rank's three sharded degree plans, the interior and boundary hyb plans,
-the non-square reuse pass of a shard, the probes P1-P4, and the degree
-pair, pair reuse and the edgewise split on 4 ranks of the one card.
+the non-square reuse pass of a shard, the probes P1-P4 (P3 at 512- and
+256-byte rows), and the degree pair, pair reuse and the edgewise split on 4
+ranks of the one card. K1/K2 and K8 share one gather core: one launch a
+pass (two for a plan past MAX_PARTS parts), the same bits on a second run,
+hub rows of 2,500 slots, fused parts of no ghost or only ghost slots.
 
 Marked `gpu`: each test skips where torch sees no CUDA device (the kernel
 has no CPU or interpret mode). On a machine with a card and without jax:
@@ -44,7 +47,7 @@ def _powerlaw(v, seed):
     return src, dst, val
 
 
-@pytest.mark.parametrize("f", [1, 41, 128, 300])
+@pytest.mark.parametrize("f", [1, 8, 41, 128, 300])
 @pytest.mark.parametrize("narrow", [False, True], ids=["f32", "bf16"])
 def test_kernel_matches_plain(cuda, narrow, f):
     from dorylus_tpu_torch.ops import hyb_spmm as hyb
@@ -74,18 +77,19 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
 
     src, dst, val = _powerlaw(500, seed=3)
     op = hyb.HybSpMM(src, dst, 500, 500, static_val=val, device=cuda)
-    part = op.fwd["buckets"][0]
     out = torch.zeros((500, 8), device=cuda)
+    before = (hyb.KERNEL_LAUNCHES, hyb.MASK_LAUNCHES)
     with pytest.raises(ValueError, match="dtype"):
-        hyb._launch_part(torch.zeros((500, 8), dtype=torch.float16, device=cuda),
-                         part, out)
+        hyb._launch_pass(torch.zeros((500, 8), dtype=torch.float16, device=cuda), op.fwd, out)
     with pytest.raises(ValueError, match="differs"):
-        hyb._launch_part(torch.zeros((500, 8), dtype=torch.bfloat16, device=cuda),
-                         part, out)
+        hyb._launch_pass(torch.zeros((500, 8), dtype=torch.bfloat16, device=cuda), op.fwd, out)
     with pytest.raises(ValueError, match="contiguous"):
-        hyb._launch_part(torch.zeros((8, 500), device=cuda).t(), part, out)
+        hyb._launch_pass(torch.zeros((8, 500), device=cuda).t(), op.fwd, out)
+    with pytest.raises(ValueError, match="widths"):
+        hyb._launch_pass(torch.zeros((500, 6), device=cuda), op.fwd, out)
     with pytest.raises(ValueError, match="source rows"):
         hyb.hyb_static_pass(torch.zeros((10, 8), device=cuda), op.fwd, 500)
+    assert (hyb.KERNEL_LAUNCHES, hyb.MASK_LAUNCHES) == before
 
 
 def _close(got, ref, narrow):
@@ -94,7 +98,7 @@ def _close(got, ref, narrow):
     assert float((got.float() - ref.float()).abs().max()) <= tol * float(ref.abs().max())
 
 
-@pytest.mark.parametrize("f", [1, 41, 128, 300])
+@pytest.mark.parametrize("f", [1, 8, 41, 128, 300])
 @pytest.mark.parametrize("narrow", [False, True], ids=["f32", "bf16"])
 def test_mask_kernel_matches_plain(cuda, narrow, f):
     from dorylus_tpu_torch.ops import hyb_spmm as hyb
@@ -324,7 +328,7 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
             hyb._launch_dyn_part(tb.float(), hop.fwd["buckets"][0], v_t.to(bad), out)
         for unit in (False, True):
             with pytest.raises(ValueError, match="dtype"):
-                hyb._launch_part(tb, dop.fwd["part"], out, unit=unit)
+                hyb._launch_pass(tb, dop.fwd, out, unit=unit)
         with pytest.raises(ValueError, match="dtype"):
             hyb._launch_dyn_part(tb, dop.fwd["part"], v_t, out)
         with pytest.raises(ValueError, match="dtype"):
@@ -351,7 +355,7 @@ def _hub_shard(n=4, v=1203, seed=5):
     return partition_graph(g, n)
 
 
-@pytest.mark.parametrize("f", [1, 41, 128, 300])
+@pytest.mark.parametrize("f", [1, 8, 41, 128, 300])
 @pytest.mark.parametrize("narrow", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("static", [True, False], ids=["static", "mask"])
 def test_fused_kernel_matches_plain(cuda, static, narrow, f):
@@ -430,22 +434,26 @@ def test_sharded_kernels_refuse_what_they_do_not_take(cuda):
     sg = _hub_shard()
     op = hs.ShardedHybSpMM(sg.shards[0], sg.n_shards, edges="fused", static_vals=True,
                            max_width=16, lam_slots=256, device=cuda)
-    part = op.fwd["buckets"][op.n_pure]
     out = torch.zeros((op.vp, 8), device=cuda)
     counts = (hs.FUSED_LAUNCHES, halo.PACK_LAUNCHES, halo.HALO_BWD_LAUNCHES)
     idx = torch.zeros(4, dtype=torch.int32, device=cuda)
     for bad in (torch.float16, torch.float64):
         tb = torch.zeros((op.vp, 8), dtype=bad, device=cuda)
         with pytest.raises(ValueError, match="dtype"):
-            hs._launch_fused_part(tb, tb, part, out, unit=False)
+            hs._launch_fused_pass(tb, torch.zeros((op.table - op.vp, 8), dtype=bad,
+                                                  device=cuda), op.fwd, out, unit=False)
         with pytest.raises(ValueError, match="dtype"):
             halo._launch_row_gather(tb, idx, torch.zeros((4, 8), dtype=bad, device=cuda))
         with pytest.raises(ValueError, match="dtype"):
             halo._launch_segsum(tb, idx, torch.zeros(op.vp + 1, dtype=torch.int32,
                                                      device=cuda), out)
     with pytest.raises(ValueError, match="ghosts"):
-        hs._launch_fused_part(torch.zeros((op.vp, 8), device=cuda),
-                              torch.zeros((4, 9), device=cuda), part, out, unit=False)
+        hs._launch_fused_pass(torch.zeros((op.vp, 8), device=cuda),
+                              torch.zeros((4, 12), device=cuda), op.fwd, out, unit=False)
+    with pytest.raises(ValueError, match="local rows"):
+        hs._launch_fused_pass(torch.zeros((op.vp + 1, 8), device=cuda),
+                              torch.zeros((op.table - op.vp, 8), device=cuda), op.fwd, out,
+                              unit=False)
     with pytest.raises(ValueError, match="source rows"):
         hs.fused_pass(torch.zeros((10, 8), device=cuda), torch.zeros((2, 8), device=cuda),
                       op.fwd, op.n_pure, None, "static")
@@ -680,10 +688,11 @@ def test_probe_row_copy_matches_plain(cuda):
     from dorylus_tpu_torch.tools import probe_prims as pp
 
     rng = np.random.default_rng(1)
-    tab = torch.tensor(rng.normal(size=(5000, 128)).astype(np.float32), device=cuda)
-    for streams, n_ops in ((11, 1000), (8, 16), (3, 77)):
-        idx = _probe_inputs(cuda, streams, n_ops, 5000, seed=n_ops)
-        assert torch.equal(pp.row_copy(tab, idx), pp.row_copy_plain(tab, idx))
+    for cols in (128, 64):  # 512- and 256-byte rows
+        tab = torch.tensor(rng.normal(size=(5000, cols)).astype(np.float32), device=cuda)
+        for streams, n_ops in ((11, 1000), (8, 16), (3, 77)):
+            idx = _probe_inputs(cuda, streams, n_ops, 5000, seed=n_ops)
+            assert torch.equal(pp.row_copy(tab, idx), pp.row_copy_plain(tab, idx))
 
 
 def test_probe_lane_gather_matches_plain(cuda):
@@ -750,3 +759,138 @@ def test_new_sharded_paths_on_one_card_match_the_cpu(cuda, model):
     for a, b in zip(on_card[0], on_cpu[0]):
         assert np.isfinite(a["losses"]).all()
         np.testing.assert_allclose(a["losses"], b["losses"], rtol=1e-5)
+
+
+# ---- the one-launch gather core (K1/K2 and K8, csrc/gather_pass.cuh) ----
+
+
+@pytest.mark.parametrize("narrow", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["hyb static", "hyb mask", "degree", "fused static",
+                                  "fused mask"])
+def test_gather_pass_is_one_launch_and_the_same_bits_twice(cuda, kind, narrow):
+    """A pass is one launch over every part of its plan, and two passes
+    give identical bits (one writer per output row, a fixed order of
+    sums)."""
+    from dorylus_tpu_torch.ops import degree_spmm as dg
+    from dorylus_tpu_torch.ops import hyb_sharded as hs
+    from dorylus_tpu_torch.ops import hyb_spmm as hyb
+
+    gd = torch.bfloat16 if narrow else None
+    rng = np.random.default_rng(21)
+    if kind.startswith("fused"):
+        sg = _hub_shard()
+        mode = kind.split()[1]
+        op = hs.ShardedHybSpMM(sg.shards[1], sg.n_shards, edges="fused",
+                               static_vals=mode == "static", gather_dtype=gd, max_width=16,
+                               lam_slots=256, device=cuda)
+        assert len(op.fwd["parts"].parts) > 1
+        h = torch.tensor(rng.normal(size=(op.vp, 128)).astype(np.float32), device=cuda)
+        gh = torch.tensor(rng.normal(size=(op.table - op.vp, 128)).astype(np.float32),
+                          device=cuda)
+
+        def run():
+            return hs.fused_pass(h, gh, op.fwd, op.n_pure, gd, mode)
+
+        counter = (hs, "FUSED_LAUNCHES")
+    else:
+        src, dst, val = _powerlaw(3000, seed=22)
+        h = torch.tensor(rng.normal(size=(3000, 128)).astype(np.float32), device=cuda)
+        if kind == "degree":
+            op = dg.DegreeSpMM(src, dst, 3000, 3000, gather_dtype=gd, static_val=val,
+                               device=cuda)
+
+            def run():
+                return dg.degree_pass(h, op.fwd, 3000, gd, "static")
+
+            counter = (hyb, "KERNEL_LAUNCHES")
+        else:
+            op = hyb.HybSpMM(src, dst, 3000, 3000, max_width=16, gather_dtype=gd,
+                             static_val=val, lam_slots=256, device=cuda)
+            assert len(op.fwd["parts"].parts) > 1
+            mode = kind.split()[1]
+
+            def run():
+                return hyb._hyb_pass(h, op.fwd, 3000, gd, mode)
+
+            counter = (hyb, "MASK_LAUNCHES" if mode == "mask" else "KERNEL_LAUNCHES")
+    before = getattr(*counter)
+    a = run()
+    torch.cuda.synchronize()
+    assert getattr(*counter) == before + 1
+    assert torch.equal(a, run())
+
+
+@pytest.mark.parametrize("f", [8, 128])
+@pytest.mark.parametrize("narrow", [False, True], ids=["f32", "bf16"])
+def test_gather_pass_on_a_hub_of_more_than_2000_slots(cuda, narrow, f):
+    """A hub row of 2,500 edges (five chunk rows of the hub top, a warp
+    per row) beside short rows, static and mask mode, against plain."""
+    from dorylus_tpu_torch.ops import hyb_spmm as hyb
+
+    rng = np.random.default_rng(23)
+    deg = rng.integers(1, 40, size=2000)
+    deg[7] = 2500
+    dst = np.repeat(np.arange(2000, dtype=np.int32), deg)
+    src = rng.integers(0, 2000, size=len(dst)).astype(np.int32)
+    val = rng.uniform(0.05, 1.0, size=len(dst)).astype(np.float32)
+    gd = torch.bfloat16 if narrow else None
+    op = hyb.HybSpMM(src, dst, 2000, 2000, gather_dtype=gd, static_val=val, device=cuda)
+    top = op.fwd["top"]
+    assert top is not None and int(top["cnt"].sum()) == 2500
+    h = torch.tensor(rng.normal(size=(2000, f)).astype(np.float32), device=cuda)
+    for mode in ("static", "mask"):
+        _close(hyb._hyb_pass(h, op.fwd, 2000, gd, mode),
+               hyb._hyb_pass_plain(h, op.fwd, 2000, gd, mode), narrow)
+
+
+@pytest.mark.parametrize("narrow", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("ghosts", ["none", "only"])
+def test_fused_pass_with_parts_of_no_ghost_or_only_ghosts(cuda, ghosts, narrow):
+    """K8 on a shard whose mixed parts read no ghost row (every source
+    local, only hubs mixed) or only ghost rows (every source remote)."""
+    import dataclasses
+
+    from dorylus_tpu_torch.ops import hyb_sharded as hs
+
+    sg = _hub_shard()
+    shard = sg.shards[1]
+    e = shard.num_edges
+    keep = (np.asarray(shard.src[:e]) < sg.vp) == (ghosts == "none")
+    sub = dataclasses.replace(shard, src=shard.src[:e][keep], dst=shard.dst[:e][keep],
+                              edge_val=shard.edge_val[:e][keep], num_edges=int(keep.sum()))
+    gd = torch.bfloat16 if narrow else None
+    rng = np.random.default_rng(24)
+    for static in (True, False):
+        op = hs.ShardedHybSpMM(sub, sg.n_shards, edges="fused", static_vals=static,
+                               gather_dtype=gd, max_width=16, lam_slots=256, device=cuda)
+        pt = op.fwd["parts"]
+        mixed = [k for k, s in enumerate(pt.splits) if s == op.vp]
+        assert mixed, "no mixed part"
+        if ghosts == "only":
+            assert op.n_pure == 0
+        h = torch.tensor(rng.normal(size=(op.vp, 41)).astype(np.float32), device=cuda)
+        gh = torch.tensor(rng.normal(size=(op.table - op.vp, 41)).astype(np.float32),
+                          device=cuda)
+        mode = "static" if static else "mask"
+        _close(hs.fused_pass(h, gh, op.fwd, op.n_pure, gd, mode),
+               hs.fused_pass_plain(h, gh, op.fwd, op.n_pure, gd, mode), narrow)
+
+
+def test_gather_pass_of_more_parts_than_one_launch_holds(cuda):
+    """A plan of 63 buckets (lam_slots=0) takes two launches of the
+    descriptor table, each with its own block prefix, and matches plain."""
+    from dorylus_tpu_torch.ops import gather_parts as gp
+    from dorylus_tpu_torch.ops import hyb_spmm as hyb
+
+    rng = np.random.default_rng(25)
+    dst = np.repeat(np.arange(504, dtype=np.int32), np.arange(1, 505))
+    src = rng.integers(0, 504, size=len(dst)).astype(np.int32)
+    val = rng.uniform(0.05, 1.0, size=len(dst)).astype(np.float32)
+    op = hyb.HybSpMM(src, dst, 504, 504, static_val=val, lam_slots=0, device=cuda)
+    assert len(op.fwd["parts"].parts) > gp.MAX_PARTS
+    h = torch.tensor(rng.normal(size=(504, 41)).astype(np.float32), device=cuda)
+    before = hyb.KERNEL_LAUNCHES
+    out = hyb.hyb_static_pass(h, op.fwd, 504)
+    torch.cuda.synchronize()
+    assert hyb.KERNEL_LAUNCHES == before + 2
+    _close(out, hyb.hyb_static_pass_plain(h, op.fwd, 504), False)

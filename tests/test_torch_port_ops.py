@@ -231,9 +231,9 @@ def test_hyb_static_kernel_path_raises_off_cuda():
     tb = torch.zeros((num_in, 4))
     out = torch.zeros((top.num_out, 4))
     with pytest.raises(ValueError, match="CUDA tensor"):
-        thyb._launch_part(tb, top.fwd["buckets"][0], out)
+        thyb._launch_pass(tb, top.fwd, out)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        thyb._launch_part(tb, top.fwd["buckets"][0], out, unit=True)
+        thyb._launch_pass(tb, top.fwd, out, unit=True)
     with pytest.raises(ValueError, match="unsupported device"):
         thyb.hyb_static_pass(torch.zeros((num_in, 4), device="meta"), top.fwd,
                              top.num_out)
