@@ -14,10 +14,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
      rows and the `inv` output layout; times of both at the Reddit shape;
   3b. K2 (mask mode) the same way: apply_unit and apply_dst forward, dh and
      d_dst;
-  3c. K3 (CSR SpMM), K4 (SDDMM) and K5 (sorted segment-sum) vs their plain
-     versions at the Reddit shape (F=128 and 41, f32 and bf16 tables, times
-     of both) and on a power-law graph with rows of 0 and > 1,000 edges;
-     then every kernel refuses float16 and float64 and counts no launch;
+  3c. the edgewise kernels vs their plain versions at the Reddit shape
+     (F=128 and 41, f32 and bf16 tables, times of both) and on a power-law
+     graph with rows of 0 and > 1,000 edges: K3 (CSR SpMM: the forward over
+     the dst CSR, dh over the src CSR), K3's dh pass with K4's value
+     gradient fused in (what GAT's backward runs, checked through autograd
+     too: one forward and one fused launch), K4 (SDDMM) alone and K5 (sorted
+     segment-sum); K3 and K4 (the gather core's CSR team) with their pass ms
+     and, apart, their kernel's device ms; then every kernel refuses
+     float16 and float64 and counts no launch;
   3d. K7 (dynamic values, fused SDDMM) vs its plain version at the Reddit
      shape (F=128 and 41, f32 and bf16: forward, dh and dval, times of
      both), then on the power-law hub graph;
@@ -53,8 +58,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      unrewritten combined plan;
   3j. the primitive probes P1-P4 (tools/probe_prims.py): their rates on one
      block and on a grid that fills the card, 100,000 ops a stream (P3 on
-     tables of 32 MB, 60 MB and 1 GB of 512-byte rows and on 60 MB of
-     256-byte rows), each timed launch held against its plain version on
+     tables of 32 MB, 60 MB, 119 MB and 1 GB of 512-byte rows and on 60 MB
+     of 256-byte rows), each timed launch held against its plain version on
      the same inputs (P2, P3 bit for bit; P1, P4 to 1e-4), after a fast
      check at 2,000 ops; then the
      one PyTorch call of P1's, P2's and P3's function (`embedding_bag`,
@@ -68,8 +73,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
      predict() finite (V, 41);
   4c. the edgewise path at full size: GCN and GAT with kernel="xla" for 3
      epochs in f32, each against the same model on kernel="hyb" with f32
-     aggregation (the same sums in another order: loss rtol 1e-4); K3
-     launches > 0, and K4 and K5 for GAT;
+     aggregation (the same sums in another order: loss rtol 1e-4); train
+     step ms (CUDA events) and launches per step; K3's forward launches >
+     0, and K3's dh alone for GCN, K3's dh fused with K4's value gradient
+     and K5 for GAT (K4 alone runs on neither path);
+  4g. the edgewise path past 400k vertices: GCN with kernel="auto" on
+     build_graph(450_000, 16, 602, 41, seed=2) (7.2M edges: auto resolves to
+     xla, and the engine takes JAX's dst-blocked branch) for 2 epochs in
+     f32: losses finite and falling, K3 and its dh launched;
   4d. main path, kernel="degree": the Reddit-config GCN and GAT with bf16
      gather tables for 3 epochs; losses finite and GCN's falling, degree
      launches > 0; then both in f32 against 4c's hyb f32 runs (loss rtol
@@ -107,8 +118,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      every rank; in f32 against 4c's hyb losses (rtol 1e-4) and against
      the combined degree plan (overlap=False, rtol 1e-5), both timed;
   6f. (in phase 6's launch) kernel="xla" with overlap=True in f32, GCN and
-     GAT, against the combined edgewise run (rtol 1e-5): K3 launches per
-     step double, K4 and K5 > 0 for GAT;
+     GAT, against the combined edgewise run (rtol 1e-5): the launches per
+     step of K3's forward and of its dh (fused with K4's value gradient for
+     GAT) double, K5 > 0 for GAT;
   6e. 4 ranks on the community graph's shards: GCN and GAT on hyb with
      reuse="pairs" against reuse="off", bf16, 3 epochs (rtol 1e-2); K6 and
      K2 launches > 0 on every rank, overlap turned off by the rewrite;
@@ -126,7 +138,8 @@ zero-filled output and the launch) and, apart, the kernel's own device ms
 and the rest's (torch.profiler, `*_kernel_ms` / `*_other_ms`).
 Each main path runs with every launch count set to 0 just before it and
 read just after (in each rank, for the sharded engine). Then one JSON line
-with the kernels' numbers (K1-K10, K7's fused backward, the fused plan's
+with the kernels' numbers (K1-K10, K3's dh alone and fused with K4's value
+gradient, K7's fused backward, the fused plan's
 backward, the degree, reuse, sharded-degree and sharded-reuse passes, which
 run on K1/K2/K7 and K6 + K2, and the probes P1-P4): beside each kernel's time
 its plain version's, its bound (the bytes it must move over 3.35 TB/s, or
@@ -158,8 +171,9 @@ TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 REDDIT = dict(v=232_965, deg=50, feat=602, classes=41)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # The largest max abs error each kernel showed in any comparison.
-MAX_ERR = {k: 0.0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10",
-                            "degree", "reuse", "degree_sharded", "reuse_sharded")}
+MAX_ERR = {k: 0.0 for k in ("K1", "K2", "K3", "K3_dh", "K3_dh_dval", "K4", "K5", "K6", "K7",
+                            "K8", "K9", "K10", "degree", "reuse", "degree_sharded",
+                            "reuse_sharded")}
 # The community graph the JAX package's bench measures pair reuse on.
 COMMUNITY = dict(comm=400, core=60, p_core=0.85, seed=0)
 # The card's published peaks (H100 SXM): device memory rate, and f32 outside
@@ -396,29 +410,44 @@ def compare_mask(name: str, op, f: int, seed: int, timed: bool,
 
 def compare_edge(name: str, eop, src, dst, val, f: int, dtype: str, seed: int,
                  timed: bool) -> dict:
-    """K3 (forward and dh through spmm_edgewise), K4 (dval) and K5 ((E,) and
-    (E, F) cotangents) vs their plain versions on the same CUDA tensors."""
+    """K3 (forward over the dst CSR, dh over the src CSR), K3's dh pass with
+    K4's dval fused in, K4 alone and K5 ((E,) and (E, F) cotangents) vs
+    their plain versions on the same CUDA tensors; first through autograd
+    (the forward, then the fused backward of GAT's edgewise aggregation).
+    Timed: each entry's pass ms (CUDA events: the table's layout and the
+    launch) and, apart, its kernel's device ms (`*_kernel_ms`)."""
     from dorylus_tpu_torch.ops import spmm
+    from dorylus_tpu_torch.tools.gather_bench import device_split
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dt = DTYPES[dtype]
     h = randn(gen, eop.num_in, f, dtype=dt)
     gout = randn(gen, eop.num_out, f, dtype=dt)
-    # Through autograd (K3 forward and dh, K4 dval); the K3 sums are then
-    # held against the plain version in f32, before the cast to h's dtype.
+    trp, tc, order, inv = eop.t_row_ptr, eop.t_col, eop.order, eop.inv_order
     hk = h.clone().requires_grad_(True)
     vk = val.clone().requires_grad_(True)
+    before = launch_counts()
     out = spmm.spmm_edgewise(hk, src, dst, vk, eop.num_out, op=eop)
     out.backward(gout)
+    torch.cuda.synchronize()
     res = {"case": name, "F": f, "dtype": dtype, "tol_rel": TOL[dtype]}
-    check(bool(torch.isfinite(out).all() and torch.isfinite(hk.grad).all()),
-          f"{name} F={f} {dtype}: non-finite edgewise output or dh")
-    del out, hk
+    ran = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+    check(ran == {"K3": 1, "K3_dh_dval": 1},
+          f"{name} F={f} {dtype}: autograd launched {ran}, want the forward and one fused pass")
+    # (the path, dh cast to h's dtype: not a kernel's error against its plain version)
+    dh_ref, dval_ref = spmm.csr_spmm_dval_plain(gout, h, trp, tc, val, order, inv)
+    close(res, None, "autograd_dh", hk.grad, dh_ref, dtype)
+    close(res, None, "autograd_dval", vk.grad, dval_ref, dtype)
+    del out, hk, vk
     close(res, "K3", "K3_fwd", spmm.csr_spmm(h, eop.row_ptr, src, val),
           spmm.csr_spmm_plain(h, eop.row_ptr, src, val), dtype)
-    close(res, "K3", "K3_bwd", spmm.csr_spmm(gout, eop.t_row_ptr, eop.t_col, val, eop.order),
-          spmm.csr_spmm_plain(gout, eop.t_row_ptr, eop.t_col, val, eop.order), dtype)
-    close(res, "K4", "K4", vk.grad, spmm.sddmm_plain(h, gout, eop.row_ptr, src), dtype)
+    close(res, "K3_dh", "K3_bwd", spmm.csr_spmm(gout, trp, tc, val, order), dh_ref, dtype)
+    dh_k, dval_k = spmm.csr_spmm_dval(gout, h, trp, tc, val, order, inv)
+    close(res, "K3_dh_dval", "K3_dh_dval_dh", dh_k, dh_ref, dtype)
+    close(res, "K3_dh_dval", "K3_dh_dval_dval", dval_k, dval_ref, dtype)
+    del dh_k, dval_k
+    close(res, "K4", "K4", spmm.sddmm(h, gout, eop.row_ptr, src),
+          spmm.sddmm_plain(h, gout, eop.row_ptr, src), dtype)
     g_vec = randn(gen, eop.num_edges)
     close(res, "K5", "K5_vec", spmm.segment_sum(g_vec, eop.row_ptr),
           spmm.segment_sum_plain(g_vec, eop.row_ptr), "float32")
@@ -429,8 +458,10 @@ def compare_edge(name: str, eop, src, dst, val, f: int, dtype: str, seed: int,
         for key, kern, plain, iters in (
             ("K3_fwd", lambda: spmm.csr_spmm(h, eop.row_ptr, src, val),
              lambda: spmm.csr_spmm_plain(h, eop.row_ptr, src, val), 20),
-            ("K3_bwd", lambda: spmm.csr_spmm(gout, eop.t_row_ptr, eop.t_col, val, eop.order),
-             lambda: spmm.csr_spmm_plain(gout, eop.t_row_ptr, eop.t_col, val, eop.order), 20),
+            ("K3_bwd", lambda: spmm.csr_spmm(gout, trp, tc, val, order),
+             lambda: spmm.csr_spmm_plain(gout, trp, tc, val, order), 20),
+            ("K3_dh_dval", lambda: spmm.csr_spmm_dval(gout, h, trp, tc, val, order, inv),
+             lambda: spmm.csr_spmm_dval_plain(gout, h, trp, tc, val, order, inv), 20),
             ("K4", lambda: spmm.sddmm(h, gout, eop.row_ptr, src),
              lambda: spmm.sddmm_plain(h, gout, eop.row_ptr, src), 20),
             ("K5_vec", lambda: spmm.segment_sum(g_vec, eop.row_ptr),
@@ -440,17 +471,28 @@ def compare_edge(name: str, eop, src, dst, val, f: int, dtype: str, seed: int,
         ):
             res[f"{key}_ms"] = cuda_ms(kern, iters)
             res[f"{key}_plain_ms"] = cuda_ms(plain, 3)
-        e, elt = eop.num_edges, h.element_size()
+            if key.startswith(("K3", "K4")):
+                res[f"{key}_kernel_ms"], res[f"{key}_other_ms"] = device_split(torch, kern, 20)
+        e = eop.num_edges
         out = spmm.csr_spmm(h, eop.row_ptr, src, val)
+        dval = torch.empty(e, device="cuda")
         res["K3"] = bound(nbytes(h, eop.row_ptr, src, val, out), 2.0 * e * f)
-        res["K4"] = bound(nbytes(h, gout, eop.row_ptr, src) + 4 * e, 2.0 * e * f)
+        res["K3_dh"] = bound(nbytes(gout, trp, tc, order, val, out), 2.0 * e * f)
+        res["K3_dh_dval"] = bound(nbytes(gout, h, trp, tc, order, val, out, dval), 4.0 * e * f)
+        res["K4"] = bound(nbytes(h, gout, eop.row_ptr, src, dval), 2.0 * e * f)
         res["K5"] = bound(nbytes(g_vec, eop.row_ptr) + 4 * eop.num_out, e)
-        del out
-        csr = {"row_ptr": eop.row_ptr, "col": src}
+        del out, dval
         shape = (eop.num_out, eop.num_in)
         lib = {}
-        spmm_library(lib, csr, val, shape, h, dt)
+        spmm_library(lib, {"row_ptr": eop.row_ptr, "col": src}, val, shape, h, dt)
         res["K3"].update(lib)
+        # dh's yardstick: sparse.mm of the transposed CSR (its values val[order])
+        lib = {}
+        spmm_library(lib, {"row_ptr": trp, "col": tc}, val[order.long()], (eop.num_in,
+                                                                            eop.num_out),
+                     gout, dt)
+        res["K3_dh"].update(lib)
+        res["K3_dh_dval"]["library_ms"] = None
         if dt == torch.float32:
             pattern = torch.sparse_csr_tensor(eop.row_ptr, src, torch.ones_like(val), size=shape)
             ht = h.t()
@@ -458,6 +500,11 @@ def compare_edge(name: str, eop, src, dst, val, f: int, dtype: str, seed: int,
                 lambda: torch.sparse.sampled_addmm(pattern, gout, ht, beta=0.0),
                 "torch.sparse.sampled_addmm float32")
             del pattern
+            # two calls, sparse.mm + sampled_addmm, summed
+            if res["K4"]["library_ms"] is not None and lib.get("library_ms") is not None:
+                res["K3_dh_dval"]["library_ms"] = lib["library_ms"] + res["K4"]["library_ms"]
+                res["K3_dh_dval"]["library_calls"] = ("torch.sparse.mm + "
+                                                      "torch.sparse.sampled_addmm")
         dst_l = dst.long()
         res["K5"]["library_ms"] = library_ms(
             lambda: torch.zeros(eop.num_out, device="cuda").index_add_(0, dst_l, g_vec),
@@ -740,6 +787,9 @@ def refuses_bad_input(op, eop, rop, fop) -> None:
             "K3": lambda: spmm._launch_csr_spmm(tb, eop.row_ptr, col, val, None, out),
             "K4": lambda: spmm._launch_sddmm(tb, tb, eop.row_ptr, col,
                                              torch.zeros(e, device="cuda")),
+            "K3_dh_dval": lambda: spmm._launch_csr_spmm_dval(
+                tb, tb, eop.t_row_ptr, col, val, eop.order, out,
+                torch.zeros(e, device="cuda")),
             "K5": lambda: spmm._launch_segment_sum(val.to(bad), eop.row_ptr,
                                                    torch.zeros(eop.num_out, device="cuda")),
             "K6": lambda: reuse_spmm._launch_level(
@@ -771,7 +821,8 @@ def launch_counts() -> dict:
     from dorylus_tpu_torch.parallel import halo
 
     return {"K1": hyb_spmm.KERNEL_LAUNCHES, "K2": hyb_spmm.MASK_LAUNCHES,
-            "K3": spmm.SPMM_LAUNCHES, "K4": spmm.SDDMM_LAUNCHES,
+            "K3": spmm.SPMM_LAUNCHES, "K3_dh": spmm.SPMM_T_LAUNCHES,
+            "K3_dh_dval": spmm.SPMM_DVAL_LAUNCHES, "K4": spmm.SDDMM_LAUNCHES,
             "K5": spmm.SEGSUM_LAUNCHES, "K6": reuse_spmm.PAIR_LAUNCHES,
             "K7": hyb_spmm.DYN_LAUNCHES, "K8": hyb_sharded.FUSED_LAUNCHES,
             "K9": halo.PACK_LAUNCHES, "K10": halo.HALO_BWD_LAUNCHES,
@@ -783,7 +834,8 @@ def reset_counts() -> None:
     from dorylus_tpu_torch.parallel import halo
 
     hyb_spmm.KERNEL_LAUNCHES = hyb_spmm.MASK_LAUNCHES = hyb_spmm.DYN_LAUNCHES = 0
-    spmm.SPMM_LAUNCHES = spmm.SDDMM_LAUNCHES = spmm.SEGSUM_LAUNCHES = 0
+    spmm.SPMM_LAUNCHES = spmm.SPMM_T_LAUNCHES = spmm.SPMM_DVAL_LAUNCHES = 0
+    spmm.SDDMM_LAUNCHES = spmm.SEGSUM_LAUNCHES = 0
     reuse_spmm.PAIR_LAUNCHES = degree_spmm.DEGREE_LAUNCHES = 0
     hyb_sharded.FUSED_LAUNCHES = halo.PACK_LAUNCHES = halo.HALO_BWD_LAUNCHES = 0
 
@@ -1279,7 +1331,9 @@ def sharded_phases(sg, sgc, layers, hyb_f32_losses, kernel_sources) -> dict:
         timings = {}
         for model, _ in models:
             slot = "K2" if model == "gat" else "K1"
-            edge = ["K3", "K4", "K5"] if model == "gat" else ["K3"]
+            # GAT's backward: dh and the value gradient in one launch
+            dh = "K3_dh_dval" if model == "gat" else "K3_dh"
+            edge = ["K3", dh] + (["K5"] if model == "gat" else [])
             for label, kernels, kernel, overlap in (
                     (f"{model} bf16 fused", ["K8", "K9", "K10", slot], "hyb", True),
                     (f"{model} f32 fused", ["K8", "K9", "K10", slot], "hyb", True),
@@ -1305,10 +1359,11 @@ def sharded_phases(sg, sgc, layers, hyb_f32_losses, kernel_sources) -> dict:
             gap_check(f"sharded {model} f32 xla, split vs combined", split[0]["losses"],
                       comb[0]["losses"], 1e-5)
             for a, b in zip(split, comb):
-                k3 = [r["launches_per_step"].get("K3", 0) for r in (a, b)]
-                check(k3[1] > 0 and k3[0] == 2 * k3[1],
-                      f"{model} xla split: K3 launches per step {k3[0]} against the "
-                      f"combined path's {k3[1]}")
+                for k in ("K3", dh):
+                    k3 = [r["launches_per_step"].get(k, 0) for r in (a, b)]
+                    check(k3[1] > 0 and k3[0] == 2 * k3[1],
+                          f"{model} xla split: {k} launches per step {k3[0]} against the "
+                          f"combined path's {k3[1]}")
             timings[f"{model} xla split"] = timing(split)
             timings[f"{model} xla combined"] = timing(comb)
         need("gcn f32 combined", by_label["gcn f32 combined"], ["K1", "K9", "K10"], "hyb",
@@ -1765,10 +1820,9 @@ def main() -> None:
     for k in probe_prims.LAUNCHES:
         probe_prims.LAUNCHES[k] = 0
     t0 = time.perf_counter()
-    # P3 on a third table of K1's size (60 MB: the bf16 Reddit table), beside
-    # the tool's 32 MB (in the L2) and 1 GB (device memory)
-    probe_res = probe_prims.measure("cuda", n_ops=100_000,
-                                    dma_rows=(65_536, 117_188, 1 << 21))
+    # P3 on tables of K1's size (60 MB: the bf16 Reddit table) and K3's (119
+    # MB: the f32 F=128 one), beside 32 MB (in the L2) and 1 GB (device memory)
+    probe_res = probe_prims.measure("cuda", n_ops=100_000, dma_rows=probe_prims.DMA_ROWS)
     probe_launches = dict(probe_prims.LAUNCHES)
     probe_err = {k: probe_res[k]["max_abs_err"] for k in probe_launches}
     print(f"probes ({time.perf_counter() - t0:.1f} s): " + json.dumps(probe_res), flush=True)
@@ -1832,12 +1886,21 @@ def main() -> None:
         cfg = TrainConfig(epochs=3, eval_every=1, model=model, kernel="xla",
                           learning_rate=lr, reuse="off")
         eng, rep_x, counts = train(g, layers, cfg, f"reddit-config {model} xla")
-        edge_times[model] = float(np.mean([e.time_ms for e in rep_x.epochs][1:]))
+        edge_times[model] = {
+            "warm_epoch_ms": float(np.mean([e.time_ms for e in rep_x.epochs][1:])),
+            "step_ms": cuda_ms(lambda: eng._train_epoch(lr), 5)}
         edge_steps[model] = step_launches(lambda: eng._train_epoch(lr))
+        print(f"reddit-config {model} xla f32: {json.dumps(edge_times[model])}, launches per "
+              f"train step {json.dumps(edge_steps[model])}", flush=True)
         del eng
         torch.cuda.empty_cache()
-        for k in ("K3",) + (("K4", "K5") if model == "gat" else ()):
+        # GCN: the forward and dh alone (its norms need no gradient); GAT: the
+        # forward, and dh with the value gradient in one launch
+        for k in ("K3",) + (("K3_dh_dval", "K5") if model == "gat" else ("K3_dh",)):
             check(counts[k] > 0, f"{model} xla: no {k} launch")
+        check(counts["K4"] == 0 and (model == "gat" or counts["K3_dh_dval"] == 0),
+              f"{model} xla: launches {json.dumps(counts)}")
+        for k in ("K3", "K3_dh", "K3_dh_dval", "K4", "K5"):
             edge_counts[k] = edge_counts.get(k, 0) + counts[k]
         eng, rep_h, _ = train(g, layers, dataclasses.replace(cfg, kernel="hyb"),
                               f"reddit-config {model} hyb f32")
@@ -1849,6 +1912,30 @@ def main() -> None:
         print(f"reddit-config {model}: xla vs hyb max relative loss gap {gap:.3e}",
               flush=True)
         check(gap <= 1e-4, f"{model}: xla and hyb losses differ by {gap:.3e} > 1e-4")
+
+    # 4g. the edgewise path past 400k vertices: kernel="auto" resolves to
+    # xla under 8M edges, and the engine takes JAX's dst-blocked branch
+    t0 = time.perf_counter()
+    gb = build_graph(450_000, 16, REDDIT["feat"], REDDIT["classes"], seed=2)
+    print(f"450k-vertex graph: V={gb.num_vertices} E={gb.num_edges} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(gb.num_vertices > 400_000 and gb.num_edges < 8_000_000,
+          f"the dst-blocked graph has V={gb.num_vertices}, E={gb.num_edges}")
+    eng, rep, counts = train(gb, layers, TrainConfig(epochs=2, eval_every=1, kernel="auto",
+                                                     reuse="off"), "450k-vertex GCN auto")
+    losses = [e.loss for e in rep.epochs]
+    check(eng.kernel_selected == "xla+dst_blocked",
+          f"450k-vertex GCN auto: kernel {eng.kernel_selected}, want xla+dst_blocked")
+    check(losses[-1] < losses[0], f"450k-vertex GCN auto: losses {losses} did not fall")
+    check(counts["K3"] > 0 and counts["K3_dh"] > 0,
+          f"450k-vertex GCN auto: launches {json.dumps(counts)}")
+    blocked_times = {"vertices": gb.num_vertices, "edges": gb.num_edges,
+                     "kernel": eng.kernel_selected, "losses": losses,
+                     "step_ms": cuda_ms(lambda: eng._train_epoch(0.01), 3),
+                     "launches_per_step": step_launches(lambda: eng._train_epoch(0.01))}
+    print(f"450k-vertex GCN auto: {json.dumps(blocked_times)}", flush=True)
+    del eng, gb
+    torch.cuda.empty_cache()
 
     # 4d. main path, kernel="degree"
     degree_counts = 0
@@ -2017,8 +2104,19 @@ def main() -> None:
                gat_counts["K2"], k2["fwd_ms"], k2["fwd_plain_ms"], k2),
         "K3": ("csr_spmm", "edge_spmm.cu", "dorylus_tpu/ops/spmm.py:21",
                edge_counts["K3"], ke["K3_fwd_ms"], ke["K3_fwd_plain_ms"], ke["K3"]),
+        # K3's dh alone over the src CSR (GCN's backward)
+        "K3_dh": ("csr_spmm_dh", "edge_spmm.cu", "dorylus_tpu/ops/spmm.py:74",
+                  edge_counts["K3_dh"], ke["K3_bwd_ms"], ke["K3_bwd_plain_ms"], ke["K3_dh"]),
+        # dh and the value gradient in one pass (GAT's backward); its
+        # library time is two calls, sparse.mm + sampled_addmm
+        "K3_dh_dval": ("csr_spmm_dval", "edge_spmm.cu", "dorylus_tpu/ops/spmm.py:74",
+                       edge_counts["K3_dh_dval"], ke["K3_dh_dval_ms"],
+                       ke["K3_dh_dval_plain_ms"], ke["K3_dh_dval"]),
+        # K4's value gradient: the main path runs it inside K3's dh pass (the
+        # row above); its launches are those, its times K4 alone's
         "K4": ("sddmm", "edge_spmm.cu", "dorylus_tpu/ops/spmm.py:74",
-               edge_counts["K4"], ke["K4_ms"], ke["K4_plain_ms"], ke["K4"]),
+               edge_counts["K4"] + edge_counts["K3_dh_dval"], ke["K4_ms"], ke["K4_plain_ms"],
+               ke["K4"]),
         "K5": ("segment_sum", "edge_spmm.cu", "dorylus_tpu/ops/spmm.py:185",
                edge_counts["K5"], ke["K5_vec_ms"], ke["K5_vec_plain_ms"], ke["K5"]),
         "K6": ("pair_build", "pair_build.cu", "dorylus_tpu/ops/reuse_spmm.py:37",
@@ -2089,7 +2187,8 @@ def main() -> None:
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on its main path")
     print("timings " + json.dumps({"gcn_hyb_bf16": gcn_times, "gat_hyb_bf16": gat_times,
-                                   "xla_f32_warm_epoch_ms": edge_times,
+                                   "xla_f32": edge_times,
+                                   "xla_dst_blocked_450k": blocked_times,
                                    "xla_f32_launches_per_step": edge_steps,
                                    "degree_bf16": degree_times,
                                    "community_bf16": reuse_times,

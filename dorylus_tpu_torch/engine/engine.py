@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from dorylus_tpu_torch.common.config import LayerConfig, TrainConfig, resolve_kernel
+from dorylus_tpu_torch.common.device import resolve_device
 from dorylus_tpu_torch.common.logging import log
 from dorylus_tpu_torch.common.metrics import EpochRecord, RunReport
 from dorylus_tpu_torch.graph.graph import Graph
@@ -151,19 +152,6 @@ def _unsupported(cfg: TrainConfig, kernel: str) -> Optional[str]:
          f"compute_dtype={cfg.compute_dtype!r} / agg_dtype={cfg.agg_dtype!r}"),
     ]
     return next((msg for bad, msg in checks if bad), None)
-
-
-def resolve_device(device: str | torch.device | None) -> torch.device:
-    """The device an engine runs on: None means the card and raises when
-    there is none; nothing falls back to the CPU unasked."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "dorylus_tpu_torch runs on the card by default and "
-                "torch.cuda.is_available() is False; pass device=\"cpu\" to "
-                "run on the CPU")
-        device = "cuda"
-    return torch.device(device)
 
 
 class Engine:

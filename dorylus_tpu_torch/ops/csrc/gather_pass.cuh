@@ -1,5 +1,6 @@
 // The slot-gather pass for Hopper (sm_90a), shared by K1/K2
-// (hyb_spmm.cu: one table) and K8 (fused_spmm.cu: local rows and ghost rows).
+// (hyb_spmm.cu: one table) and K8 (fused_spmm.cu: local rows and ghost rows),
+// and its CSR sibling for K3/K4 (edge_spmm.cu; `csr_pass_kernel` below).
 //
 // One launch runs every part of a plan (the buckets and the hub top of a
 // hybrid-ELL plan, or the one part of a degree plan):
@@ -107,6 +108,21 @@ struct Lane<float> {
   __device__ __forceinline__ static uint32_t weight(const void* vals, int64_t k) {
     return __float_as_uint(static_cast<const float*>(vals)[k]);
   }
+  // an f32 value as the weight: itself
+  __device__ __forceinline__ static uint32_t weight_of(float v) { return __float_as_uint(v); }
+  __device__ __forceinline__ static void unpack(uint4 x, float (&y)[4]) {
+    y[0] = __uint_as_float(x.x);
+    y[1] = __uint_as_float(x.y);
+    y[2] = __uint_as_float(x.z);
+    y[3] = __uint_as_float(x.w);
+  }
+  // <x, y> over the lane's 16 bytes, f32 products and sums
+  __device__ __forceinline__ static float dot(uint4 x, const float (&y)[4]) {
+    float d = __uint_as_float(x.x) * y[0];
+    d = fmaf(__uint_as_float(x.y), y[1], d);
+    d = fmaf(__uint_as_float(x.z), y[2], d);
+    return fmaf(__uint_as_float(x.w), y[3], d);
+  }
   template <bool kUnit>
   __device__ __forceinline__ static void add(float (&acc)[4], uint4 x, uint32_t a) {
     const float w = __uint_as_float(a);
@@ -125,6 +141,31 @@ struct Lane<__nv_bfloat16> {
   __device__ __forceinline__ static uint32_t weight(const void* vals, int64_t k) {
     const uint32_t b = static_cast<const uint16_t*>(vals)[k];
     return b | (b << 16);
+  }
+  // an f32 value rounded to bf16, twice
+  __device__ __forceinline__ static uint32_t weight_of(float v) {
+    const uint32_t b = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+    return b | (b << 16);
+  }
+  __device__ __forceinline__ static void unpack(uint4 x, float (&y)[8]) {
+    const uint32_t v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      y[2 * k] = __uint_as_float(v[k] << 16);
+      y[2 * k + 1] = __uint_as_float(v[k] & 0xffff0000u);
+    }
+  }
+  // <x, y> over the lane's 16 bytes: each bf16 element exact in f32, f32
+  // products and sums
+  __device__ __forceinline__ static float dot(uint4 x, const float (&y)[8]) {
+    const uint32_t v[4] = {x.x, x.y, x.z, x.w};
+    float d = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      d = fmaf(__uint_as_float(v[k] << 16), y[2 * k], d);
+      d = fmaf(__uint_as_float(v[k] & 0xffff0000u), y[2 * k + 1], d);
+    }
+    return d;
   }
   __device__ __forceinline__ static uint32_t mul2(uint32_t a, uint32_t b) {
     __nv_bfloat162 x, y;
@@ -289,6 +330,200 @@ int run_pass(int device, int dtype, int unit, int g, const void* parts, int n_pa
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
+}
+
+// ---- The CSR team: K3 (sum) and K4 (dot), alone or in one pass ----
+//
+// A CSR is one part of a new kind: output row i owns the edge range
+// [row_ptr[i], row_ptr[i+1]) (no slot rows, no live counts), and edge e
+// reads table row col[e]. With w(e) = perm ? perm[e] : e:
+//
+//   sum (kSum): out[i, :] = sum_e round_T(val[w(e)]) * tab[col[e], :]
+//   dot (kDot): dval[e] = <tab[col[e], :], own[i, :]>
+//
+// K3's forward is the sum over the dst CSR (perm = identity); its dh the
+// sum over the src CSR with perm = order, so val is read through the
+// permutation and no permuted copy is made. With both flags the dh pass
+// also writes the value gradient <gout[dst], h[src]> of each of its edges:
+// own = h, kept in registers for the row, and the gout rows the pass
+// gathers anyway (no second gather of h). It writes dval at the edge's
+// place in the src CSR, coalesced (scattered to order[e'], the 4-byte
+// stores cost 0.66-0.76 ms more on an H100 at the Reddit shape, PERF.md
+// §6): the caller puts it in the dst order with one gather by the inverse
+// permutation. K4
+// alone is the dot over the dst CSR with own = gout (g[r] in registers).
+//
+// Lanes, loads and weights as team_pass above: a group of G lanes reads a
+// row 16 bytes a lane, kUnroll loads in flight a lane, a team of R groups a
+// row (R = 32 / G for CSRs whose rows average WIDE_SLOTS edges), the
+// weights rounded to T (a bf16x2 for mul.bf16x2: K3's product rounded once
+// to bf16), the sums in f32. Rows wider than G * 16 bytes walk their column
+// tiles inside the team (one launch a pass); a tile past the first adds
+// its partial dots to the dval its lane wrote for the tile before.
+//
+// The dots: each lane forms kUnroll partial dots (one per slot in flight,
+// over its 16 bytes), then the group reduce-scatters them: log2(kUnroll)
+// halving exchanges (kUnroll - 1 shuffles) leave lane gl the dot of slot
+// brev(gl) summed over kUnroll lanes, log2(G / kUnroll) butterfly steps add
+// the rest, and one more shuffle hands each slot's dot to the lane that
+// loaded the slot's index: about 1.1-1.3 shuffles a slot, where a warp sum
+// per slot costs log2(G). That lane writes dval[e] once at the chunk's end:
+// one writer per edge, no atomics, the same bits on every run.
+
+struct CsrParams {
+  const void* tab;         // (rows, ld) in T: the gathered table
+  const void* own;         // (own_rows, ld) in T: the output rows' own rows (dot)
+  const int32_t* row_ptr;  // (n_rows + 1,)
+  const int32_t* col;      // (E,)
+  const float* val;        // f32 values, read at w(e) (sum)
+  const int32_t* perm;     // (E,) or null: w(e) = e
+  float* out;              // (n_rows, f) f32 (sum)
+  float* dval;             // (E,) f32, in the CSR's edge order (dot)
+  int32_t ld;              // a multiple of 16 bytes
+  int32_t f;               // out's columns, f <= ld
+  int32_t n_rows;
+  int32_t own_rows;        // rows of own; a row past them has no edges
+  int32_t wide;
+};
+
+// The slot whose dot lane gl holds after the halving exchanges (bit
+// reversal of its log2(U) low bits, an involution).
+template <int U>
+__device__ __forceinline__ int brev_low(int x) {
+  constexpr int kBits = U == 2 ? 1 : U == 4 ? 2 : U == 8 ? 3 : U == 16 ? 4 : 5;
+  static_assert(U >= 2 && U <= 32 && (U & (U - 1)) == 0, "U: a power of two in [2, 32]");
+  return static_cast<int>(__brev(static_cast<unsigned>(x)) >> (32 - kBits));
+}
+
+// d[u]: lane gl's partial dot of slot u. Returns the full dot of slot
+// brev_low<U>(gl % U) over the group's G lanes.
+template <int G, int U>
+__device__ __forceinline__ float reduce_scatter(float (&d)[U], int gl, unsigned mask) {
+#pragma unroll
+  for (int o = 1; o < U; o <<= 1) {
+    const int half = U / (2 * o);  // values a lane keeps after this exchange
+    const bool up = gl & o;
+#pragma unroll
+    for (int k = 0; k < half; ++k) {
+      const float send = up ? d[k] : d[k + half];
+      const float keep = up ? d[k + half] : d[k];
+      d[k] = keep + __shfl_xor_sync(mask, send, o);
+    }
+  }
+  float v = d[0];
+#pragma unroll
+  for (int o = U; o < G; o <<= 1) v += __shfl_xor_sync(mask, v, o);
+  return v;
+}
+
+template <typename T, int G, int R, bool kSum, bool kDot>
+__device__ __forceinline__ void csr_team(const CsrParams& p) {
+  constexpr int kVec = Lane<T>::kVec;
+  constexpr int kTeam = G * R;
+  // 8 loads in flight for f32 rows of 32 lanes, as team_pass; 4 with the
+  // dot (8 spilled 40 bytes there and ran 6% slower)
+  constexpr int kUnroll = sizeof(T) == 4 && G == 32 && !kDot ? 8 : 4;
+  static_assert(kUnroll <= G, "the reduce-scatter needs a slot per lane at most");
+  const int tid = threadIdx.x;
+  const int tl = tid % kTeam;
+  const int q = tl / G;
+  const int gl = tl % G;
+  const int i = blockIdx.x * (kPassThreads / kTeam) + tid / kTeam;
+  if (i >= p.n_rows) return;  // uniform across the team
+  const unsigned mask =
+      kTeam == 32 ? kFullMask : ((1u << (kTeam % 32)) - 1u) << ((tid & 31) & ~(kTeam - 1));
+  const T* tab = static_cast<const T*>(p.tab);
+  const int r_begin = p.row_ptr[i];
+  const int r_end = p.row_ptr[i + 1];
+  // the lane that holds slot step u's dot, and the step of the lane's own slot
+  const int my_step = tl / R;
+  const int holder = (tl % R) * G + brev_low<kUnroll>(my_step % kUnroll);
+
+  for (int tile = 0; tile < p.ld; tile += G * kVec) {
+    const int c0 = tile + gl * kVec;
+    const bool col_live = c0 < p.ld;
+    float acc[kVec];
+    float own[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) acc[k] = own[k] = 0.f;
+    if (kDot && col_live && i < p.own_rows && r_begin < r_end) {
+      const T* o = static_cast<const T*>(p.own) + (int64_t)i * p.ld + c0;
+      Lane<T>::unpack(__ldg(reinterpret_cast<const uint4*>(o)), own);
+    }
+    for (int e0 = r_begin; e0 < r_end; e0 += kTeam) {
+      int my_s = 0;
+      uint32_t my_a = 0;
+      if (e0 + tl < r_end) {
+        my_s = p.col[e0 + tl];
+        if (kSum) my_a = Lane<T>::weight_of(p.val[p.perm ? p.perm[e0 + tl] : e0 + tl]);
+      }
+      const int m = min(kTeam, r_end - e0);  // edges of this chunk
+      const int steps = (m + R - 1) / R;     // uniform across the team
+      float mine = 0.f;                      // the dot of the lane's edge
+      for (int t0 = 0; t0 < steps; t0 += kUnroll) {
+        uint4 x[kUnroll];
+        uint32_t a[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int sl = q + R * (t0 + u);  // this group's slot of the chunk
+          const int s = __shfl_sync(mask, my_s, sl % kTeam, kTeam);
+          a[u] = kSum ? __shfl_sync(mask, my_a, sl % kTeam, kTeam) : 0u;
+          x[u] = make_uint4(0u, 0u, 0u, 0u);
+          if (col_live && sl < m) {
+            x[u] = __ldg(reinterpret_cast<const uint4*>(tab + (int64_t)s * p.ld + c0));
+          }
+        }
+        float d[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (kSum) Lane<T>::template add<false>(acc, x[u], a[u]);
+          d[u] = kDot ? Lane<T>::dot(x[u], own) : 0.f;
+        }
+        if (kDot) {
+          const float v = reduce_scatter<G, kUnroll>(d, gl, mask);
+          const float got = __shfl_sync(mask, v, holder, kTeam);
+          if (my_step >= t0 && my_step < t0 + kUnroll) mine = got;
+        }
+      }
+      if (kDot && tl < m) {
+        float* d = p.dval + e0 + tl;  // coalesced
+        *d = tile == 0 ? mine : *d + mine;
+      }
+    }
+    if (kSum) {
+      // the groups' partial sums, in the same order on every run
+#pragma unroll
+      for (int o = G; o < kTeam; o <<= 1) {
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) acc[k] += __shfl_xor_sync(mask, acc[k], o);
+      }
+      if (q == 0 && c0 < p.f) {
+        float* dst = p.out + (int64_t)i * p.f + c0;
+        if (c0 + kVec <= p.f && (p.f & 3) == 0) {
+#pragma unroll
+          for (int k = 0; k < kVec; k += 4) {
+            *reinterpret_cast<float4*>(dst + k) =
+                make_float4(acc[k], acc[k + 1], acc[k + 2], acc[k + 3]);
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < kVec; ++k) {
+            if (c0 + k < p.f) dst[k] = acc[k];
+          }
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int G, bool kSum, bool kDot>
+__global__ void __launch_bounds__(kPassThreads, 4)
+csr_pass_kernel(const __grid_constant__ CsrParams p) {
+  if (G < 32 && p.wide) {
+    csr_team<T, G, 32 / G, kSum, kDot>(p);
+  } else {
+    csr_team<T, G, 1, kSum, kDot>(p);
+  }
 }
 
 }  // namespace dorylus

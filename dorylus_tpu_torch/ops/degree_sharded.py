@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from dorylus_tpu_torch.common.device import resolve_device
 from dorylus_tpu_torch.graph.partition import Shard, shard_edges
 from dorylus_tpu_torch.ops.degree_spmm import DegreeSpMM
 
@@ -47,11 +48,15 @@ class ShardedDegreeSpMM(DegreeSpMM):
     the shard's edge values (the GCN norms) into the plans for
     `apply_static`; without them `apply(table, val)` takes this edge set's
     values ((E_set,), in the set's edge order) and `apply_dst` /
-    `apply_unit` weigh by destination or by 1."""
+    `apply_unit` weigh by destination or by 1.
+
+    device: None means the card and raises without one; the CPU only when
+    the caller passes device="cpu"."""
 
     def __init__(self, shard: Shard, n: int, edges: str = "combined", block: int = 16,
                  static_vals: bool = False, gather_dtype: torch.dtype | None = None,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device | None = None):
+        device = resolve_device(device)
         src, dst, val = shard_edges(shard, edges)
         vp, max_h = int(shard.x.shape[0]), int(shard.send_idx.shape[1])
         table = {"combined": vp + n * max_h, "interior": vp, "boundary": n * max_h}[edges]

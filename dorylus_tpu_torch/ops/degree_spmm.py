@@ -42,6 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dorylus_tpu_torch.common.device import resolve_device
 from dorylus_tpu_torch.common.logging import log
 from dorylus_tpu_torch.ops.degree_plan import build_degree_plan
 from dorylus_tpu_torch.ops.gather_parts import PartTable
@@ -122,12 +123,16 @@ class DegreeSpMM:
     num_in may exceed h's rows; dh is cut to h's rows. gather_dtype:
     None/float32 gathers f32 tables; bfloat16 gathers bf16 tables (static
     values pre-cast) and sums in f32. row_chunk and out_block_rows are
-    accepted for the JAX signature and not used."""
+    accepted for the JAX signature and not used.
+
+    device: None means the card and raises without one; the CPU only when
+    the caller passes device="cpu"."""
 
     def __init__(self, src, dst, num_in: int, num_out: int, block: int = 16,
                  row_chunk: int = 0, gather_dtype: torch.dtype | None = None,
                  out_block_rows: int | None = None, static_val=None,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device | None = None):
+        device = resolve_device(device)
         src = np.asarray(src)
         dst = np.asarray(dst)
         e = len(src)

@@ -1,6 +1,7 @@
 """The gather kernels' view of a slot plan: the part-descriptor table of
 csrc/gather_pass.cuh (K1/K2 in hyb_spmm.cu, K8 in fused_spmm.cu) and the
-padded gather table.
+padded gather table; and of a CSR (K3/K4 in edge_spmm.cu): the CSR team's
+launch geometry.
 
 A plan's parts (the buckets and the hub top of a hybrid-ELL plan, the one
 part of a degree plan) run in ONE launch. `PartTable` is built once, when
@@ -22,7 +23,9 @@ columns zero. An f32 table of aligned width is used as it is.
 `walk_plain` computes a pass by walking the descriptor table block by block
 in plain torch: the CPU tests hold it against the plain passes, which shows
 that the blocks cover every output row once and that each part reads the
-table it should.
+table it should. `walk_csr_plain` does the same for a CSR pass, down to the
+slots each group takes and the reduce-scatter that hands each edge's dot to
+the lane that writes it.
 """
 
 from __future__ import annotations
@@ -206,3 +209,105 @@ def walk_plain(pt: PartTable, g: int, tables: tuple, num_out: int,
                             device=dev).index_add_(0, owner, sums)
         out[part["v"][i].long()] = block
     return out
+
+
+def csr_geometry(ld: int, itemsize: int, n_rows: int, n_edges: int, dot: bool = False
+                 ) -> dict:
+    """The launch of a CSR pass (gather_pass.cuh `csr_team`) over a table of
+    leading dimension ld: `g` lanes a group, `r` groups a team (a warp a row,
+    its groups splitting the row's edges, where the rows average WIDE_SLOTS
+    edges; a row wider than g * 16 bytes walks its column tiles inside the
+    team), `rows_a_block`, `blocks` and `unroll`, the 16-byte loads a lane
+    keeps in flight (dot: a pass that forms K4's dots)."""
+    g, _ = group_lanes(ld, itemsize)
+    r = 32 // g if g < 32 and n_edges >= WIDE_SLOTS * n_rows else 1
+    rows = THREADS // (g * r)
+    return {"g": g, "r": r, "rows_a_block": rows, "blocks": -(-n_rows // rows),
+            "unroll": 8 if itemsize == 4 and g == 32 and not dot else 4}
+
+
+def _brev_low(x: torch.Tensor, u: int) -> torch.Tensor:
+    """x's log2(u) low bits reversed (gather_pass.cuh `brev_low`)."""
+    bits = u.bit_length() - 1
+    out = torch.zeros_like(x)
+    for b in range(bits):
+        out |= ((x >> b) & 1) << (bits - 1 - b)
+    return out
+
+
+def _reduce_scatter(d: torch.Tensor, g: int, u: int) -> torch.Tensor:
+    """(..., g lanes, u slots) partial dots -> (..., g): lane gl the dot of
+    slot brev(gl % u) over the group, as `reduce_scatter` forms it: halving
+    exchanges with lane gl ^ o, then a butterfly over the rest."""
+    lanes = torch.arange(g)
+    o = 1
+    while o < u:
+        half = d.shape[-1] // 2
+        up = ((lanes & o) != 0)[:, None]
+        keep = torch.where(up, d[..., half:], d[..., :half])
+        send = torch.where(up, d[..., :half], d[..., half:])
+        d = keep + send[..., lanes ^ o, :]
+        o <<= 1
+    v = d[..., 0]
+    while o < g:
+        v = v + v[..., lanes ^ o]
+        o <<= 1
+    return v
+
+
+def walk_csr_plain(tab: torch.Tensor, own: torch.Tensor | None, row_ptr: torch.Tensor,
+                   col: torch.Tensor, val: torch.Tensor | None, perm: torch.Tensor | None,
+                   f: int) -> tuple:
+    """A CSR pass computed team by team as `csr_team` runs it, in plain
+    torch: the sum (val given, read at perm(e): out (rows, f) f32, products
+    in tab's dtype) and the dot (own given: dval (E,) f32 in the CSR's edge
+    order, each written by the lane that loaded edge e). tab and own are
+    laid out by `gather_table`. Returns (out or None, dval or None, writes
+    per dval entry)."""
+    ld, itemsize = tab.shape[1], tab.element_size()
+    n_rows, e = row_ptr.shape[0] - 1, col.shape[0]
+    geo = csr_geometry(ld, itemsize, n_rows, e, dot=own is not None)
+    g, r, u = geo["g"], geo["r"], geo["unroll"]
+    team, vec = g * r, 16 // itemsize
+    out = torch.zeros((n_rows, f)) if val is not None else None
+    dval = torch.zeros(e) if own is not None else None
+    writes = torch.zeros(e, dtype=torch.int64)
+    rp = row_ptr.long().tolist()
+    lanes = torch.arange(g)
+    for i in range(n_rows):  # block i // rows_a_block, its team i % rows_a_block
+        rb, re = rp[i], rp[i + 1]
+        for tile in range(0, ld, g * vec):
+            cols = tile + lanes[:, None] * vec + torch.arange(vec)  # (g, vec): a lane's 16 bytes
+            live = cols < ld
+            cols = cols.clamp(max=ld - 1)
+            own_i = torch.zeros((g, vec))
+            if own is not None and i < own.shape[0] and rb < re:
+                own_i = own[i][cols].float() * live
+            acc = torch.zeros((g, vec))
+            for e0 in range(rb, re, team):
+                m = min(team, re - e0)
+                steps = -(-m // r)
+                n_st = -(-steps // u) * u  # steps in whole batches of u
+                sl = torch.arange(r)[None, :] + r * torch.arange(n_st)[:, None]  # (steps, r)
+                alive = (sl < m)[..., None, None] & live
+                edge = e0 + sl.clamp(max=m - 1)
+                w = perm[edge].long() if perm is not None else edge
+                x = tab[col[edge].long()][..., cols] * alive  # (steps, r, g, vec) in tab's dtype
+                if val is not None:
+                    a = val[w].to(tab.dtype)[..., None, None]
+                    acc += (x * a).float().sum(dim=(0, 1))
+                if own is not None:
+                    d = (x.float() * own_i).sum(-1)  # (steps, r, g)
+                    d = d.reshape(n_st // u, u, r, g).permute(0, 2, 3, 1)
+                    v = _reduce_scatter(d, g, u)  # (batches, r, g)
+                    tl = torch.arange(m)
+                    step = tl // r
+                    mine = v[step // u, tl % r, _brev_low(step % u, u)]
+                    dval[e0 + tl] = mine if tile == 0 else dval[e0 + tl] + mine
+                    if tile == 0:
+                        writes[e0 + tl] += 1
+            if out is not None:
+                keep = (cols < f) & live
+                out[i, cols[keep]] = acc[keep]
+    return out, dval, writes
+

@@ -52,6 +52,7 @@ import ctypes
 import numpy as np
 import torch
 
+from dorylus_tpu_torch.common.device import resolve_device
 from dorylus_tpu_torch.graph.partition import Shard, shard_edges
 from dorylus_tpu_torch.ops import cuda_build
 from dorylus_tpu_torch.ops.gather_parts import LOCAL_ONLY, PartTable, gather_table
@@ -154,12 +155,16 @@ class ShardedHybSpMM:
     the ghost rows). static_vals: bake
     the shard's edge values (the GCN norms) into the plans (`apply_static`
     / `apply_static_fused`); without them the plans serve the unit-weight
-    entries (GAT). gather_dtype as in HybSpMM."""
+    entries (GAT). gather_dtype as in HybSpMM.
+
+    device: None means the card and raises without one; the CPU only when
+    the caller passes device="cpu"."""
 
     def __init__(self, shard: Shard, n: int, edges: str = "combined",
                  static_vals: bool = False, gather_dtype: torch.dtype | None = None,
                  max_width: int = 512, lam_slots: int = _LAMBDA_SLOTS,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device | None = None):
+        device = resolve_device(device)
         if edges not in ("combined", "fused", "interior", "boundary"):
             raise ValueError(f"ShardedHybSpMM edges={edges!r}: \"combined\", \"fused\", "
                              "\"interior\" or \"boundary\"")

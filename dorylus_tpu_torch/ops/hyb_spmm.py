@@ -54,6 +54,7 @@ import ctypes
 import numpy as np
 import torch
 
+from dorylus_tpu_torch.common.device import resolve_device
 from dorylus_tpu_torch.ops import cuda_build
 from dorylus_tpu_torch.ops.gather_parts import PartTable, gather_table, group_lanes
 from dorylus_tpu_torch.ops.hyb_plan import _LAMBDA_SLOTS, build_hyb_plan
@@ -636,12 +637,16 @@ class HybSpMM:
     num_in may exceed h's rows (tables with extra rows); dh is cut to h's
     rows. gather_dtype: None/float32 gathers f32 tables;
     bfloat16 gathers bf16 tables (with bf16-precast static values) and
-    sums in f32."""
+    sums in f32.
+
+    device: None means the card and raises without one; the CPU only when
+    the caller passes device="cpu"."""
 
     def __init__(self, src, dst, num_in: int, num_out: int,
                  max_width: int = 512, gather_dtype: torch.dtype | None = None,
                  static_val=None, lam_slots: int = _LAMBDA_SLOTS,
-                 dynamic: bool = False, device: str | torch.device = "cpu"):
+                 dynamic: bool = False, device: str | torch.device | None = None):
+        device = resolve_device(device)
         src = np.asarray(src)
         dst = np.asarray(dst)
         e = len(src)

@@ -38,6 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dorylus_tpu_torch.common.device import resolve_device
 from dorylus_tpu_torch.graph.partition import Shard, shard_edges
 from dorylus_tpu_torch.ops.reuse_spmm import ReuseSpMM
 
@@ -67,12 +68,16 @@ class ShardedReuseSpMM(ReuseSpMM):
     `f_in` of this shard: f = sqrt(self_val) of the local rows (0 on padding
     rows), then the owners' factors of the ghost rows, which a rank gets
     from `exchange_rank1_factor`. Its first vp entries scale the output.
-    None for GAT."""
+    None for GAT.
+
+    device: None means the card and raises without one; the CPU only when
+    the caller passes device="cpu"."""
 
     def __init__(self, shard: Shard, n: int, rank1_factor=None,
                  gather_dtype: torch.dtype | None = None, min_uses: int = 3,
                  passes: int = 1, max_pairs: int = 0, max_width: int = 512,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device | None = None):
+        device = resolve_device(device)
         src, dst, _ = shard_edges(shard, "combined")
         vp, max_h = int(shard.x.shape[0]), int(shard.send_idx.shape[1])
         table = vp + n * max_h

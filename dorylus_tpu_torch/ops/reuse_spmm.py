@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from dorylus_tpu_torch import native
+from dorylus_tpu_torch.common.device import resolve_device
 from dorylus_tpu_torch.graph.reuse import mine_reuse
 from dorylus_tpu_torch.ops import cuda_build
 from dorylus_tpu_torch.ops.hyb_plan import build_hyb_plan
@@ -181,13 +182,17 @@ class ReuseSpMM:
     aggregation (GAT apply_dst). min_uses, passes, max_pairs go to the
     miner (max_pairs per pass, 0 = unlimited). After construction,
     `miner` names the miner that ran ("native" or "numpy") and
-    `mine_seconds` holds the (forward, backward) mining times."""
+    `mine_seconds` holds the (forward, backward) mining times.
+
+    device: None means the card and raises without one; the CPU only when
+    the caller passes device="cpu"."""
 
     def __init__(self, src, dst, num_in: int, num_out: int,
                  max_width: int = 512, gather_dtype: torch.dtype | None = None,
                  rank1_factor=None, min_uses: int = 3,
                  passes: int = 1, max_pairs: int = 0,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device | None = None):
+        device = resolve_device(device)
         src = np.asarray(src)
         dst = np.asarray(dst)
         self.num_in, self.num_out = num_in, num_out

@@ -9,19 +9,30 @@ segments. The port keeps those semantics and runs them over CSR
 structures that `EdgeSpMM` builds once per graph on the host:
   * the dst CSR `row_ptr` (edge e belongs to row dst[e]);
   * the src-sorted permutation `order = argsort(src, stable)`, with its
-    own `t_row_ptr` and `t_col = dst[order]`, for the backward.
+    own `t_row_ptr` and `t_col = dst[order]`, for the backward, and its
+    inverse `inv_order`.
 
-Kernels (csrc/edge_spmm.cu, built with nvcc at first use, ops/cuda_build):
-  K3 `csr_spmm`     forward over the dst CSR; dh over the src CSR, reading
-                    val through `order` inside the kernel (no per-call
-                    permuted copy of val);
-  K4 `sddmm`        dval over the dst CSR, only when val needs a gradient
-                    (GAT attention; GCN norms do not);
-  K5 `segment_sum`  take_sorted's backward, (E,) and (E, F) cotangents; its
-                    forward x[idx] is a plain `index_select`.
-Each has a plain torch version beside it (the CPU path and the kernel's
-reference). The dispatchers take the plain version for CPU tensors only;
-on a CUDA tensor they launch the kernel or raise.
+Kernels (csrc/edge_spmm.cu, built with nvcc at first use, ops/cuda_build;
+K3 and K4 are the CSR team of the gather core, csrc/gather_pass.cuh):
+  K3 `csr_spmm`       forward over the dst CSR; dh over the src CSR,
+                      reading val through `order` inside the kernel (no
+                      per-call permuted copy of val);
+  K3 + K4 `csr_spmm_dval`  dh and dval in one pass over the src CSR, when
+                      both h and val need gradients (GAT attention): the
+                      gout rows it gathers for dh also give each edge's dot
+                      with the row's own h, kept in registers; the pass
+                      writes dval in the src CSR's order, coalesced, and one
+                      gather by `inv_order` puts it in the edges' order;
+  K4 `sddmm`          dval alone over the dst CSR, when only val needs a
+                      gradient (GCN norms need none);
+  K5 `segment_sum`    take_sorted's backward, (E,) and (E, F) cotangents;
+                      its forward x[idx] is a plain `index_select`.
+K3 and K4 read their tables laid out by `gather_table` (rows padded to a
+multiple of 16 bytes; an aligned f32 or bf16 table of aligned width is used
+as it is). Each has a plain torch version beside it (the CPU path and the
+kernel's reference; the fused one is the two composed). The dispatchers
+take the plain version for CPU tensors only; on a CUDA tensor they launch
+the kernel or raise.
 
 Numerics: products are formed in h's dtype (`h[src] * val.astype(h.dtype)`
 in JAX: val is rounded to it and bf16 products are rounded to bf16); sums
@@ -45,12 +56,16 @@ import ctypes
 import numpy as np
 import torch
 
+from dorylus_tpu_torch.common.device import resolve_device
 from dorylus_tpu_torch.ops import cuda_build
+from dorylus_tpu_torch.ops.gather_parts import csr_geometry, gather_table
 
-# Kernel launches made by this process. chip_smoke.py resets them before
-# a main path and reads them after.
-SPMM_LAUNCHES = 0  # K3
-SDDMM_LAUNCHES = 0  # K4
+# Kernel launches made by this process, each launch counted once.
+# chip_smoke.py resets them before a main path and reads them after.
+SPMM_LAUNCHES = 0  # K3 without a permutation: the forward
+SPMM_T_LAUNCHES = 0  # K3 through a permutation: dh alone
+SPMM_DVAL_LAUNCHES = 0  # K3's dh pass with K4's dval in the same launch
+SDDMM_LAUNCHES = 0  # K4 alone
 SEGSUM_LAUNCHES = 0  # K5
 
 _CSRC = cuda_build.CSRC / "edge_spmm.cu"
@@ -88,6 +103,17 @@ def sddmm_plain(h: torch.Tensor, g: torch.Tensor, row_ptr: torch.Tensor,
     return (h[col.long()].float() * g[_rows_of(row_ptr)].float()).sum(-1)
 
 
+def csr_spmm_dval_plain(gout: torch.Tensor, h: torch.Tensor, t_row_ptr: torch.Tensor,
+                        t_col: torch.Tensor, val: torch.Tensor, order: torch.Tensor,
+                        inv_order: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's dh and K4's dval composed, over the src CSR: (dh, dval) with
+    dh[s] = sum_{e' in row s} val[order[e']] * gout[t_col[e']] -> (rows, F)
+    f32 and dval[order[e']] = <gout[t_col[e']], h[s]> -> (E,) f32 (inv_order:
+    the inverse of order)."""
+    dh = csr_spmm_plain(gout, t_row_ptr, t_col, val, order)
+    return dh, sddmm_plain(gout, h, t_row_ptr, t_col)[inv_order.long()]
+
+
 def segment_sum_plain(g: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
     """out[r] = sum_{e in row r} g[e] -> (rows,) or (rows, F) f32."""
     out = torch.zeros((row_ptr.shape[0] - 1,) + tuple(g.shape[1:]),
@@ -106,10 +132,9 @@ def build_kernel() -> ctypes.CDLL:
         return _lib
     lib, info = cuda_build.load(_CSRC)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.edge_csr_spmm.argtypes = [ci, ci, vp, ci, vp, vp, vp, vp, ci, vp, vp]
-    lib.edge_sddmm.argtypes = [ci, ci, vp, vp, ci, vp, vp, ci, vp, vp]
+    lib.edge_csr_pass.argtypes = [ci] * 6 + [vp, vp, ci, ci] + [vp] * 4 + [ci, ci] + [vp] * 3
     lib.edge_segment_sum.argtypes = [ci, ci, vp, ci, vp, ci, vp, vp]
-    for fn in (lib.edge_csr_spmm, lib.edge_sddmm, lib.edge_segment_sum):
+    for fn in (lib.edge_csr_pass, lib.edge_segment_sum):
         fn.restype = ci
     lib.edge_error_string.argtypes = [ci]
     lib.edge_error_string.restype = ctypes.c_char_p
@@ -153,42 +178,72 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _launch_csr_spmm(table, row_ptr, col, val, perm, out) -> None:
-    global SPMM_LAUNCHES
-    dev = table.device
-    _check_launch("csr_spmm", [table], [col] + ([perm] if perm is not None else []),
-                  row_ptr, dev)
-    _check(val.dtype == torch.float32 and val.is_contiguous()
-           and val.device == dev, "csr_spmm: val must be contiguous float32")
-    _check(out.dtype == torch.float32 and out.shape == (row_ptr.shape[0] - 1,
-                                                        table.shape[1]),
-           f"csr_spmm: out {tuple(out.shape)} {out.dtype}")
-    _check(col.shape == val.shape and (perm is None or perm.shape == col.shape),
-           "csr_spmm: col / val / perm lengths differ")
+def _launch_csr(name: str, mode: int, tab, own, row_ptr, col, val, perm, out, dval) -> None:
+    """One CSR pass of the gather core (mode 1: K3's sum into out, 2: K4's
+    dot into dval, 3: both); tab and own laid out by `gather_table`."""
+    dev = tab.device
+    _check_launch(name, [tab] + ([own] if own is not None else []),
+                  [col] + ([perm] if perm is not None else []), row_ptr, dev)
+    vec = 16 // tab.element_size()
+    ld, n_rows, e = tab.shape[1], row_ptr.shape[0] - 1, col.shape[0]
+    for t in [tab] + ([own] if own is not None else []):
+        _check(t.dim() == 2 and t.shape[1] == ld and ld % vec == 0 and t.data_ptr() % 16 == 0,
+               f"{name}: tables {tuple(t.shape)} / {tuple(tab.shape)} must share rows of a "
+               f"multiple of 16 bytes, 16-byte aligned (gather_table)")
+    _check(own is None or (own.shape[0] == n_rows if mode == 2 else own.shape[0] <= n_rows),
+           f"{name}: {tuple(own.shape) if own is not None else ()} own rows for {n_rows} "
+           f"CSR rows (K4 alone: one a row; fused: the rows past them have no edges)")
+    _check(perm is None or perm.shape == col.shape, f"{name}: col / perm lengths differ")
+    for t, what in ((val, "val"), (dval, "dval")):
+        if t is not None:
+            _check(t.dtype == torch.float32 and t.is_contiguous() and t.device == dev
+                   and t.shape == col.shape,
+                   f"{name}: {what} must be contiguous float32 of one entry per edge")
+    f = ld
+    if out is not None:
+        f = out.shape[1] if out.dim() == 2 else -1
+        _check(out.dtype == torch.float32 and out.is_contiguous() and out.device == dev
+               and out.shape[0] == n_rows and ld - vec < f <= ld,
+               f"{name}: out {tuple(out.shape)} {out.dtype} for {n_rows} rows of a "
+               f"table of width {ld}")
+    geo = csr_geometry(ld, tab.element_size(), n_rows, e, dot=mode != 1)
     lib = build_kernel()
-    code = lib.edge_csr_spmm(
-        _dev_index(dev), _DTYPE_CODE[table.dtype], table.data_ptr(), table.shape[1],
-        row_ptr.data_ptr(), col.data_ptr(), val.data_ptr(),
-        perm.data_ptr() if perm is not None else None, out.shape[0],
-        out.data_ptr(), _stream(dev))
-    _raise_on(lib, "edge_csr_spmm", code)
-    SPMM_LAUNCHES += 1
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    code = lib.edge_csr_pass(
+        _dev_index(dev), _DTYPE_CODE[tab.dtype], mode, geo["g"], int(geo["r"] > 1),
+        geo["blocks"], tab.data_ptr(), ptr(own), ld, f, row_ptr.data_ptr(),
+        col.data_ptr(), ptr(val), ptr(perm), n_rows, own.shape[0] if own is not None else 0,
+        ptr(out), ptr(dval), _stream(dev))
+    _raise_on(lib, f"edge_csr_pass ({name})", code)
+
+
+def _launch_csr_spmm(table, row_ptr, col, val, perm, out) -> None:
+    """K3: out (rows, F) f32 from a `gather_table` layout of the table."""
+    global SPMM_LAUNCHES, SPMM_T_LAUNCHES
+    _launch_csr("csr_spmm", 1, table, None, row_ptr, col, val, perm, out, None)
+    if perm is None:
+        SPMM_LAUNCHES += 1
+    else:
+        SPMM_T_LAUNCHES += 1
 
 
 def _launch_sddmm(h, g, row_ptr, col, dval) -> None:
+    """K4 alone: dval (E,) f32; h gathered, g the rows' own (registers)."""
     global SDDMM_LAUNCHES
-    dev = h.device
-    _check_launch("sddmm", [h, g], [col], row_ptr, dev)
-    _check(h.dim() == 2 and g.shape == (row_ptr.shape[0] - 1, h.shape[1]),
-           f"sddmm: h {tuple(h.shape)} / g {tuple(g.shape)} disagree")
-    _check(dval.dtype == torch.float32 and dval.shape == col.shape,
-           "sddmm: dval must be float32 of one entry per edge")
-    lib = build_kernel()
-    code = lib.edge_sddmm(_dev_index(dev), _DTYPE_CODE[h.dtype], h.data_ptr(),
-                          g.data_ptr(), h.shape[1], row_ptr.data_ptr(),
-                          col.data_ptr(), g.shape[0], dval.data_ptr(), _stream(dev))
-    _raise_on(lib, "edge_sddmm", code)
+    _launch_csr("sddmm", 2, h, g, row_ptr, col, None, None, None, dval)
     SDDMM_LAUNCHES += 1
+
+
+def _launch_csr_spmm_dval(gout, h, t_row_ptr, t_col, val, order, out, dval) -> None:
+    """K3's dh pass over the src CSR with K4's dval in the same launch:
+    gout gathered, h the rows' own (its rows past h's have no edges); dval
+    in the src CSR's edge order."""
+    global SPMM_DVAL_LAUNCHES
+    _launch_csr("csr_spmm_dval", 3, gout, h, t_row_ptr, t_col, val, order, out, dval)
+    SPMM_DVAL_LAUNCHES += 1
 
 
 def _launch_segment_sum(g, row_ptr, out) -> None:
@@ -222,7 +277,7 @@ def csr_spmm(table: torch.Tensor, row_ptr: torch.Tensor, col: torch.Tensor,
         return csr_spmm_plain(table, row_ptr, col, val, perm)
     out = torch.empty((row_ptr.shape[0] - 1, table.shape[1]), dtype=torch.float32,
                       device=table.device)
-    _launch_csr_spmm(table, row_ptr, col, val.float(), perm, out)
+    _launch_csr_spmm(gather_table(table, table.dtype), row_ptr, col, val.float(), perm, out)
     return out
 
 
@@ -232,8 +287,23 @@ def sddmm(h: torch.Tensor, g: torch.Tensor, row_ptr: torch.Tensor,
     if _device_of("sddmm", h) == "cpu":
         return sddmm_plain(h, g, row_ptr, col)
     dval = torch.empty(col.shape, dtype=torch.float32, device=h.device)
-    _launch_sddmm(h, g, row_ptr, col, dval)
+    _launch_sddmm(gather_table(h, h.dtype), gather_table(g, g.dtype), row_ptr, col, dval)
     return dval
+
+
+def csr_spmm_dval(gout: torch.Tensor, h: torch.Tensor, t_row_ptr: torch.Tensor,
+                  t_col: torch.Tensor, val: torch.Tensor, order: torch.Tensor,
+                  inv_order: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's dh with K4's dval in one pass over the src CSR -> (dh (rows, F)
+    f32, dval (E,) f32 in the edges' order)."""
+    if _device_of("csr_spmm_dval", gout) == "cpu":
+        return csr_spmm_dval_plain(gout, h, t_row_ptr, t_col, val, order, inv_order)
+    out = torch.empty((t_row_ptr.shape[0] - 1, gout.shape[1]), dtype=torch.float32,
+                      device=gout.device)
+    dval = torch.empty(t_col.shape, dtype=torch.float32, device=gout.device)
+    _launch_csr_spmm_dval(gather_table(gout, gout.dtype), gather_table(h, h.dtype), t_row_ptr,
+                          t_col, val.float(), order, out, dval)
+    return out, dval.index_select(0, inv_order)
 
 
 def segment_sum(g: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
@@ -255,10 +325,14 @@ class EdgeSpMM:
     caller (the batch's src/dst): the op checks their lengths at each call.
 
     num_in: rows of the gather table (dh has as many before it is cut to
-    h's rows); num_out: output rows."""
+    h's rows); num_out: output rows.
+
+    device: None means the card and raises without one; the CPU only when
+    the caller passes device="cpu"."""
 
     def __init__(self, src, dst, num_in: int, num_out: int,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device | None = None):
+        device = resolve_device(device)
         src = np.asarray(src, np.int64)
         dst = np.asarray(dst, np.int64)
         e = len(src)
@@ -282,6 +356,9 @@ class EdgeSpMM:
 
         self.row_ptr = ptr(dst, num_out)
         self.order = self._t(order)
+        inv = np.empty_like(order)
+        inv[order] = np.arange(e)
+        self.inv_order = self._t(inv)
         self.t_row_ptr = ptr(src, num_in)
         self.t_col = self._t(dst[order])
 
@@ -297,7 +374,8 @@ class EdgeSpMM:
 
 class EdgeSpMMFn(torch.autograd.Function):
     """out = segment_sum_dst(h[src] * val) in h's dtype; dh over the src
-    CSR (K3), dval by K4 when val needs a gradient."""
+    CSR (K3); dval in the same pass when h needs a gradient too, else by K4
+    alone."""
 
     @staticmethod
     def forward(ctx, h: torch.Tensor, val: torch.Tensor, src: torch.Tensor,
@@ -312,11 +390,18 @@ class EdgeSpMMFn(torch.autograd.Function):
         h, val, src = ctx.saved_tensors
         gout = gout.contiguous()
         dh = dval = None
-        if ctx.needs_input_grad[0]:
+        need_h, need_val = ctx.needs_input_grad[:2]
+        if need_h and need_val:
+            dh, dval = csr_spmm_dval(gout, h.contiguous(), op.t_row_ptr, op.t_col, val,
+                                     op.order, op.inv_order)
+        elif need_h:
             dh = csr_spmm(gout, op.t_row_ptr, op.t_col, val, op.order)
+        elif need_val:
+            dval = sddmm(h.contiguous(), gout, op.row_ptr, src)
+        if dh is not None:
             dh = dh[: h.shape[0]].to(h.dtype)
-        if ctx.needs_input_grad[1]:
-            dval = sddmm(h.contiguous(), gout, op.row_ptr, src).to(val.dtype)
+        if dval is not None:
+            dval = dval.to(val.dtype)
         return dh, dval, None, None
 
 

@@ -46,6 +46,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from dorylus_tpu_torch.common.device import resolve_device
 from dorylus_tpu_torch.graph.partition import Shard, build_recv_plan
 from dorylus_tpu_torch.ops import cuda_build
 from dorylus_tpu_torch.parallel import multihost
@@ -225,11 +226,15 @@ class HaloPlan:
     wire: "padded" or "ragged". counts: (send_cnt, recv_cnt), each (n,)
     exact rows per peer; None derives recv_cnt from the shard's ghost
     ranks and learns send_cnt from the peers through one all-to-all of the
-    counts (every rank must then build its plan at the same point)."""
+    counts (every rank must then build its plan at the same point).
+
+    device: None means the card and raises without one; the CPU only when
+    the caller passes device="cpu"."""
 
     def __init__(self, shard: Shard, n: int, wire: str = "ragged",
-                 device: str | torch.device = "cpu",
+                 device: str | torch.device | None = None,
                  counts: Optional[tuple[np.ndarray, np.ndarray]] = None):
+        device = resolve_device(device)
         if wire not in ("padded", "ragged"):
             raise ValueError(f"halo wire {wire!r}: \"padded\" or \"ragged\"")
         send_idx = np.asarray(shard.send_idx)

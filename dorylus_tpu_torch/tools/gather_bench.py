@@ -1,5 +1,6 @@
-"""Time the slot-gather passes K1 (static), K2 (mask) and K8 (two tables) on
-the card, at the shapes the main paths give them.
+"""Time the slot-gather passes K1 (static), K2 (mask) and K8 (two tables)
+and the edgewise CSR passes K3 and K4 on the card, at the shapes the main
+paths give them.
 
     python dorylus_tpu_torch/tools/gather_bench.py [--tree DIR] [--label NAME]
         [--iters 20] [--out FILE]
@@ -21,7 +22,18 @@ partition), each at bf16 F=128, bf16 F=41 and f32 F=128:
     checkouts before the one-launch pass, K1/K2 on its pure buckets);
   * `gcn step` / `gat step`: the Reddit-config train step (602-128-41, hyb,
     bf16 gather tables), `step_ms` by CUDA events, `kernel_ms` the gather
-    kernels' device time in it and `device_ms` all kernels', per step.
+    kernels' device time in it and `device_ms` all kernels', per step;
+  * `edge fwd` / `edge dh` / `edge dh+dval` / `edge dval`, at f32 F=128,
+    f32 F=41 and bf16 F=128: K3 over the Reddit graph's dst CSR, K3 over
+    its src CSR through the permutation, the backward of GAT's edgewise
+    aggregation (dh and the value gradient: one fused launch where the
+    checkout has `csr_spmm_dval`, else K3's dh and K4 one after the other)
+    and K4 alone; `library_ms` is `torch.sparse.mm` of the CSR (of the
+    transposed CSR for dh), `torch.sparse.sampled_addmm` for dval, and the
+    two summed for dh+dval (f32 only);
+  * `gcn xla step` / `gat xla step`: the Reddit-config train step on
+    kernel="xla" (f32), as the GCN and GAT steps above, its kernel time that
+    of K3 and K4.
 
 For each case: `pass_ms` (CUDA events around `iters` calls of the pass
 entry: the cast of the table, the zero-filled output and the kernel
@@ -49,7 +61,11 @@ HBM_BYTES_PER_S = 3.35e12
 REDDIT = dict(v=232_965, deg=50, feat=602, classes=41)
 CONFIGS = (("bfloat16", 128), ("bfloat16", 41), ("float32", 128))
 # The gather kernels' names in every version of the port's sources.
-KERNEL_NAMES = re.compile(r"hyb_part_kernel|fused_part_kernel|gather_pass_kernel")
+KERNEL_NAMES = re.compile(r"hyb_part_kernel|fused_part_kernel|gather_pass_kernel|"
+                          r"csr_spmm_kernel|sddmm_kernel|csr_pass_kernel")
+EDGE_CONFIGS = (("float32", 128), ("float32", 41), ("bfloat16", 128))
+# The edgewise launch counters of every version of ops/spmm.py (K5 apart).
+EDGE_COUNTERS = ("SPMM_LAUNCHES", "SPMM_T_LAUNCHES", "SPMM_DVAL_LAUNCHES", "SDDMM_LAUNCHES")
 
 
 def _ms(torch, fn, iters: int) -> float:
@@ -89,6 +105,92 @@ def device_split(torch, fn, iters: int) -> tuple[float, float]:
     return gather / 1e3 / iters, other / 1e3 / iters
 
 
+def edge_cases(args, rows: list, g, gen, counts) -> None:
+    """The edgewise rows (see the module's docstring) on the graph g."""
+    import numpy as np
+    import torch
+
+    from dorylus_tpu_torch.ops import spmm
+
+    v, e = g.num_vertices, g.num_edges
+    op = spmm.EdgeSpMM(g.src, g.dst, v, v, device="cuda")
+    src = torch.tensor(g.src, device="cuda")
+    val = torch.tensor(g.edge_norm, device="cuda")
+    rp, trp, tc, order = op.row_ptr, op.t_row_ptr, op.t_col, op.order
+    fused = hasattr(spmm, "csr_spmm_dval")
+    # the rows each pass reads once: K3 forward and K4 gather h[src], dh gout[dst]
+    src_rows, dst_rows = int(np.unique(g.src).size), int(np.unique(g.dst).size)
+    a_fwd = torch.sparse_csr_tensor(rp, src, val, size=(v, v))
+    a_bwd = torch.sparse_csr_tensor(trp, tc, val[order.long()], size=(v, v))
+    pattern = torch.sparse_csr_tensor(rp, src, torch.ones_like(val), size=(v, v))
+    idx_bytes = (v + 1) * 4 + e * 4  # row_ptr and col
+    for dtype, f in EDGE_CONFIGS:
+        dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+        elt = 2 if dt == torch.bfloat16 else 4
+        h = torch.randn(v, f, generator=gen, device="cuda").to(dt)
+        gout = torch.randn(v, f, generator=gen, device="cuda").to(dt)
+
+        def dh_dval():
+            if fused:
+                return spmm.csr_spmm_dval(gout, h, trp, tc, val, order, op.inv_order)
+            return (spmm.csr_spmm(gout, trp, tc, val, order), spmm.sddmm(h, gout, rp, src))
+
+        def dh_dval_plain():
+            return (spmm.csr_spmm_plain(gout, trp, tc, val, order),
+                    spmm.sddmm_plain(h, gout, rp, src))
+
+        def lib_mm(a, x):
+            return lambda: torch.sparse.mm(a.to(x.dtype), x)
+
+        def lib_dval():
+            return torch.sparse.sampled_addmm(pattern, gout, h.t(), beta=0.0)
+
+        cases = (
+            ("fwd", lambda: spmm.csr_spmm(h, rp, src, val),
+             lambda: spmm.csr_spmm_plain(h, rp, src, val),
+             src_rows * f * elt + idx_bytes + e * 4 + v * f * 4, [lib_mm(a_fwd, h)]),
+            ("dh", lambda: spmm.csr_spmm(gout, trp, tc, val, order),
+             lambda: spmm.csr_spmm_plain(gout, trp, tc, val, order),
+             dst_rows * f * elt + idx_bytes + 2 * e * 4 + v * f * 4, [lib_mm(a_bwd, gout)]),
+            ("dh+dval", dh_dval, dh_dval_plain,
+             (dst_rows + src_rows) * f * elt + idx_bytes + 3 * e * 4 + v * f * 4,
+             [lib_mm(a_bwd, gout), lib_dval]),
+            ("dval", lambda: spmm.sddmm(h, gout, rp, src),
+             lambda: spmm.sddmm_plain(h, gout, rp, src),
+             (src_rows + dst_rows) * f * elt + idx_bytes + e * 4, [lib_dval]),
+        )
+        for name, fn, plain, nbytes, libs in cases:
+            case = f"edge {name}"
+            if not re.search(args.only, f"{case} {dtype} {f}"):
+                continue
+            got, ref = fn(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                      for a, b in zip(got, ref))
+            del got, ref
+            before = counts()
+            fn()
+            torch.cuda.synchronize()
+            launches = counts() - before
+            pass_ms = _ms(torch, fn, args.iters)
+            kernel_ms, other_ms = device_split(torch, fn, args.iters)
+            library_ms = None
+            if dt == torch.float32:
+                try:
+                    library_ms = sum(_ms(torch, lib, 10) for lib in libs)
+                except (RuntimeError, NotImplementedError):
+                    library_ms = None
+            row = {"label": args.label, "case": case, "dtype": dtype, "F": f,
+                   "pass_ms": pass_ms, "kernel_ms": kernel_ms, "other_ms": other_ms,
+                   "launches": launches, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                   "library_ms": library_ms, "rel_err": err, "edges": e}
+            rows.append(row)
+            print("bench " + json.dumps(row), flush=True)
+        del h, gout
+        torch.cuda.empty_cache()
+
+
 def main(argv: list | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[2]))
@@ -109,7 +211,7 @@ def main(argv: list | None = None) -> int:
     from dorylus_tpu_torch.graph.graph import build_graph
     from dorylus_tpu_torch.graph.partition import partition_graph, shard_edges
     from dorylus_tpu_torch.graph.reorder import apply_order, degree_order
-    from dorylus_tpu_torch.ops import cuda_build, degree_spmm, hyb_sharded, hyb_spmm
+    from dorylus_tpu_torch.ops import cuda_build, degree_spmm, hyb_sharded, hyb_spmm, spmm
     from dorylus_tpu_torch.ops.degree_sharded import ShardedDegreeSpMM
     from dorylus_tpu_torch.ops.degree_spmm import DegreeSpMM
     from dorylus_tpu_torch.ops.hyb_sharded import ShardedHybSpMM
@@ -120,7 +222,19 @@ def main(argv: list | None = None) -> int:
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
     print(f"gather_bench [{args.label}] tree {args.tree}: {card}", flush=True)
-    info = cuda_build.compile_sources([hyb_spmm._CSRC, hyb_sharded._CSRC])
+    def wants(*cases):
+        """Whether --only keeps any of these cases at any configuration (a
+        section whose cases it keeps none of builds nothing)."""
+        return any(re.search(args.only, f"{c} {d} {f}") for c in cases
+                   for d, f in CONFIGS + EDGE_CONFIGS)
+
+    slot_cases = ["hyb static", "hyb mask", "degree static", "gcn step", "gat step"]
+    slot_cases += [f"shard0 {e} static" for e in ("combined", "interior", "boundary")]
+    slot_cases += ["shard0 fused static", "shard0 fused mask"]
+    edge_names = [f"edge {c}" for c in ("fwd", "dh", "dh+dval", "dval")]
+    sources = ([hyb_spmm._CSRC, hyb_sharded._CSRC] if wants(*slot_cases) else []) + (
+        [spmm._CSRC] if wants(*edge_names, "gcn xla step", "gat xla step") else [])
+    info = cuda_build.compile_sources(sources)
     for src, inf in info.items():
         for line in inf["log"].splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
@@ -130,14 +244,13 @@ def main(argv: list | None = None) -> int:
     g = build_graph(REDDIT["v"], REDDIT["deg"], REDDIT["feat"], REDDIT["classes"], seed=1)
     g = apply_order(g, degree_order(g, ascending=True))
     v = g.num_vertices
-    sg = partition_graph(g, 4)
-    shard0 = sg.shards[0]
+    sg = partition_graph(g, 4) if wants(*slot_cases[5:]) else None
     print(f"graphs: {time.perf_counter() - t0:.1f} s", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def counts():
         return (hyb_spmm.KERNEL_LAUNCHES + hyb_spmm.MASK_LAUNCHES
-                + hyb_sharded.FUSED_LAUNCHES)
+                + hyb_sharded.FUSED_LAUNCHES + sum(getattr(spmm, k, 0) for k in EDGE_COUNTERS))
 
     rows = []
 
@@ -184,11 +297,17 @@ def main(argv: list | None = None) -> int:
     def live_of(parts):
         return sum(int(p["cnt"].sum()) for p in parts)
 
+    # the edgewise CSR passes (K3, K4) on the Reddit graph
+    if wants(*edge_names):
+        edge_cases(args, rows, g, gen, counts)
+        torch.cuda.empty_cache()
+
     # the single-device hyb and degree plans
     csr_norm = csr_of(g.src, g.dst, g.edge_norm, v, v)
     csr_ones = dict(csr_norm, val=torch.ones_like(csr_norm["val"]))
     src_rows = int(np.unique(g.src).size)
-    for gd_name in ("bfloat16", "float32"):
+    single = wants("hyb static", "hyb mask", "degree static")
+    for gd_name in ("bfloat16", "float32") if single else ():
         gd = torch.bfloat16 if gd_name == "bfloat16" else None
         op = HybSpMM(g.src, g.dst, v, v, gather_dtype=gd, static_val=g.edge_norm, device="cuda")
         parts = list(op.fwd["buckets"]) + ([op.fwd["top"]] if op.fwd["top"] is not None else [])
@@ -225,66 +344,71 @@ def main(argv: list | None = None) -> int:
     del csr_norm, csr_ones
 
     # rank 0's degree plans and fused plan
-    vp = sg.vp
-    for edges in ("combined", "interior", "boundary"):
-        es, ed, ev = shard_edges(shard0, edges)
-        csr = csr_of(es, ed, ev, vp, {"combined": vp + 4 * sg.max_h, "interior": vp,
-                                      "boundary": 4 * sg.max_h}[edges])
-        rows_read = int(np.unique(es).size)
+    if sg is not None:
+        shard0 = sg.shards[0]
+        vp = sg.vp
+        for edges in ("combined", "interior", "boundary"):
+            es, ed, ev = shard_edges(shard0, edges)
+            csr = csr_of(es, ed, ev, vp, {"combined": vp + 4 * sg.max_h, "interior": vp,
+                                          "boundary": 4 * sg.max_h}[edges])
+            rows_read = int(np.unique(es).size)
+            for gd_name in ("bfloat16", "float32"):
+                gd = torch.bfloat16 if gd_name == "bfloat16" else None
+                dop = ShardedDegreeSpMM(shard0, 4, edges=edges, static_vals=True, gather_dtype=gd,
+                                        device="cuda")
+                live = live_of([dop.fwd["part"]])
+                for dtype, f in CONFIGS:
+                    if dtype != gd_name:
+                        continue
+                    h = torch.randn(dop.num_in, f, generator=gen, device="cuda")
+                    measure(f"shard0 {edges} static", dtype, f,
+                            lambda: degree_spmm.degree_pass(h, dop.fwd, vp, gd, "static"),
+                            lambda: degree_spmm.degree_pass_plain(h, dop.fwd, vp, gd, "static"),
+                            live, rows_read, vp, 4 + (2 if gd else 4), csr)
+                    del h
+                del dop
+            del csr
+        ne = shard0.num_edges
+        table = vp + 4 * sg.max_h
+        csr_norm = csr_of(shard0.src[:ne], shard0.dst[:ne], shard0.edge_val[:ne], vp, table)
+        csr_ones = dict(csr_norm, val=torch.ones_like(csr_norm["val"]))
+        rows_read = int(np.unique(shard0.src[:ne]).size)
         for gd_name in ("bfloat16", "float32"):
             gd = torch.bfloat16 if gd_name == "bfloat16" else None
-            dop = ShardedDegreeSpMM(shard0, 4, edges=edges, static_vals=True, gather_dtype=gd,
-                                    device="cuda")
-            live = live_of([dop.fwd["part"]])
-            for dtype, f in CONFIGS:
-                if dtype != gd_name:
-                    continue
-                h = torch.randn(dop.num_in, f, generator=gen, device="cuda")
-                measure(f"shard0 {edges} static", dtype, f,
-                        lambda: degree_spmm.degree_pass(h, dop.fwd, vp, gd, "static"),
-                        lambda: degree_spmm.degree_pass_plain(h, dop.fwd, vp, gd, "static"),
-                        live, rows_read, vp, 4 + (2 if gd else 4), csr)
-                del h
-            del dop
-        del csr
-    ne = shard0.num_edges
-    table = vp + 4 * sg.max_h
-    csr_norm = csr_of(shard0.src[:ne], shard0.dst[:ne], shard0.edge_val[:ne], vp, table)
-    csr_ones = dict(csr_norm, val=torch.ones_like(csr_norm["val"]))
-    rows_read = int(np.unique(shard0.src[:ne]).size)
-    for gd_name in ("bfloat16", "float32"):
-        gd = torch.bfloat16 if gd_name == "bfloat16" else None
-        for static in (True, False):
-            fop = ShardedHybSpMM(shard0, 4, edges="fused", static_vals=static, gather_dtype=gd,
-                                 device="cuda")
-            parts = list(fop.fwd["buckets"]) + (
-                [fop.fwd["top"]] if fop.fwd["top"] is not None else [])
-            live = live_of(parts)
-            mode = "static" if static else "mask"
-            for dtype, f in CONFIGS:
-                if dtype != gd_name:
-                    continue
-                h = torch.randn(vp, f, generator=gen, device="cuda")
-                gh = torch.randn(table - vp, f, generator=gen, device="cuda")
-                measure(f"shard0 fused {mode}", dtype, f,
-                        lambda: hyb_sharded.fused_pass(h, gh, fop.fwd, fop.n_pure, gd, mode),
-                        lambda: hyb_sharded.fused_pass_plain(h, gh, fop.fwd, fop.n_pure, gd,
-                                                             mode),
-                        live, rows_read, vp, 4 + ((2 if gd else 4) if static else 0),
-                        csr_norm if static else csr_ones)
-                del h, gh
-            del fop
+            for static in (True, False):
+                fop = ShardedHybSpMM(shard0, 4, edges="fused", static_vals=static, gather_dtype=gd,
+                                     device="cuda")
+                parts = list(fop.fwd["buckets"]) + (
+                    [fop.fwd["top"]] if fop.fwd["top"] is not None else [])
+                live = live_of(parts)
+                mode = "static" if static else "mask"
+                for dtype, f in CONFIGS:
+                    if dtype != gd_name:
+                        continue
+                    h = torch.randn(vp, f, generator=gen, device="cuda")
+                    gh = torch.randn(table - vp, f, generator=gen, device="cuda")
+                    measure(f"shard0 fused {mode}", dtype, f,
+                            lambda: hyb_sharded.fused_pass(h, gh, fop.fwd, fop.n_pure, gd, mode),
+                            lambda: hyb_sharded.fused_pass_plain(h, gh, fop.fwd, fop.n_pure, gd,
+                                                                 mode),
+                            live, rows_read, vp, 4 + ((2 if gd else 4) if static else 0),
+                            csr_norm if static else csr_ones)
+                    del h, gh
+                del fop
     # the Reddit-config train steps (602-128-41, bf16 gather tables) that
     # run these passes: the step by CUDA events, its device time and the
     # gather kernels' share of it by torch.profiler, launches a step
     from dorylus_tpu_torch.common.config import LayerConfig, TrainConfig
     from dorylus_tpu_torch.engine.engine import Engine
 
-    for model, lr in (("gcn", 0.01), ("gat", 0.005)):
-        if not re.search(args.only, f"{model} step bfloat16 128"):
+    steps = [(m, lr, "hyb", "bfloat16") for m, lr in (("gcn", 0.01), ("gat", 0.005))]
+    steps += [(m, lr, "xla", "float32") for m, lr in (("gcn", 0.01), ("gat", 0.005))]
+    for model, lr, kernel, dtype in steps:
+        case = f"{model} step" if kernel == "hyb" else f"{model} xla step"
+        if not re.search(args.only, f"{case} {dtype} 128"):
             continue
-        cfg = TrainConfig(epochs=1, eval_every=1, model=model, kernel="hyb",
-                          agg_dtype="bfloat16", learning_rate=lr, reuse="off")
+        cfg = TrainConfig(epochs=1, eval_every=1, model=model, kernel=kernel,
+                          agg_dtype=dtype, learning_rate=lr, reuse="off")
         eng = Engine(g, LayerConfig([REDDIT["feat"], 128, REDDIT["classes"]]), cfg,
                      device="cuda")
 
@@ -298,7 +422,7 @@ def main(argv: list | None = None) -> int:
         launches = counts() - before
         step_ms = _ms(torch, step, args.iters)
         kernel_ms, other_ms = device_split(torch, step, 5)
-        row = {"label": args.label, "case": f"{model} step", "dtype": "bfloat16", "F": 128,
+        row = {"label": args.label, "case": case, "dtype": dtype, "F": 128,
                "step_ms": step_ms, "kernel_ms": kernel_ms, "device_ms": kernel_ms + other_ms,
                "launches": launches}
         rows.append(row)

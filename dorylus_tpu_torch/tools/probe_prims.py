@@ -55,6 +55,9 @@ TILE_ROWS, COLS = 8, 128  # one row-block: 4 KB of f32
 DEPTH = 16  # P3's ring
 ROW_COLS = (128, 64)  # P3's row widths: 512- and 256-byte rows
 HALF_ROWS_60MB = 234_376  # P3's 256-byte-row table: 60 MB, the bf16 Reddit table's size
+# P3's tables of 512-byte rows: 32 MB (in the L2), 60 MB (K1's bf16 Reddit
+# table), 119 MB (K3's f32 F=128 Reddit table: 232,965 rows) and 1 GB
+DMA_ROWS = (65_536, 117_188, 232_965, 1 << 21)
 ID_ROWS = 64  # P4's id rows, cycled
 WARPS = 8  # P3/P4 streams per block
 _IDX_BYTES = 1024  # P1/P2's staged-index buffer beside the table
@@ -392,7 +395,7 @@ def check_against_plain(device: str | torch.device = "cuda", check_ops: int = 20
 
 
 def measure(device: str | torch.device = "cuda", n_ops: int = 100_000,
-            dma_rows: tuple = (65_536, 1 << 21), half_rows: tuple = (HALF_ROWS_60MB,),
+            dma_rows: tuple = DMA_ROWS, half_rows: tuple = (HALF_ROWS_60MB,),
             seed: int = 0, probes: tuple = tuple(LAUNCHES)) -> dict:
     """Time each kernel at n_ops ops a stream on one block (the per-SM
     rate) and on a grid that fills the card (P3 and P4 on one stream too).
@@ -401,9 +404,10 @@ def measure(device: str | torch.device = "cuda", n_ops: int = 100_000,
     and P3 bit for bit, P1 and P4 to 1e-4 * max|ref|; `max_abs_err`, for P3
     the largest over the tables), so what is compared is what is timed.
     Returns {"P1": {...}, ...}: per grid the ms, ops/s and, where an op
-    moves bytes, bytes/s; P3 per table size (32 MB stays in the L2, 1 GB
-    does not) and, for each of `half_rows`, at 256-byte rows on a (rows,
-    64) table (`tables_256`)."""
+    moves bytes, bytes/s; P3 per table size (`dma_rows`: 32 MB stays in the
+    L2, 60 MB is K1's table, 119 MB K3's, 1 GB does not fit) and, for each
+    of `half_rows`, at 256-byte rows on a (rows, 64) table
+    (`tables_256`)."""
     inp, blocks = card_inputs(device, seed)
     tile_bytes = TILE_ROWS * COLS * 4
 
@@ -501,12 +505,11 @@ def run(device: str | torch.device = "cuda", n_ops: int = 100_000, check_ops: in
         seed: int = 0, log=print, probes: tuple = tuple(LAUNCHES)) -> dict:
     """The probe: a fast check of P1-P4 against their plain versions, then
     the measurement of `probes`, which holds each timed launch against its
-    plain version at n_ops; P3 on the 32 MB, 60 MB and 1 GB tables of
-    512-byte rows and on the 60 MB table of 256-byte rows. Needs a card:
+    plain version at n_ops; P3 on the 32 MB, 60 MB, 119 MB and 1 GB tables
+    of 512-byte rows and on the 60 MB table of 256-byte rows. Needs a card:
     raises without one."""
     check_against_plain(device, check_ops, seed=seed)
-    res = measure(device, n_ops, dma_rows=(65_536, 117_188, 1 << 21), seed=seed,
-                  probes=probes)
+    res = measure(device, n_ops, seed=seed, probes=probes)
     for k in probes:
         log(f"probe {k}: " + json.dumps(res[k]))
     return res

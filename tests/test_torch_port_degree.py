@@ -100,7 +100,7 @@ def test_degree_entries_match_jax(entry, narrow):
     jop = jdeg.DegreeSpMM(src, dst, num_in, num_out, static_val=static,
                           gather_dtype=jnp.bfloat16 if narrow else None)
     top = tdeg.DegreeSpMM(src, dst, num_in, num_out, static_val=static,
-                          gather_dtype=torch.bfloat16 if narrow else None)
+                          gather_dtype=torch.bfloat16 if narrow else None, device="cpu")
     rng = np.random.default_rng(17)
     f = 9
     h = rng.normal(0, 1, (num_in, f)).astype(np.float32)
@@ -143,7 +143,7 @@ def test_degree_isolated_rows_and_zero_edges():
     cases tests/test_degree_spmm.py:98-115)."""
     src, dst, val, v, _ = _case("isolated")
     h = torch.eye(v)
-    op = tdeg.DegreeSpMM(src, dst, v, v, block=4, static_val=val)
+    op = tdeg.DegreeSpMM(src, dst, v, v, block=4, static_val=val, device="cpu")
     want = np.zeros((v, v), np.float32)
     np.add.at(want, dst, val[:, None] * np.eye(v, dtype=np.float32)[src])
     np.testing.assert_allclose(op.apply_static(h).numpy(), want, atol=1e-7)
@@ -151,7 +151,7 @@ def test_degree_isolated_rows_and_zero_edges():
     unit = op.apply_unit(h).numpy()
     assert not unit[[0, 2, 4]].any() and unit[1, 0] == unit[1, 1] == 1
     empty = tdeg.DegreeSpMM(np.zeros(0, np.int32), np.zeros(0, np.int32), 4, 4,
-                            static_val=np.zeros(0, np.float32))
+                            static_val=np.zeros(0, np.float32), device="cpu")
     hk = torch.eye(4, requires_grad=True)
     vk = torch.zeros(0, requires_grad=True)
     out = empty.apply(hk, vk)
@@ -165,7 +165,7 @@ def test_degree_plan_as_hub_part():
     """On the card a degree plan is one hub part: each vertex with block
     rows owns a contiguous run of them through row_ptr."""
     src, dst, _, num_in, num_out = _case("powerlaw")
-    op = tdeg.DegreeSpMM(src, dst, num_in, num_out)
+    op = tdeg.DegreeSpMM(src, dst, num_in, num_out, device="cpu")
     part, br = op.fwd["part"], op.fwd["block_row"].numpy()
     verts, ptr = part["v"].numpy(), part["row_ptr"].numpy()
     assert ptr[0] == 0 and ptr[-1] == len(br) and (np.diff(ptr) > 0).all()
@@ -179,7 +179,7 @@ def test_degree_kernel_path_raises_off_cuda():
     """The degree pass launches on CUDA tensors only: another device
     raises, and the launchers count nothing."""
     src, dst, val, num_in, num_out = _case("powerlaw")
-    op = tdeg.DegreeSpMM(src, dst, num_in, num_out, static_val=val)
+    op = tdeg.DegreeSpMM(src, dst, num_in, num_out, static_val=val, device="cpu")
     meta = torch.zeros((num_in, 4), device="meta")
     for mode in ("static", "mask", "dynamic"):
         with pytest.raises(ValueError, match="unsupported device"):

@@ -78,7 +78,7 @@ def test_sharded_degree_op_matches_jax(sharded, edges, narrow):
         gout = rng.normal(size=(vp, f)).astype(np.float32)
         for static in (True, False):
             top = ShardedDegreeSpMM(shard, n, edges=edges, static_vals=static,
-                                    gather_dtype=tgd)
+                                    gather_dtype=tgd, device="cpu")
             assert (top.num_in, top.num_out) == (table.shape[0], vp)
             ja = jax.tree.map(lambda v: v[s], jops[static].arrays)
             jop = jops[static]
@@ -135,7 +135,8 @@ def test_interior_plus_boundary_is_the_combined_pass(sharded, static):
     n, vp, mh = sg.n_shards, sg.vp, sg.max_h
     rng = np.random.default_rng(5)
     for shard in sg.shards:
-        ops = {e: ShardedDegreeSpMM(shard, n, edges=e, static_vals=static) for e in EDGE_SETS}
+        ops = {e: ShardedDegreeSpMM(shard, n, edges=e, static_vals=static, device="cpu")
+               for e in EDGE_SETS}
         h, gh = t32(rng.normal(size=(vp, 7))), t32(rng.normal(size=(n * mh, 7)))
         dv = t32(rng.normal(size=vp))
         if static:
@@ -159,7 +160,7 @@ def test_plan_without_edges_gives_zeros_and_a_zero_gradient(sharded):
     local = dataclasses.replace(shard, src=shard.src[:e][keep], dst=shard.dst[:e][keep],
                                 edge_val=shard.edge_val[:e][keep], num_edges=int(keep.sum()))
     for static in (True, False):
-        op = ShardedDegreeSpMM(local, n, edges="boundary", static_vals=static)
+        op = ShardedDegreeSpMM(local, n, edges="boundary", static_vals=static, device="cpu")
         assert op.num_edges == 0 and op.num_in == n * sharded.max_h
         entries = [lambda g: op.apply_dst(g, torch.ones(vp)), op.apply_unit,
                    lambda g: op.apply(g, torch.zeros(0))]
@@ -170,7 +171,7 @@ def test_plan_without_edges_gives_zeros_and_a_zero_gradient(sharded):
             out.sum().backward()
             assert ghosts.grad is not None and ghosts.grad.shape == ghosts.shape
             assert float(ghosts.grad.abs().max()) == 0.0
-        inner = ShardedDegreeSpMM(local, n, edges="interior", static_vals=static)
+        inner = ShardedDegreeSpMM(local, n, edges="interior", static_vals=static, device="cpu")
         assert inner.num_edges == local.num_edges
 
 

@@ -46,7 +46,7 @@ def test_depth_logits_and_gradients_match_jax(model, dims):
     v, layers, gat = g.num_vertices, LayerConfig(dims), model == "gat"
     static = None if gat else g.edge_norm
     jop = JHyb(g.src, g.dst, v, v, static_val=static, dynamic=False, lam_slots=64)
-    top = THyb(g.src, g.dst, v, v, static_val=static, lam_slots=64)
+    top = THyb(g.src, g.dst, v, v, static_val=static, lam_slots=64, device="cpu")
     jmodel = (JGAT if gat else JGCN)(layers, spmm_op=jop)
     tmodel = (TGAT if gat else TGCN)(layers, spmm_op=top)
     jbatch = jbuild_batch(g, for_gat=gat, edge_arrays=False)._replace(

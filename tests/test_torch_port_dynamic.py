@@ -77,7 +77,7 @@ def test_hyb_dynamic_matches_jax(case, narrow):
     jop = jhyb.HybSpMM(src, dst, num_in, num_out, dynamic=True,
                        gather_dtype=jnp.bfloat16 if narrow else None, **kw)
     top = thyb.HybSpMM(src, dst, num_in, num_out, dynamic=True,
-                       gather_dtype=torch.bfloat16 if narrow else None, **kw)
+                       gather_dtype=torch.bfloat16 if narrow else None, device="cpu", **kw)
     if case == "hubs":
         assert top.fwd["top"] is not None and "inv" in top.fwd and "inv" in top.bwd
         assert "s2e" in top.fwd["top"] and top.fwd["n_edges"] == len(src)
@@ -104,7 +104,7 @@ def test_dynamic_backward_skips_the_sddmm_without_val_grad():
     """With val not requiring a gradient the backward runs the pass
     without the fused SDDMM; dh is unchanged."""
     src, dst, val, num_in, num_out, kw = _case("hubs")
-    op = thyb.HybSpMM(src, dst, num_in, num_out, dynamic=True, **kw)
+    op = thyb.HybSpMM(src, dst, num_in, num_out, dynamic=True, device="cpu", **kw)
     rng = np.random.default_rng(23)
     h = rng.normal(0, 1, (num_in, 5)).astype(np.float32)
     gout = torch.tensor(rng.normal(0, 1, (num_out, 5)).astype(np.float32))
@@ -126,7 +126,7 @@ def test_dynamic_kernel_path_raises_off_cuda():
     """K7's launcher never computes on a non-CUDA tensor; the dispatcher
     raises for devices that are neither CPU nor CUDA."""
     src, dst, val, num_in, num_out, kw = _case("hubs")
-    op = thyb.HybSpMM(src, dst, num_in, num_out, dynamic=True, **kw)
+    op = thyb.HybSpMM(src, dst, num_in, num_out, dynamic=True, device="cpu", **kw)
     with pytest.raises(ValueError, match="CUDA tensor"):
         thyb._launch_dyn_part(torch.zeros((num_in, 4)), op.fwd["buckets"][0],
                               torch.tensor(val), torch.zeros((num_out, 4)))
@@ -154,10 +154,10 @@ def test_gcn_on_op_without_static_values_matches_jax(kind, narrow):
         jop = jhyb.HybSpMM(g.src, g.dst, v, v, dynamic=True, gather_dtype=jgd,
                            lam_slots=64)
         top = thyb.HybSpMM(g.src, g.dst, v, v, dynamic=True, gather_dtype=tgd,
-                           lam_slots=64)
+                           lam_slots=64, device="cpu")
     else:
         jop = jdeg.DegreeSpMM(g.src, g.dst, v, v, gather_dtype=jgd)
-        top = tdeg.DegreeSpMM(g.src, g.dst, v, v, gather_dtype=tgd)
+        top = tdeg.DegreeSpMM(g.src, g.dst, v, v, gather_dtype=tgd, device="cpu")
     assert not top.has_static_vals
     jmodel = JGCN(layers, spmm_op=jop)
     jbatch = jbuild_batch(g)._replace(aux={"spmm": jop.arrays})

@@ -96,7 +96,7 @@ def test_spmm_edgewise_fwd_dh_dval_match_jax(case, narrow):
         ref = sums(jnp.asarray(h, jdt), src, dst, v_out)
         ref_dh = sums(jnp.asarray(gout, jdt), dst, src, v_in)
 
-    op = tspmm.EdgeSpMM(src, dst, v_in, v_out)
+    op = tspmm.EdgeSpMM(src, dst, v_in, v_out, device="cpu")
     ht = torch.tensor(h).to(tdt).requires_grad_(True)
     vt = torch.tensor(val, requires_grad=True)
     out = tspmm.spmm_edgewise(ht, torch.tensor(src), torch.tensor(dst), vt, v_out,
@@ -143,7 +143,7 @@ def test_aggregate_matches_jax(with_table):
                           jnp.asarray(val), jnp.asarray(self_val),
                           h_table=jnp.asarray(table) if with_table else None,
                           sorted_dst=True)
-    op = tspmm.EdgeSpMM(src, dst, table.shape[0], v_out)
+    op = tspmm.EdgeSpMM(src, dst, table.shape[0], v_out, device="cpu")
     got = tspmm.aggregate(torch.tensor(hh), torch.tensor(src), torch.tensor(dst),
                           torch.tensor(val), torch.tensor(self_val),
                           h_table=torch.tensor(table) if with_table else None,
@@ -160,7 +160,7 @@ def test_take_sorted_fwd_bwd_match_jax(shape):
     ref, vjp = jax.vjp(lambda xx: jspmm.take_sorted(xx, jnp.asarray(dst), v_out),
                        jnp.asarray(x))
     (ref_dx,) = vjp(jnp.asarray(g))
-    op = tspmm.EdgeSpMM(src, dst, v_in, v_out)
+    op = tspmm.EdgeSpMM(src, dst, v_in, v_out, device="cpu")
     xt = torch.tensor(x, requires_grad=True)
     out = tspmm.take_sorted(xt, torch.tensor(dst), v_out, op=op)
     out.backward(torch.tensor(g))
@@ -181,7 +181,7 @@ def test_spmm_dst_blocked_matches_jax(val_flat):
     ref = jspmm.spmm_dst_blocked(jnp.asarray(h), jax.tree.map(jnp.asarray, blk),
                                  v_out, rows,
                                  val_flat=None if flat is None else jnp.asarray(flat))
-    op = tspmm.EdgeSpMM(src, dst, v_in, v_out)
+    op = tspmm.EdgeSpMM(src, dst, v_in, v_out, device="cpu")
     got = tspmm.spmm_dst_blocked(torch.tensor(h), torch.tensor(src),
                                  torch.tensor(dst),
                                  torch.tensor(val if flat is None else flat),
@@ -193,7 +193,7 @@ def test_csr_plain_versions_on_empty_and_long_rows():
     """The plain kernels against numpy on rows of 0 and 1,500 edges."""
     src, dst, val, v_in, v_out, h, gout = _inputs("powerlaw", seed=9)
     assert np.bincount(dst, minlength=v_out).max() == 1500
-    op = tspmm.EdgeSpMM(src, dst, v_in, v_out)
+    op = tspmm.EdgeSpMM(src, dst, v_in, v_out, device="cpu")
     want = np.zeros((v_out, h.shape[1]), np.float64)
     np.add.at(want, dst, val[:, None].astype(np.float64) * h[src])
     got = tspmm.csr_spmm(torch.tensor(h), op.row_ptr, torch.tensor(src),
@@ -216,10 +216,10 @@ def test_csr_plain_versions_on_empty_and_long_rows():
 def test_edge_op_validates_and_kernels_refuse_cpu_tensors():
     src, dst, val, v_in, v_out, h, gout = _inputs("uniform")
     with pytest.raises(ValueError, match="dst-sorted"):
-        tspmm.EdgeSpMM(src, dst[::-1].copy(), v_in, v_out)
+        tspmm.EdgeSpMM(src, dst[::-1].copy(), v_in, v_out, device="cpu")
     with pytest.raises(ValueError, match="out of range"):
-        tspmm.EdgeSpMM(src, dst, 10, v_out)
-    op = tspmm.EdgeSpMM(src, dst, v_in, v_out)
+        tspmm.EdgeSpMM(src, dst, 10, v_out, device="cpu")
+    op = tspmm.EdgeSpMM(src, dst, v_in, v_out, device="cpu")
     args = (torch.tensor(h), torch.tensor(src), torch.tensor(dst), torch.tensor(val))
     with pytest.raises(ValueError, match="dst-sorted"):
         tspmm.spmm_edgewise(*args, v_out, sorted_dst=False, op=op)
@@ -232,10 +232,18 @@ def test_edge_op_validates_and_kernels_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tspmm._launch_sddmm(ht, torch.tensor(gout), rp, col, torch.zeros(len(src)))
     with pytest.raises(ValueError, match="CUDA"):
+        tspmm._launch_csr_spmm_dval(torch.tensor(gout), ht, op.t_row_ptr, op.t_col, vt,
+                                    op.order, torch.zeros((v_in, h.shape[1])),
+                                    torch.zeros(len(src)))
+    with pytest.raises(ValueError, match="CUDA"):
         tspmm._launch_segment_sum(vt, rp, torch.zeros(v_out))
     with pytest.raises(ValueError, match="unsupported device"):
         tspmm.csr_spmm(torch.zeros((v_in, 4), device="meta"), rp, col, vt)
-    assert tspmm.SPMM_LAUNCHES == tspmm.SDDMM_LAUNCHES == tspmm.SEGSUM_LAUNCHES == 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        tspmm.csr_spmm_dval(torch.zeros((v_out, 4), device="meta"), torch.zeros((v_in, 4)),
+                            op.t_row_ptr, op.t_col, vt, op.order, op.inv_order)
+    assert (tspmm.SPMM_LAUNCHES == tspmm.SPMM_T_LAUNCHES == tspmm.SPMM_DVAL_LAUNCHES
+            == tspmm.SDDMM_LAUNCHES == tspmm.SEGSUM_LAUNCHES == 0)
 
 
 DIMS = [32, 16, 6]
@@ -254,7 +262,7 @@ def _gcn_models(g, blk_rows=0):
                                         block_rows=blk_rows)
         jbatch = jbatch._replace(aux={"blk": jax.tree.map(jnp.asarray, blk)})
     jmodel = JGCN(layers, blk_rows=blk_rows)
-    op = tspmm.EdgeSpMM(g.src, g.dst, g.num_vertices, g.num_vertices)
+    op = tspmm.EdgeSpMM(g.src, g.dst, g.num_vertices, g.num_vertices, device="cpu")
     tmodel = TGCN(layers, edge_op=op, blk_rows=blk_rows)
     jparams = jmodel.init_params(seed=8888)
     tmodel.load_state_dict(interop.params_from_numpy(

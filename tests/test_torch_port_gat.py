@@ -57,7 +57,7 @@ def _models(g, path, narrow=False):
         jbatch = jbuild_batch(g, for_gat=True, edge_arrays=False)._replace(
             aux={"spmm": jop.arrays})
         top = THyb(g.src, g.dst, v, v, lam_slots=64,
-                   gather_dtype=torch.bfloat16 if narrow else None)
+                   gather_dtype=torch.bfloat16 if narrow else None, device="cpu")
         tmodel = TGAT(layers, spmm_op=top)
         tbatch = tbuild_batch(g, "cpu", for_gat=True, edge_arrays=False)
     else:
@@ -68,7 +68,7 @@ def _models(g, path, narrow=False):
             blk, _ = jspmm.build_dst_blocks(g.src, g.dst, np.ones(g.num_edges, np.float32),
                                             v, block_rows=blk_rows)
             jbatch = jbatch._replace(aux={"blk": jax.tree.map(jnp.asarray, blk)})
-        tmodel = TGAT(layers, edge_op=EdgeSpMM(g.src, g.dst, v, v), blk_rows=blk_rows)
+        tmodel = TGAT(layers, edge_op=EdgeSpMM(g.src, g.dst, v, v, device="cpu"), blk_rows=blk_rows)
         tbatch = tbuild_batch(g, "cpu", for_gat=True)
     jparams = jmodel.init_params(seed=8888)
     tmodel.load_state_dict(interop.params_from_numpy(

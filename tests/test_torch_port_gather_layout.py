@@ -38,7 +38,8 @@ def _edges(v=300, seed=3, cap=120):
 
 def _hyb(lam_slots=64):
     src, dst, val = _edges()
-    return HybSpMM(src, dst, 300, 300, max_width=16, static_val=val, lam_slots=lam_slots)
+    return HybSpMM(src, dst, 300, 300, max_width=16, static_val=val, lam_slots=lam_slots,
+                   device="cpu")
 
 
 def _fused(static=True):
@@ -49,14 +50,14 @@ def _fused(static=True):
               labels=(np.arange(403) % 3).astype(np.int32), num_classes=3).finalize()
     sg = partition_graph(g, 4, method="hash")
     return ShardedHybSpMM(sg.shards[1], 4, edges="fused", static_vals=static, max_width=16,
-                          lam_slots=8)
+                          lam_slots=8, device="cpu")
 
 
 def _plans():
     src, dst, val = _edges()
     op = _hyb()
     return {"hyb fwd": op.fwd, "hyb bwd": op.bwd,
-            "degree": DegreeSpMM(src, dst, 300, 300, static_val=val).fwd,
+            "degree": DegreeSpMM(src, dst, 300, 300, static_val=val, device="cpu").fwd,
             "fused": _fused().fwd}
 
 
@@ -137,7 +138,7 @@ def test_more_parts_than_one_launch_holds():
     dst = np.repeat(np.arange(504, dtype=np.int32), deg)
     src = rng.integers(0, 504, size=len(dst)).astype(np.int32)
     val = rng.uniform(0.05, 1.0, size=len(dst)).astype(np.float32)
-    op = HybSpMM(src, dst, 504, 504, max_width=512, static_val=val, lam_slots=0)
+    op = HybSpMM(src, dst, 504, 504, max_width=512, static_val=val, lam_slots=0, device="cpu")
     pt = op.fwd["parts"]
     assert len(pt.parts) > gp.MAX_PARTS
     launches = pt.layout(16)

@@ -42,7 +42,7 @@ def _models(g, narrow, compute_dtype="float32"):
     jmodel = JGCN(layers, spmm_op=jop)
     jbatch = jbuild_batch(g, edge_arrays=False)._replace(aux={"spmm": jop.arrays})
     top = THyb(g.src, g.dst, v, v, static_val=g.edge_norm,
-               gather_dtype=torch.bfloat16 if narrow else None, lam_slots=64)
+               gather_dtype=torch.bfloat16 if narrow else None, lam_slots=64, device="cpu")
     tmodel = TGCN(layers, spmm_op=top)
     tbatch = tbuild_batch(g, "cpu", edge_arrays=False)
     jparams = jmodel.init_params(seed=8888)

@@ -127,9 +127,30 @@ def test_mask_kernel_matches_plain(cuda, narrow, f):
     _close(hyb.hyb_mask_pass(h, op.fwd, 3000, gd), u, narrow)
 
 
-@pytest.mark.parametrize("f", [1, 41, 128, 300])
+def _edge_counts(spmm):
+    return (spmm.SPMM_LAUNCHES, spmm.SPMM_T_LAUNCHES, spmm.SPMM_DVAL_LAUNCHES,
+            spmm.SDDMM_LAUNCHES, spmm.SEGSUM_LAUNCHES)
+
+
+def _edge_graph(kind, seed):
+    """dst-sorted edges of 3,000 vertices: "powerlaw" (rows of 0 to 300
+    edges, one row of 1,200, a group a row) or "dense" (80 edges a row on
+    average: the CSR team's wide rows, a warp a row)."""
+    if kind == "dense":
+        rng = np.random.default_rng(seed)
+        dst = np.sort(rng.integers(0, 3000, size=240_000)).astype(np.int32)
+        src = rng.integers(0, 3000, size=len(dst)).astype(np.int32)
+        return src, dst, rng.uniform(0.05, 1.0, size=len(dst)).astype(np.float32)
+    src, dst, val = _powerlaw(3000, seed=seed)
+    dst[:1200] = 7  # a row of more than 1,000 edges
+    return src, np.sort(dst), val
+
+
+@pytest.mark.parametrize("f", [1, 8, 41, 128, 300])
 @pytest.mark.parametrize("narrow", [False, True], ids=["f32", "bf16"])
 def test_edge_kernels_match_plain(cuda, narrow, f):
+    """The edgewise op through autograd: the forward (K3), then dh and dval
+    in one launch over the src CSR (K3 + K4 fused), and K5."""
     from dorylus_tpu_torch.ops import spmm
 
     src, dst, val = _powerlaw(3000, seed=f + 9)
@@ -144,13 +165,14 @@ def test_edge_kernels_match_plain(cuda, narrow, f):
     s_t = torch.tensor(src, device=cuda)
     d_t = torch.tensor(dst, device=cuda)
     v_t = torch.tensor(val, device=cuda)
-    counts = (spmm.SPMM_LAUNCHES, spmm.SDDMM_LAUNCHES)
+    counts = _edge_counts(spmm)
     hk = h.clone().requires_grad_(True)
     vk = v_t.clone().requires_grad_(True)
     out = spmm.spmm_edgewise(hk, s_t, d_t, vk, 3000, op=op)
     out.backward(gout)
     torch.cuda.synchronize()
-    assert (spmm.SPMM_LAUNCHES, spmm.SDDMM_LAUNCHES) == (counts[0] + 2, counts[1] + 1)
+    # one forward; the value gradient on the card in the dh launch
+    assert _edge_counts(spmm) == tuple(c + d for c, d in zip(counts, (1, 0, 1, 0, 0)))
     _close(out.detach(), spmm.csr_spmm_plain(h, op.row_ptr, s_t, v_t), narrow)
     _close(hk.grad, spmm.csr_spmm_plain(gout, op.t_row_ptr, op.t_col, v_t, op.order),
            narrow)
@@ -163,6 +185,83 @@ def test_edge_kernels_match_plain(cuda, narrow, f):
     assert spmm.SEGSUM_LAUNCHES == before + 1
 
 
+@pytest.mark.parametrize("f", [1, 8, 41, 128, 300])
+@pytest.mark.parametrize("narrow", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("graph", ["powerlaw", "dense"])
+def test_edge_entries_match_plain_and_repeat_their_bits(cuda, graph, narrow, f):
+    """Each CSR entry against its plain version, one launch each, the same
+    bits on a second call: K3 forward (dst CSR) and dh (src CSR through
+    `order`), K3 + K4 fused, K4 alone; and autograd's choice of entry by
+    which input needs a gradient."""
+    from dorylus_tpu_torch.ops import spmm
+
+    src, dst, val = _edge_graph(graph, seed=f + 11)
+    op = spmm.EdgeSpMM(src, dst, 3000, 3000, device=cuda)
+    dt = torch.bfloat16 if narrow else torch.float32
+    rng = np.random.default_rng(f)
+    h = torch.tensor(rng.normal(size=(3000, f)).astype(np.float32), device=cuda).to(dt)
+    gout = torch.tensor(rng.normal(size=(3000, f)).astype(np.float32), device=cuda).to(dt)
+    s_t, v_t = torch.tensor(src, device=cuda), torch.tensor(val, device=cuda)
+    rp, trp, tc, order, inv = op.row_ptr, op.t_row_ptr, op.t_col, op.order, op.inv_order
+    cases = (
+        ("fwd", (1, 0, 0, 0, 0), lambda: spmm.csr_spmm(h, rp, s_t, v_t),
+         lambda: spmm.csr_spmm_plain(h, rp, s_t, v_t)),
+        ("dh", (0, 1, 0, 0, 0), lambda: spmm.csr_spmm(gout, trp, tc, v_t, order),
+         lambda: spmm.csr_spmm_plain(gout, trp, tc, v_t, order)),
+        ("dh+dval", (0, 0, 1, 0, 0),
+         lambda: spmm.csr_spmm_dval(gout, h, trp, tc, v_t, order, inv),
+         lambda: spmm.csr_spmm_dval_plain(gout, h, trp, tc, v_t, order, inv)),
+        ("dval", (0, 0, 0, 1, 0), lambda: spmm.sddmm(h, gout, rp, s_t),
+         lambda: spmm.sddmm_plain(h, gout, rp, s_t)),
+    )
+    for name, launches, kern, plain in cases:
+        before = _edge_counts(spmm)
+        got = kern()
+        again = kern()
+        torch.cuda.synchronize()
+        assert _edge_counts(spmm) == tuple(b + 2 * d for b, d in zip(before, launches)), name
+        got, again, ref = [x if isinstance(x, tuple) else (x,) for x in (got, again, plain())]
+        for a, b, r in zip(got, again, ref):
+            _close(a, r, narrow)
+            assert torch.equal(a, b), f"{name}: a second call gave other bits"
+    # autograd: dh alone, dval alone
+    for needs_h, launches in ((True, (1, 1, 0, 0, 0)), (False, (1, 0, 0, 1, 0))):
+        hk = h.clone().requires_grad_(needs_h)
+        vk = v_t.clone().requires_grad_(not needs_h)
+        before = _edge_counts(spmm)
+        spmm.spmm_edgewise(hk, s_t, torch.tensor(dst, device=cuda), vk, 3000,
+                           op=op).backward(gout)
+        torch.cuda.synchronize()
+        assert _edge_counts(spmm) == tuple(b + d for b, d in zip(before, launches))
+        if needs_h:
+            _close(hk.grad, spmm.csr_spmm_plain(gout, trp, tc, v_t, order), narrow)
+        else:
+            _close(vk.grad, spmm.sddmm_plain(h, gout, rp, s_t), narrow)
+
+
+def test_edge_pass_pads_rows_that_are_not_a_multiple_of_16_bytes(cuda):
+    """F = 41 f32 rows hold 164 bytes: the entries pad the table to 44
+    columns (gather_table) and write (rows, 41); the launcher refuses the
+    unpadded table without counting a launch."""
+    from dorylus_tpu_torch.ops import spmm
+    from dorylus_tpu_torch.ops.gather_parts import gather_table
+
+    src, dst, val = _edge_graph("powerlaw", seed=5)
+    op = spmm.EdgeSpMM(src, dst, 3000, 3000, device=cuda)
+    rng = np.random.default_rng(5)
+    h = torch.tensor(rng.normal(size=(3000, 41)).astype(np.float32), device=cuda)
+    s_t, v_t = torch.tensor(src, device=cuda), torch.tensor(val, device=cuda)
+    tb = gather_table(h, torch.float32)
+    assert tb.shape == (3000, 44) and bool((tb[:, 41:] == 0).all())
+    out = spmm.csr_spmm(h, op.row_ptr, s_t, v_t)
+    assert out.shape == (3000, 41)
+    _close(out, spmm.csr_spmm_plain(h, op.row_ptr, s_t, v_t), False)
+    before = _edge_counts(spmm)
+    with pytest.raises(ValueError, match="16 bytes"):
+        spmm._launch_csr_spmm(h, op.row_ptr, s_t, v_t, None, torch.empty_like(h))
+    assert _edge_counts(spmm) == before
+
+
 def test_edge_kernels_refuse_what_they_do_not_take(cuda):
     from dorylus_tpu_torch.ops import spmm
 
@@ -171,7 +270,7 @@ def test_edge_kernels_refuse_what_they_do_not_take(cuda):
     s_t = torch.tensor(src, device=cuda)
     v_t = torch.tensor(val, device=cuda)
     out = torch.zeros((500, 8), device=cuda)
-    before = (spmm.SPMM_LAUNCHES, spmm.SDDMM_LAUNCHES, spmm.SEGSUM_LAUNCHES)
+    before = _edge_counts(spmm)
     for bad in (torch.float16, torch.float64):
         with pytest.raises(ValueError, match="dtype"):
             spmm._launch_csr_spmm(torch.zeros((500, 8), dtype=bad, device=cuda),
@@ -180,11 +279,21 @@ def test_edge_kernels_refuse_what_they_do_not_take(cuda):
         with pytest.raises(ValueError, match="dtype"):
             spmm._launch_sddmm(t, t, op.row_ptr, s_t, torch.zeros(len(src), device=cuda))
         with pytest.raises(ValueError, match="dtype"):
+            spmm._launch_csr_spmm_dval(t, t, op.t_row_ptr, op.t_col, v_t, op.order, out,
+                                       torch.zeros(len(src), device=cuda))
+        with pytest.raises(ValueError, match="dtype"):
             spmm._launch_segment_sum(v_t.to(bad), op.row_ptr, torch.zeros(500, device=cuda))
     with pytest.raises(ValueError, match="contiguous"):
         spmm._launch_csr_spmm(torch.zeros((8, 500), device=cuda).t(), op.row_ptr,
                               s_t, v_t, None, out)
-    assert (spmm.SPMM_LAUNCHES, spmm.SDDMM_LAUNCHES, spmm.SEGSUM_LAUNCHES) == before
+    good = torch.zeros((500, 8), device=cuda)
+    with pytest.raises(ValueError, match="own rows"):
+        spmm._launch_sddmm(good, good[:499], op.row_ptr, s_t,
+                           torch.zeros(len(src), device=cuda))
+    with pytest.raises(ValueError, match="dval"):
+        spmm._launch_csr_spmm_dval(good, good, op.t_row_ptr, op.t_col, v_t, op.order, out,
+                                   torch.zeros(len(src) - 1, device=cuda))
+    assert _edge_counts(spmm) == before
 
 
 def _dyn_close_all(res, narrow):

@@ -146,7 +146,8 @@ def test_rank_plan_is_a_slice_of_the_ragged_plan(setup):
     g, sg, rg, *_ = setup
     tsg = tpart.partition_graph(g, N, method=METHOD)
     for p, shard in enumerate(tsg.shards):
-        plan = thalo.HaloPlan(shard, N, "ragged", counts=(rg["send_sz"][p], rg["recv_sz"][p]))
+        plan = thalo.HaloPlan(shard, N, "ragged", counts=(rg["send_sz"][p], rg["recv_sz"][p]),
+                              device="cpu")
         s = int(rg["send_sz"][p].sum())
         np.testing.assert_array_equal(plan.pack.numpy(), rg["rows"][p, :s])
         assert plan.in_splits == rg["send_sz"][p].tolist()
@@ -160,7 +161,7 @@ def test_rank_plan_is_a_slice_of_the_ragged_plan(setup):
         rp = plan.row_ptr.numpy()
         assert rp[0] == 0 and rp[-1] == s and (np.diff(rp) >= 0).all()
         padded = thalo.HaloPlan(shard, N, "padded", counts=(rg["send_sz"][p],
-                                                            rg["recv_sz"][p]))
+                                                            rg["recv_sz"][p]), device="cpu")
         # JAX's plan over the padded send lists, less the pad slots
         # (slot >= the pair's count), which the port leaves out
         order, rows = build_recv_plan(np.asarray(shard.send_idx))
@@ -203,7 +204,7 @@ def test_no_run_of_the_backward_plan_is_longer_than_the_peers(setup, wire, p):
     plan), and the plan sums what `index_add_` over the live slots does."""
     g, sg, rg, *_ = setup
     shard = tpart.partition_graph(g, N, method=METHOD).shards[p]
-    plan = thalo.HaloPlan(shard, N, wire, counts=(rg["send_sz"][p], rg["recv_sz"][p]))
+    plan = thalo.HaloPlan(shard, N, wire, counts=(rg["send_sz"][p], rg["recv_sz"][p]), device="cpu")
     pack, order, rows = (t.numpy() for t in (plan.pack, plan.order, plan.rows))
     row_ptr = plan.row_ptr.numpy()
     assert np.diff(row_ptr).max() <= N - 1
@@ -229,9 +230,9 @@ def test_wrappers_refuse_other_devices_and_bad_wires():
     g = synthetic_graph(100, 4, 8, 3, seed=1)
     shard = tpart.partition_graph(g, 2).shards[0]
     with pytest.raises(ValueError, match="wire"):
-        thalo.HaloPlan(shard, 2, "exact", counts=(np.zeros(2), np.zeros(2)))
+        thalo.HaloPlan(shard, 2, "exact", counts=(np.zeros(2), np.zeros(2)), device="cpu")
     with pytest.raises(ValueError, match="peers"):
-        thalo.HaloPlan(shard, 3, "padded", counts=(np.zeros(3), np.zeros(3)))
+        thalo.HaloPlan(shard, 3, "padded", counts=(np.zeros(3), np.zeros(3)), device="cpu")
     assert thalo.make_halo_fn(None, True, multi=False) is None
 
 

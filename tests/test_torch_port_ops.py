@@ -122,7 +122,7 @@ def _ops(case, narrow):
     jop = jhyb.HybSpMM(src, dst, num_in, num_out, static_val=val, dynamic=False,
                        gather_dtype=jnp.bfloat16 if narrow else None, **kw)
     top = thyb.HybSpMM(src, dst, num_in, num_out, static_val=val,
-                       gather_dtype=torch.bfloat16 if narrow else None, **kw)
+                       gather_dtype=torch.bfloat16 if narrow else None, device="cpu", **kw)
     return jop, top, num_in, num_out
 
 
@@ -164,7 +164,7 @@ def test_hyb_mask_unit_and_dst_match_jax(case, narrow):
     jop = jhyb.HybSpMM(src, dst, num_in, num_out, dynamic=False,
                        gather_dtype=jnp.bfloat16 if narrow else None, **kw)
     top = thyb.HybSpMM(src, dst, num_in, num_out,
-                       gather_dtype=torch.bfloat16 if narrow else None, **kw)
+                       gather_dtype=torch.bfloat16 if narrow else None, device="cpu", **kw)
     assert not top.has_static_vals
     assert all("vals" not in b for b in top.fwd["buckets"] + top.bwd["buckets"])
     rng = np.random.default_rng(13)
@@ -201,13 +201,13 @@ def test_hyb_static_isolated_and_empty():
     src = np.array([0, 1, 2], np.int32)
     dst = np.array([1, 1, 3], np.int32)
     val = np.array([0.5, -1.0, 2.0], np.float32)
-    op = thyb.HybSpMM(src, dst, 5, 5, static_val=val, lam_slots=4)
+    op = thyb.HybSpMM(src, dst, 5, 5, static_val=val, lam_slots=4, device="cpu")
     out = op.apply_static(torch.eye(5)).numpy()
     want = np.zeros((5, 5), np.float32)
     np.add.at(want, dst, val[:, None] * np.eye(5, dtype=np.float32)[src])
     np.testing.assert_allclose(out, want, atol=1e-7)
     empty = thyb.HybSpMM(np.zeros(0, np.int32), np.zeros(0, np.int32), 4, 4,
-                         static_val=np.zeros(0, np.float32))
+                         static_val=np.zeros(0, np.float32), device="cpu")
     assert torch.count_nonzero(empty.apply_static(torch.eye(4))) == 0
 
 
@@ -248,16 +248,16 @@ def test_hybspmm_static_only_and_validates_edges():
     `apply` raises, as the JAX op's does; a mask op has no apply_static;
     edges are validated."""
     src, dst, val = _random_edges(10, 10, 30, seed=1)
-    op = thyb.HybSpMM(src, dst, 10, 10, static_val=val)
+    op = thyb.HybSpMM(src, dst, 10, 10, static_val=val, device="cpu")
     assert "e2s" not in op.fwd and all("s2e" not in b for b in op.fwd["buckets"])
     with pytest.raises(RuntimeError, match="dynamic=False"):
         op.apply(torch.zeros(10, 2), torch.tensor(val))
     with pytest.raises(RuntimeError, match="static values"):
-        thyb.HybSpMM(src, dst, 10, 10).apply_static(torch.zeros(10, 2))
+        thyb.HybSpMM(src, dst, 10, 10, device="cpu").apply_static(torch.zeros(10, 2))
     with pytest.raises(ValueError, match="dst-sorted"):
-        thyb.HybSpMM(src, dst[::-1].copy(), 10, 10, static_val=val)
+        thyb.HybSpMM(src, dst[::-1].copy(), 10, 10, static_val=val, device="cpu")
     with pytest.raises(ValueError, match="out of range"):
-        thyb.HybSpMM(src, dst, 5, 10, static_val=val)
+        thyb.HybSpMM(src, dst, 5, 10, static_val=val, device="cpu")
 
 
 def _logits_and_labels(seed=0, v=37, c=6):

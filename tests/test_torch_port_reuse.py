@@ -52,7 +52,7 @@ def test_reuse_op_matches_jax(community, passes, narrow):
     jop = jreuse.ReuseSpMM(src, dst, v, v, rank1_factor=f, passes=passes,
                            gather_dtype=jnp.bfloat16 if narrow else None)
     top = treuse.ReuseSpMM(src, dst, v, v, rank1_factor=f, passes=passes,
-                           gather_dtype=torch.bfloat16 if narrow else None)
+                           gather_dtype=torch.bfloat16 if narrow else None, device="cpu")
     levels = [len(p) for p in top.plan_fwd.levels]
     assert levels == [len(p) for p in jop.plan_fwd.levels]
     assert len(levels) == passes and min(levels) > 1000
@@ -82,7 +82,7 @@ def test_reuse_plans_index_the_pair_table(community):
     """The rewritten plans gather from h plus the appended pair rows: their
     n_src is the table size, and the backward is its own rewrite."""
     src, dst = community
-    op = treuse.ReuseSpMM(src, dst, 4000, 4000, passes=2)
+    op = treuse.ReuseSpMM(src, dst, 4000, 4000, passes=2, device="cpu")
     assert op.fwd["n_src"] == op.plan_fwd.table_size > 4000
     assert op.bwd["n_src"] == op.plan_bwd.table_size > 4000
     assert op.plan_fwd.stats["row_reduction"] > 0.25
@@ -100,7 +100,7 @@ def test_reuse_plans_index_the_pair_table(community):
 
 def test_pair_kernel_path_raises_off_cuda(community):
     src, dst = community
-    op = treuse.ReuseSpMM(src, dst, 4000, 4000)
+    op = treuse.ReuseSpMM(src, dst, 4000, 4000, device="cpu")
     tbl = torch.zeros((op.fwd_table_size, 4))
     with pytest.raises(ValueError, match="CUDA tensor"):
         treuse._launch_level(tbl, op.lvl_fwd[0], 4000)

@@ -94,7 +94,7 @@ def test_sharded_reuse_op_matches_jax(graph, sharded, passes, narrow):
         np.testing.assert_array_equal(np.sqrt(shard.self_val), jf_out)
         top = ShardedReuseSpMM(
             shard, n, rank1_factor=np.concatenate([np.sqrt(shard.self_val), jf_in[vp:]]),
-            gather_dtype=tgd, passes=passes)
+            gather_dtype=tgd, passes=passes, device="cpu")
         assert (top.num_in, top.num_out) == (vp + n * mh, vp)
         # both packages mined the same rewrite, array for array
         for mine, theirs in ((top.plan_fwd, jop.plan_fwd[s]), (top.plan_bwd, jop.plan_bwd[s])):
@@ -148,7 +148,7 @@ def test_nonsquare_reuse_op_is_the_dense_product():
     src, dst = src[order], dst[order]
     f_in = rng.uniform(0.5, 1.5, size=num_in).astype(np.float32)
     f_out = rng.uniform(0.5, 1.5, size=num_out).astype(np.float32)
-    op = ReuseSpMM(src, dst, num_in, num_out, rank1_factor=(f_in, f_out), passes=2)
+    op = ReuseSpMM(src, dst, num_in, num_out, rank1_factor=(f_in, f_out), passes=2, device="cpu")
     assert op.plan_fwd.num_pairs > 0 and op.plan_bwd.num_pairs > 0
     assert op.plan_fwd.num_vertices == num_in and op.plan_bwd.num_vertices == num_out
     assert min(int(p.min()) for p in op.plan_fwd.levels) >= 0
@@ -166,16 +166,17 @@ def test_nonsquare_reuse_op_is_the_dense_product():
     with pytest.raises(ValueError, match="mined over 90"):
         op.apply_unit(t32(h[:80]))
     with pytest.raises(ValueError, match="rank1_factor"):
-        ReuseSpMM(src, dst, num_in, num_out, rank1_factor=f_in)
+        ReuseSpMM(src, dst, num_in, num_out, rank1_factor=f_in, device="cpu")
 
 
 def test_sharded_reuse_refusals(sharded):
     shard = sharded.shards[0]
     with pytest.raises(ValueError, match="local then .* ghost rows"):
-        ShardedReuseSpMM(shard, 4, rank1_factor=np.sqrt(shard.self_val))  # local rows only
+        # local rows only
+        ShardedReuseSpMM(shard, 4, rank1_factor=np.sqrt(shard.self_val), device="cpu")
     with pytest.raises(ValueError, match="rank1_factor"):
-        ShardedReuseSpMM(shard, 4, rank1_factor=np.ones(3, np.float32))
-    op = ShardedReuseSpMM(shard, 4)  # GAT: no factor, no exchange
+        ShardedReuseSpMM(shard, 4, rank1_factor=np.ones(3, np.float32), device="cpu")
+    op = ShardedReuseSpMM(shard, 4, device="cpu")  # GAT: no factor, no exchange
     assert op.f_in is None and not op.has_static_vals
     with pytest.raises(RuntimeError, match="without rank1_factor"):
         op.apply_static(torch.zeros((op.num_in, 2)))

@@ -94,7 +94,7 @@ def test_sharded_op_matches_jax(shards, edges, narrow):
     saw_top = saw_pure = False
     for s in range(n):
         top = ShardedHybSpMM(sg.shards[s], n, gather_dtype=torch.bfloat16 if narrow else None,
-                             **kw)
+                             device="cpu", **kw)
         saw_top |= top.fwd["top"] is not None
         saw_pure |= top.n_pure > 0
         ja = jax.tree.map(lambda v: v[s], jop.arrays)
@@ -151,7 +151,7 @@ def test_fused_classification_is_jaxs(shards):
     n, vp = sg.n_shards, sg.vp
     for shard in sg.shards:
         op = ShardedHybSpMM(shard, n, edges="fused", static_vals=static, max_width=16,
-                            lam_slots=8)
+                            lam_slots=8, device="cpu")
         e = shard.num_edges
         src, dst = np.asarray(shard.src[:e]), np.asarray(shard.dst[:e])
         deg = np.bincount(dst, minlength=vp)
@@ -178,13 +178,13 @@ def test_sharded_op_refusals():
     sg = tpart.partition_graph(g, 2)
     shard = sg.shards[0]
     with pytest.raises(ValueError, match="edges='split'"):
-        ShardedHybSpMM(shard, 2, edges="split")
-    inter = ShardedHybSpMM(shard, 2, edges="interior")
+        ShardedHybSpMM(shard, 2, edges="split", device="cpu")
+    inter = ShardedHybSpMM(shard, 2, edges="interior", device="cpu")
     assert (inter.num_in, inter.num_out) == (sg.vp, sg.vp)
     with pytest.raises(RuntimeError, match="edges='interior'"):
         inter.apply_unit_fused(torch.zeros((sg.vp, 3)), torch.zeros((2 * sg.max_h, 3)))
-    comb = ShardedHybSpMM(shard, 2, edges="combined", static_vals=False)
-    fused = ShardedHybSpMM(shard, 2, edges="fused", static_vals=False)
+    comb = ShardedHybSpMM(shard, 2, edges="combined", static_vals=False, device="cpu")
+    fused = ShardedHybSpMM(shard, 2, edges="fused", static_vals=False, device="cpu")
     h, gh = torch.zeros((sg.vp, 3)), torch.zeros((2 * sg.max_h, 3))
     with pytest.raises(RuntimeError, match="edges='combined'"):
         comb.apply_unit_fused(h, gh)
@@ -196,7 +196,7 @@ def test_sharded_op_refusals():
         fused.apply_static_fused(h, gh)
     bad = dataclasses.replace(shard, dst=shard.dst[::-1].copy())
     with pytest.raises(ValueError, match="dst-sorted"):
-        ShardedHybSpMM(bad, 2)
+        ShardedHybSpMM(bad, 2, device="cpu")
 
 
 # ---- the sharded engine ----
@@ -304,15 +304,53 @@ def test_sharded_profile_is_refused():
         ShardedEngine(g, LayerConfig([12, 8, 5]), TrainConfig(kernel="hyb"), device="cpu")
 
 
-@pytest.mark.parametrize("make", [TEngine, ShardedEngine], ids=["Engine", "ShardedEngine"])
+def _op_makers():
+    """Each entry point that places its tensors on a device: the engines and
+    every op constructor, on a 120-vertex graph and rank 0 of its 2-way
+    partition. make(device=...) builds it; no argument means the card."""
+    from dorylus_tpu_torch.ops.degree_sharded import ShardedDegreeSpMM
+    from dorylus_tpu_torch.ops.degree_spmm import DegreeSpMM
+    from dorylus_tpu_torch.ops.hyb_spmm import HybSpMM
+    from dorylus_tpu_torch.ops.reuse_sharded import ShardedReuseSpMM
+    from dorylus_tpu_torch.ops.reuse_spmm import ReuseSpMM
+    from dorylus_tpu_torch.ops.spmm import EdgeSpMM
+    from dorylus_tpu_torch.parallel.halo import HaloPlan, ghost_counts
+
+    g = synthetic_graph(120, 4, 16, 5, seed=1)
+    sg = tpart.partition_graph(g, 2)
+    shard = sg.shards[0]
+    recv = [ghost_counts(s, 2, sg.vp, sg.max_h) for s in sg.shards]
+    counts = (np.array([recv[q][0] for q in range(2)]), recv[0])
+    v, cfg = g.num_vertices, TrainConfig(kernel="hyb", reuse="off")
+    return {
+        "Engine": lambda **kw: TEngine(g, LayerConfig(DIMS), cfg, **kw),
+        "ShardedEngine": lambda **kw: ShardedEngine(g, LayerConfig(DIMS), cfg, **kw),
+        "HybSpMM": lambda **kw: HybSpMM(g.src, g.dst, v, v, static_val=g.edge_norm, **kw),
+        "DegreeSpMM": lambda **kw: DegreeSpMM(g.src, g.dst, v, v, **kw),
+        "ReuseSpMM": lambda **kw: ReuseSpMM(g.src, g.dst, v, v, **kw),
+        "EdgeSpMM": lambda **kw: EdgeSpMM(g.src, g.dst, v, v, **kw),
+        "ShardedHybSpMM": lambda **kw: ShardedHybSpMM(shard, 2, edges="fused", **kw),
+        "ShardedDegreeSpMM": lambda **kw: ShardedDegreeSpMM(shard, 2, **kw),
+        "ShardedReuseSpMM": lambda **kw: ShardedReuseSpMM(shard, 2, **kw),
+        "HaloPlan": lambda **kw: HaloPlan(shard, 2, "ragged", counts=counts, **kw),
+    }
+
+
+_ENTRY_POINTS = ["Engine", "ShardedEngine", "HybSpMM", "DegreeSpMM", "ReuseSpMM", "EdgeSpMM",
+                 "ShardedHybSpMM", "ShardedDegreeSpMM", "ShardedReuseSpMM", "HaloPlan"]
+
+
+@pytest.mark.parametrize("make", _ENTRY_POINTS)
 def test_device_none_means_the_card(make):
-    """device=None is the card: without one the engines raise instead of
-    carrying on on the CPU."""
+    """device=None is the card: without one the engines and every op
+    constructor raise instead of carrying on on the CPU; device="cpu"
+    builds on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a card is visible: device=None runs on it")
-    g = synthetic_graph(120, 4, 16, 5, seed=1)
+    build = _op_makers()[make]
     with pytest.raises(RuntimeError, match="device=\"cpu\""):
-        make(g, LayerConfig(DIMS), TrainConfig(kernel="hyb", reuse="off"))
+        build()
+    assert build(device="cpu").device == torch.device("cpu")
 
 
 def test_split_op_pair_is_refused():
@@ -325,11 +363,11 @@ def test_split_op_pair_is_refused():
 
     g = synthetic_graph(120, 4, 16, 5, seed=1)
     shard = tpart.partition_graph(g, 2).shards[0]
-    comb = ShardedHybSpMM(shard, 2, edges="combined")
-    static = ShardedHybSpMM(shard, 2, edges="interior", static_vals=True)
-    fused = ShardedHybSpMM(shard, 2, edges="fused")
-    other = ShardedHybSpMM(tpart.partition_graph(g, 3).shards[0], 3, edges="boundary")
-    eop = EdgeSpMM(shard.src[:0], shard.dst[:0], 8, 8)
+    comb = ShardedHybSpMM(shard, 2, edges="combined", device="cpu")
+    static = ShardedHybSpMM(shard, 2, edges="interior", static_vals=True, device="cpu")
+    fused = ShardedHybSpMM(shard, 2, edges="fused", device="cpu")
+    other = ShardedHybSpMM(tpart.partition_graph(g, 3).shards[0], 3, edges="boundary", device="cpu")
+    eop = EdgeSpMM(shard.src[:0], shard.dst[:0], 8, 8, device="cpu")
     for model in (GCN, GAT):
         for bad in ((comb, comb, comb), comb, (fused, fused), (comb, static), (comb, other)):
             with pytest.raises(ValueError, match="spmm_split"):

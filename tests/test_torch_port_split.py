@@ -68,7 +68,8 @@ def test_sharded_hyb_split_plans_match_jax(shards, edges, narrow):
     rows = vp if edges == "interior" else n * mh
     rng = np.random.default_rng(4)
     for s, shard in enumerate(sg.shards):
-        top = ShardedHybSpMM(shard, n, gather_dtype=torch.bfloat16 if narrow else None, **kw)
+        top = ShardedHybSpMM(shard, n, gather_dtype=torch.bfloat16 if narrow else None,
+                             device="cpu", **kw)
         assert (top.num_in, top.num_out, top.fused) == (rows, vp, False)
         ja = jax.tree.map(lambda v: v[s], jop.arrays)
         table = rng.normal(size=(rows, 6)).astype(np.float32)
@@ -125,9 +126,9 @@ def test_models_op_pair_is_the_combined_op(model_cls, static_vals):
     static values GCN feeds `val_int` / `val_bnd` through `apply`."""
     sg, shard, n, ghosts_of, table_of = _model_setup(model_cls, static_vals)
     layers = LayerConfig(DIMS)
-    pair = tuple(ShardedDegreeSpMM(shard, n, edges=e, static_vals=static_vals)
+    pair = tuple(ShardedDegreeSpMM(shard, n, edges=e, static_vals=static_vals, device="cpu")
                  for e in ("interior", "boundary"))
-    comb = ShardedDegreeSpMM(shard, n, static_vals=static_vals)
+    comb = ShardedDegreeSpMM(shard, n, static_vals=static_vals, device="cpu")
     needs_values = model_cls is GCN and not static_vals
     b_pair = shard_batch(shard, sg.denom, torch.device("cpu"), edge_arrays=False,
                          split="edges" if needs_values else "stubs")
@@ -144,9 +145,10 @@ def test_models_edgewise_split_is_the_combined_edgewise_path(model_cls):
     sg, shard, n, ghosts_of, table_of = _model_setup(model_cls, False)
     layers = LayerConfig(DIMS)
     cpu = torch.device("cpu")
-    eops = tuple(EdgeSpMM(*shard_edges(shard, e)[:2], rows, sg.vp)
+    eops = tuple(EdgeSpMM(*shard_edges(shard, e)[:2], rows, sg.vp, device=cpu)
                  for e, rows in (("interior", sg.vp), ("boundary", n * sg.max_h)))
-    eop = EdgeSpMM(*shard_edges(shard, "combined")[:2], sg.vp + n * sg.max_h, sg.vp)
+    eop = EdgeSpMM(*shard_edges(shard, "combined")[:2], sg.vp + n * sg.max_h, sg.vp,
+                   device=cpu)
     b_split = shard_batch(shard, sg.denom, cpu, edge_arrays=False, split="edges")
     b_comb = shard_batch(shard, sg.denom, cpu, edge_arrays=True)
     l_split, g_split = _grads(model_cls(layers, edge_split=eops), b_split, ghosts_of)
