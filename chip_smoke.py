@@ -23,12 +23,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
      segment-sum); K3 and K4 (the gather core's CSR team) with their pass ms
      and, apart, their kernel's device ms; then every kernel refuses
      float16 and float64 and counts no launch;
-  3d. K7 (dynamic values, fused SDDMM) vs its plain version at the Reddit
-     shape (F=128 and 41, f32 and bf16: forward, dh and dval, times of
-     both), then on the power-law hub graph;
-  3e. the degree pass on degree plans (K1 static, K2 unit/dst, K7 dynamic)
-     vs the plain degree pass at the Reddit shape (times of both), then on
-     a power-law graph with isolated rows and rows of > 1,000 edges;
+  3d. K7 (dynamic values; the gather core's dynamic team, one launch a
+     pass) vs its plain version at the Reddit shape (F=128 and 41, f32 and
+     bf16): the forward and the fused dh + dval through autograd, and dh
+     alone, one launch each; times of the three passes and their plain
+     versions, the kernel-only ms apart from the pass ms, bounds, and the
+     PyTorch calls of the same functions (`sparse.mm` with the call's values,
+     of the transposed CSR for dh, plus `sampled_addmm` for the fused pass);
+     then on the power-law hub graph;
+  3e. the degree pass on degree plans (K1 static, K2 unit/dst, K7 dynamic:
+     forward, dh + dval and dh alone) vs the plain degree pass at the Reddit
+     shape (times of both, K7's kernel-only ms apart), then on a power-law
+     graph with isolated rows and rows of > 1,000 edges;
   3f. K6 (the pair-table build) vs plain, exactly, on the mined
      Reddit-scale community graph (COMMUNITY below): the passes=2
      levels and the engine's passes=1 forward and backward levels (its pair
@@ -92,9 +98,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
      (bf16 pair rows round once, not twice);
   4f. main path, dynamic values: the Reddit-config GCN on ops without
      static values (a dynamic HybSpMM, then a DegreeSpMM), bf16, 3 Adam
-     steps through the model's `apply(h, edge_val)` branch; K7 launches
-     > 0, losses finite and falling, and equal to the static-value path's
-     to rtol 1e-4 (both round each weight and product to bf16);
+     steps through the model's `apply(h, edge_val)` branch: K7 launches 4 a
+     step (one a pass: two forwards, two dh alone); then the same with the
+     edge values requiring a gradient, whose backward is K7's fused dh +
+     dval (two forwards, two fused passes a step); losses finite and
+     falling, and equal to the static-value path's to rtol 1e-4 (both round
+     each weight and product to bf16);
   5. a planted 2,000-vertex graph, GCN on hyb, 10 epochs on the card and on
      the CPU (f32 aggregation): loss trajectories agree to atol 1e-3;
   5b. the same graph for GAT on hyb and for the default config (kernel
@@ -131,15 +140,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
      reuse="pairs": rtol 1e-5;
   6c. only where torch.cuda.device_count() >= 2: phase 6's GCN over NCCL,
      one rank per card; else one line says the NCCL path was not run.
-K1, K2 and K8 (and the degree passes on K1) are one launch a pass over
-every part of their plan (the gather core, csrc/gather_pass.cuh); their
+K1, K2, K7 and K8 (and the degree passes on K1/K7) are one launch a pass
+over every part of their plan (the gather core, csrc/gather_pass.cuh); their
 timed rows carry the pass ms (CUDA events: the table's cast, the
 zero-filled output and the launch) and, apart, the kernel's own device ms
 and the rest's (torch.profiler, `*_kernel_ms` / `*_other_ms`).
 Each main path runs with every launch count set to 0 just before it and
 read just after (in each rank, for the sharded engine). Then one JSON line
 with the kernels' numbers (K1-K10, K3's dh alone and fused with K4's value
-gradient, K7's fused backward, the fused plan's
+gradient, K7's dh alone and fused with its value gradient, the fused plan's
 backward, the degree, reuse, sharded-degree and sharded-reuse passes, which
 run on K1/K2/K7 and K6 + K2, and the probes P1-P4): beside each kernel's time
 its plain version's, its bound (the bytes it must move over 3.35 TB/s, or
@@ -172,8 +181,8 @@ REDDIT = dict(v=232_965, deg=50, feat=602, classes=41)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # The largest max abs error each kernel showed in any comparison.
 MAX_ERR = {k: 0.0 for k in ("K1", "K2", "K3", "K3_dh", "K3_dh_dval", "K4", "K5", "K6", "K7",
-                            "K8", "K9", "K10", "degree", "reuse", "degree_sharded",
-                            "reuse_sharded")}
+                            "K7_dh", "K7_dh_dval", "K8", "K9", "K10", "degree", "reuse",
+                            "degree_sharded", "reuse_sharded")}
 # The community graph the JAX package's bench measures pair reuse on.
 COMMUNITY = dict(comm=400, core=60, p_core=0.85, seed=0)
 # The card's published peaks (H100 SXM): device memory rate, and f32 outside
@@ -246,6 +255,36 @@ def dyn_bwd_bound(op, f: int, elt: int, val: torch.Tensor) -> dict:
     live = live_slots(op.bwd)
     return bound((op.num_out + op.num_in) * f * elt + live * 8 + 2 * nbytes(val)
                  + op.num_in * f * 4, 4.0 * live * f)
+
+
+def dyn_dh_bound(op, f: int, elt: int, val: torch.Tensor) -> dict:
+    """Bound of K7's dh alone: the table (gout) once, a row index and an edge
+    id per live slot of the transposed plan, each value once, the f32 dh."""
+    return pass_bound(op.num_out, f, elt, live_slots(op.bwd), op.num_in, 8,
+                      extra_bytes=nbytes(val))
+
+
+def dyn_library(res: dict, csr: dict, val: torch.Tensor, shape, h: torch.Tensor,
+                gout: torch.Tensor, dt: torch.dtype) -> None:
+    """K7's yardsticks, each row's `library_ms` (and `library_f32_ms`):
+    the forward's `sparse.mm` of the dst CSR with the call's values; dh's
+    (`dh`) of the transposed CSR (values val[order]) with gout; the fused
+    pass's (`bwd`) that `sparse.mm` plus `sampled_addmm` of the dst pattern
+    (dval[e] = <gout[dst e], h[src e]>), summed, in f32."""
+    spmm_library(res, csr, val, shape, h, dt)
+    tcsr = {"row_ptr": csr["t_row_ptr"], "col": csr["t_col"]}
+    spmm_library(res["dh"], tcsr, val[csr["order"]], shape[::-1], gout, dt)
+    dh32 = res["dh"].get("library_f32_ms", res["dh"].get("library_ms"))
+    pattern = torch.sparse_csr_tensor(csr["row_ptr"], csr["col"], torch.ones_like(val),
+                                      size=shape)
+    g32, ht = gout.float(), h.float().t()
+    sddmm = library_ms(lambda: torch.sparse.sampled_addmm(pattern, g32, ht, beta=0.0),
+                       "torch.sparse.sampled_addmm float32")
+    del pattern, g32, ht
+    both = None if sddmm is None or dh32 is None else dh32 + sddmm
+    res["bwd"].update({"library_ms": both if dt == torch.float32 else None,
+                       "library_f32_ms": both,
+                       "library_calls": "torch.sparse.mm + torch.sparse.sampled_addmm"})
 
 
 def kernel_split(res: dict, key: str, plan: dict, fn, iters: int = 20) -> None:
@@ -515,9 +554,12 @@ def compare_edge(name: str, eop, src, dst, val, f: int, dtype: str, seed: int,
 
 def compare_dyn(name: str, op, f: int, seed: int, timed: bool,
                 csr: dict | None = None) -> dict:
-    """K7: op.apply (forward, dh, dval through its backward) vs
-    hyb_dynamic_pass_plain on the same CUDA tensors; val is random per
-    edge."""
+    """K7: op.apply (forward, then dh and dval in its backward's one fused
+    pass) and the dh pass alone vs hyb_dynamic_pass_plain on the same CUDA
+    tensors; val is random per edge. Timed: each pass's ms (CUDA events:
+    the table's layout, the zero-filled output, the launch and, for the
+    fused pass, the gather into edge order) and, apart, its kernel's device
+    ms (`*_kernel_ms`), bounds and library calls."""
     from dorylus_tpu_torch.ops.hyb_spmm import hyb_dynamic_pass, hyb_dynamic_pass_plain
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -527,31 +569,45 @@ def compare_dyn(name: str, op, f: int, seed: int, timed: bool,
     gd = op.gather_dtype
     hk = h.clone().requires_grad_(True)
     vk = val.clone().requires_grad_(True)
+    before = launch_counts()
     out = op.apply(hk, vk)
     out.backward(gout)
+    dh_alone = hyb_dynamic_pass(gout, op.bwd, op.num_in, val, gd)
+    torch.cuda.synchronize()
     dtype = "bfloat16" if gd is torch.bfloat16 else "float32"
     res = {"case": name, "kernel": "K7", "F": f, "dtype": dtype, "tol_rel": TOL[dtype]}
+    ran = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+    check(ran == {"K7": 1, "K7_dh": 1, "K7_dh_dval": 1},
+          f"{name} F={f} {dtype}: K7 launched {ran}, want one forward, one fused pass and "
+          f"one dh alone")
     close(res, "K7", "fwd", out.detach(),
           hyb_dynamic_pass_plain(h, op.fwd, op.num_out, val, gd), dtype)
     del out
     ref_dh, ref_dval = hyb_dynamic_pass_plain(gout, op.bwd, op.num_in, val, gd, other=h)
-    close(res, "K7", "dh", hk.grad, ref_dh[: h.shape[0]], dtype)
-    close(res, "K7", "dval", vk.grad, ref_dval, dtype)
-    del ref_dh, ref_dval, hk, vk
+    close(res, "K7_dh_dval", "dh", hk.grad, ref_dh[: h.shape[0]], dtype)
+    close(res, "K7_dh_dval", "dval", vk.grad, ref_dval, dtype)
+    close(res, "K7_dh", "dh_alone", dh_alone, ref_dh, dtype)
+    del ref_dh, ref_dval, hk, vk, dh_alone
     if timed:
-        res["fwd_ms"] = cuda_ms(lambda: hyb_dynamic_pass(h, op.fwd, op.num_out, val, gd), 20)
-        res["fwd_plain_ms"] = cuda_ms(
-            lambda: hyb_dynamic_pass_plain(h, op.fwd, op.num_out, val, gd), 3)
-        res["bwd_ms"] = cuda_ms(
-            lambda: hyb_dynamic_pass(gout, op.bwd, op.num_in, val, gd, other=h), 20)
-        res["bwd_plain_ms"] = cuda_ms(
-            lambda: hyb_dynamic_pass_plain(gout, op.bwd, op.num_in, val, gd, other=h), 3)
-        # forward: a row index and an edge id per live slot, each value once
+        for key, plan, kern, plain in (
+            ("fwd", op.fwd, lambda: hyb_dynamic_pass(h, op.fwd, op.num_out, val, gd),
+             lambda: hyb_dynamic_pass_plain(h, op.fwd, op.num_out, val, gd)),
+            ("dh", op.bwd, lambda: hyb_dynamic_pass(gout, op.bwd, op.num_in, val, gd),
+             lambda: hyb_dynamic_pass_plain(gout, op.bwd, op.num_in, val, gd)),
+            ("bwd", op.bwd, lambda: hyb_dynamic_pass(gout, op.bwd, op.num_in, val, gd, other=h),
+             lambda: hyb_dynamic_pass_plain(gout, op.bwd, op.num_in, val, gd, other=h)),
+        ):
+            res[f"{key}_ms"] = cuda_ms(kern, 20)
+            kernel_split(res, key, plan, kern)
+            res[f"{key}_plain_ms"] = cuda_ms(plain, 3)
+        # forward: a row index per live slot and each value once (K3's
+        # row_ptr, src and val); the backward's bounds add the permutation
         elt = 2 if gd is torch.bfloat16 else 4
-        res.update(pass_bound(op.num_in, f, elt, live_slots(op.fwd), op.num_out, 8,
+        res.update(pass_bound(op.num_in, f, elt, live_slots(op.fwd), op.num_out, 4,
                               extra_bytes=nbytes(val)))
+        res["dh"] = dyn_dh_bound(op, f, elt, val)
         res["bwd"] = dyn_bwd_bound(op, f, elt, val)
-        spmm_library(res, csr, val, (op.num_out, op.num_in), h, DTYPES[dtype])
+        dyn_library(res, csr, val, (op.num_out, op.num_in), h, gout, DTYPES[dtype])
     print("compare " + json.dumps(res), flush=True)
     torch.cuda.empty_cache()
     return res
@@ -560,7 +616,7 @@ def compare_dyn(name: str, op, f: int, seed: int, timed: bool,
 def compare_degree(name: str, op, f: int, seed: int, timed: bool,
                    csr: dict | None = None, key: str = "degree") -> dict:
     """The degree pass on degree plans: K1 (apply_static), K2 (apply_dst:
-    forward, dh, d_dst) and K7 (apply: forward, dh, dval) vs
+    forward, dh, d_dst) and K7 (apply: forward, dh, dval; and dh alone) vs
     degree_pass_plain and the torch row scale / row-dot around it. key: the
     MAX_ERR entry ("degree_sharded" for a rank's plans, whose csr names the
     table rows the plan's edges read, `src_rows`)."""
@@ -607,28 +663,32 @@ def compare_degree(name: str, op, f: int, seed: int, timed: bool,
     ref_dh, ref_dval = plain(gout, op.bwd, op.num_in, "dynamic", other=h)
     close(res, key, "dyn_dh", hy.grad, ref_dh[:n], dtype)
     close(res, key, "dyn_dval", vy.grad, ref_dval, dtype)
+    close(res, key, "dyn_dh_alone", degree_pass(gout, op.bwd, op.num_in, gd, "dynamic", val),
+          ref_dh, dtype)
     del ref_dh, ref_dval, hy, vy
     if timed:
         for key, mode, iters in (("static", "static", 20), ("mask", "mask", 20),
                                  ("dyn", "dynamic", 20)):
             res[f"{key}_fwd_ms"] = cuda_ms(
                 lambda: degree_pass(h, op.fwd, op.num_out, gd, mode, val), iters)
-            if mode == "static":
-                kernel_split(res, "static_fwd", op.fwd,
+            if mode != "mask":
+                kernel_split(res, f"{key}_fwd", op.fwd,
                              lambda: degree_pass(h, op.fwd, op.num_out, gd, mode, val))
             res[f"{key}_fwd_plain_ms"] = cuda_ms(
                 lambda: plain(h, op.fwd, op.num_out, mode), 3)
-        res["static_bwd_ms"] = cuda_ms(
-            lambda: degree_pass(gout, op.bwd, op.num_in, gd, "static"), 20)
-        res["static_bwd_plain_ms"] = cuda_ms(
-            lambda: plain(gout, op.bwd, op.num_in, "static"), 3)
-        res["dyn_bwd_ms"] = cuda_ms(
-            lambda: degree_pass(gout, op.bwd, op.num_in, gd, "dynamic", val, h), 20)
-        res["dyn_bwd_plain_ms"] = cuda_ms(
-            lambda: plain(gout, op.bwd, op.num_in, "dynamic", h), 3)
+        for key, mode, other in (("static_bwd", "static", None), ("dyn_dh", "dynamic", None),
+                                 ("dyn_bwd", "dynamic", h)):
+            def kern():
+                return degree_pass(gout, op.bwd, op.num_in, gd, mode, val, other)
+            res[f"{key}_ms"] = cuda_ms(kern, 20)
+            if mode == "dynamic":
+                kernel_split(res, key, op.bwd, kern)
+            res[f"{key}_plain_ms"] = cuda_ms(
+                lambda: plain(gout, op.bwd, op.num_in, mode, other), 3)
         elt = 2 if gd is torch.bfloat16 else 4
         res.update(pass_bound(csr.get("src_rows", op.num_in), f, elt, live_slots(op.fwd),
                               op.num_out, 4 + elt))
+        res["dh"] = dyn_dh_bound(op, f, elt, val)
         res["bwd"] = dyn_bwd_bound(op, f, elt, val)
         spmm_library(res, csr, csr["norm"], (op.num_out, op.num_in), h, DTYPES[dtype])
     print("compare " + json.dumps(res), flush=True)
@@ -771,7 +831,6 @@ def refuses_bad_input(op, eop, rop, fop) -> None:
     from dorylus_tpu_torch.ops import hyb_sharded, hyb_spmm, reuse_spmm, spmm
     from dorylus_tpu_torch.parallel import halo
 
-    part = op.fwd["buckets"][0]
     out = torch.zeros((op.num_out, 8), device="cuda")
     e = eop.num_edges
     col = eop.t_col
@@ -795,8 +854,8 @@ def refuses_bad_input(op, eop, rop, fop) -> None:
             "K6": lambda: reuse_spmm._launch_level(
                 torch.zeros((rop.fwd_table_size, 8), dtype=bad, device="cuda"),
                 rop.lvl_fwd[0], rop.num_in),
-            "K7": lambda: hyb_spmm._launch_dyn_part(
-                tb, part, torch.ones(op.fwd["n_edges"], device="cuda"), out),
+            "K7": lambda: hyb_spmm._launch_dyn_pass(
+                tb, op.fwd, torch.ones(op.fwd["n_edges"], device="cuda"), out),
             "K8": lambda: hyb_sharded._launch_fused_pass(
                 torch.zeros((fop.vp, 8), dtype=bad, device="cuda"),
                 torch.zeros((fop.table - fop.vp, 8), dtype=bad, device="cuda"),
@@ -824,7 +883,8 @@ def launch_counts() -> dict:
             "K3": spmm.SPMM_LAUNCHES, "K3_dh": spmm.SPMM_T_LAUNCHES,
             "K3_dh_dval": spmm.SPMM_DVAL_LAUNCHES, "K4": spmm.SDDMM_LAUNCHES,
             "K5": spmm.SEGSUM_LAUNCHES, "K6": reuse_spmm.PAIR_LAUNCHES,
-            "K7": hyb_spmm.DYN_LAUNCHES, "K8": hyb_sharded.FUSED_LAUNCHES,
+            "K7": hyb_spmm.DYN_LAUNCHES, "K7_dh": hyb_spmm.DYN_T_LAUNCHES,
+            "K7_dh_dval": hyb_spmm.DYN_DVAL_LAUNCHES, "K8": hyb_sharded.FUSED_LAUNCHES,
             "K9": halo.PACK_LAUNCHES, "K10": halo.HALO_BWD_LAUNCHES,
             "degree": degree_spmm.DEGREE_LAUNCHES}
 
@@ -834,6 +894,7 @@ def reset_counts() -> None:
     from dorylus_tpu_torch.parallel import halo
 
     hyb_spmm.KERNEL_LAUNCHES = hyb_spmm.MASK_LAUNCHES = hyb_spmm.DYN_LAUNCHES = 0
+    hyb_spmm.DYN_T_LAUNCHES = hyb_spmm.DYN_DVAL_LAUNCHES = 0
     spmm.SPMM_LAUNCHES = spmm.SPMM_T_LAUNCHES = spmm.SPMM_DVAL_LAUNCHES = 0
     spmm.SDDMM_LAUNCHES = spmm.SEGSUM_LAUNCHES = 0
     reuse_spmm.PAIR_LAUNCHES = degree_spmm.DEGREE_LAUNCHES = 0
@@ -1638,6 +1699,12 @@ def main() -> None:
     csr = csr_pattern(g.src, g.dst, v)
     csr["norm"] = torch.tensor(g.edge_norm, device="cuda")
     csr["ones"] = torch.ones_like(csr["norm"])
+    # the transposed CSR, K7's dh yardstick: src-sorted edges, values val[order]
+    order = np.argsort(g.src, kind="stable")
+    tcsr = csr_pattern(g.dst[order], g.src[order], v)
+    csr.update(t_row_ptr=tcsr["row_ptr"], t_col=tcsr["col"],
+               order=torch.as_tensor(order, device="cuda"))
+    del tcsr
     results = []
     for gd in (torch.bfloat16, None):
         t0 = time.perf_counter()
@@ -2001,9 +2068,12 @@ def main() -> None:
         check(gap <= 1e-2, f"community {model}: reuse and off differ by {gap:.3e} > 1e-2")
         reuse_times[model] = {k: r for k, (_, r) in runs.items()}
 
-    # 4f. main path, dynamic values: GCN on ops without static values
+    # 4f. main path, dynamic values: GCN on ops without static values, then
+    # the same with the edge values requiring a gradient (a model that learns
+    # its edge weights): its backward takes K7's fused dh + dval pass
     batch = build_batch(g, "cuda")  # with the COO arrays: apply reads edge_val
-    dyn_counts = 0
+    learned = batch._replace(edge_val=batch.edge_val.clone().requires_grad_(True))
+    dyn_counts = {"K7": 0, "K7_dh": 0, "K7_dh_dval": 0}
     dyn_times = {}
     static_l = None
     for kind_, make in (("hyb-static", lambda: HybSpMM(g.src, g.dst, v, v,
@@ -2017,24 +2087,34 @@ def main() -> None:
                                                               gather_dtype=torch.bfloat16,
                                                               device="cuda"))):
         op = make()
-        reset_counts()
-        losses, step_ms, counts, per_step = gcn_steps(layers, op, batch, steps=3)
-        print(f"reddit-config GCN, {kind_} op: losses {json.dumps(losses)} train step "
-              f"{step_ms:.3f} ms, launches per train step {json.dumps(per_step)}", flush=True)
-        dyn_times[kind_] = {"step_ms": step_ms, "launches_per_step": per_step}
-        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
-              f"{kind_}: losses {losses} not finite and falling")
-        if kind_ == "hyb-static":
-            static_l = np.array(losses)
-        else:
-            check(counts["K7"] > 0, f"{kind_}: the main path launched no K7")
-            dyn_counts += counts["K7"]
+        for vals, b in (("", batch), (" learned values", learned)):
+            if kind_ == "hyb-static" and vals:
+                continue
+            label = kind_ + vals
+            reset_counts()
+            losses, step_ms, counts, per_step = gcn_steps(layers, op, b, steps=3)
+            print(f"reddit-config GCN, {label} op: losses {json.dumps(losses)} train step "
+                  f"{step_ms:.3f} ms, launches per train step {json.dumps(per_step)}",
+                  flush=True)
+            dyn_times[label] = {"step_ms": step_ms, "launches_per_step": per_step}
+            check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                  f"{label}: losses {losses} not finite and falling")
+            if kind_ == "hyb-static":
+                static_l = np.array(losses)
+                continue
+            # one launch a dynamic pass: two forwards and two backward passes a step
+            want = ({"K7": 2, "K7_dh_dval": 2} if vals else {"K7": 2, "K7_dh": 2})
+            got = {k: per_step.get(k, 0) for k in dyn_counts}
+            check(got == {k: want.get(k, 0) for k in dyn_counts},
+                  f"{label}: K7 launches a step {got}, want {want}")
+            for k in dyn_counts:
+                dyn_counts[k] += counts[k]
             gap = float(np.max(np.abs(np.array(losses) - static_l) / np.abs(static_l)))
-            print(f"  {kind_} vs hyb-static max relative loss gap {gap:.3e}", flush=True)
-            check(gap <= 1e-4, f"{kind_}: losses differ from the static path by {gap:.3e}")
+            print(f"  {label} vs hyb-static max relative loss gap {gap:.3e}", flush=True)
+            check(gap <= 1e-4, f"{label}: losses differ from the static path by {gap:.3e}")
         del op
         torch.cuda.empty_cache()
-    del batch
+    del batch, learned
 
     # 5, 5b, 5c. card vs CPU on small graphs
     gp = synthetic_graph(2000, 8, REDDIT["feat"], REDDIT["classes"], seed=8888)
@@ -2121,8 +2201,12 @@ def main() -> None:
                edge_counts["K5"], ke["K5_vec_ms"], ke["K5_vec_plain_ms"], ke["K5"]),
         "K6": ("pair_build", "pair_build.cu", "dorylus_tpu/ops/reuse_spmm.py:37",
                reuse_counts["K6"], k6["ms"], k6["plain_ms"], k6),
+        # K7's three passes, launches from 4f: the forward and dh alone of the
+        # dynamic ops' steps, dh + dval of the steps with learned edge values
         "K7": ("hyb_dynamic_pass", "dyn_spmm.cu", "dorylus_tpu/ops/hyb_spmm.py:476",
-               dyn_counts, k7["fwd_ms"], k7["fwd_plain_ms"], k7),
+               dyn_counts["K7"], k7["fwd_ms"], k7["fwd_plain_ms"], k7),
+        "K7_dh": ("hyb_dynamic_pass_dh", "dyn_spmm.cu", "dorylus_tpu/ops/hyb_spmm.py:488",
+                  dyn_counts["K7_dh"], k7["dh_ms"], k7["dh_plain_ms"], k7["dh"]),
         "K8": ("fused_pass", "fused_spmm.cu", "dorylus_tpu/ops/hyb_sharded.py:501",
                sharded["launches"]["K8"], k8["fwd_ms"], k8["fwd_plain_ms"], k8),
         # the fused plan's backward (JAX `_fused_bwd_pass`): K1 over the
@@ -2138,10 +2222,9 @@ def main() -> None:
                    degree_counts, kd["static_fwd_ms"], kd["static_fwd_plain_ms"], kd),
         "reuse": ("reuse_unit_pass", "hyb_spmm.cu", "dorylus_tpu/ops/reuse_spmm.py:47",
                   reuse_counts["K2"], kr["fwd_ms"], kr["fwd_plain_ms"], kr),
-        # K7's backward with the fused dval: one counter serves K7's forward
-        # and backward launches (each step has as many of each)
-        "K7 backward": ("hyb_dynamic_pass_bwd", "dyn_spmm.cu", "dorylus_tpu/ops/hyb_spmm.py:476",
-               dyn_counts, k7["bwd_ms"], k7["bwd_plain_ms"], dict(k7["bwd"], library_ms=None)),
+        "K7_dh_dval": ("hyb_dynamic_pass_bwd", "dyn_spmm.cu",
+                       "dorylus_tpu/ops/hyb_spmm.py:488", dyn_counts["K7_dh_dval"],
+                       k7["bwd_ms"], k7["bwd_plain_ms"], k7["bwd"]),
         "degree_sharded": ("sharded_degree_pass", "hyb_spmm.cu",
                            "dorylus_tpu/ops/degree_sharded.py:72",
                            sharded["launches"]["degree"], ks["static_fwd_ms"],

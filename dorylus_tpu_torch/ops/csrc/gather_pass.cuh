@@ -1,6 +1,7 @@
 // The slot-gather pass for Hopper (sm_90a), shared by K1/K2
 // (hyb_spmm.cu: one table) and K8 (fused_spmm.cu: local rows and ghost rows),
-// and its CSR sibling for K3/K4 (edge_spmm.cu; `csr_pass_kernel` below).
+// its CSR sibling for K3/K4 (edge_spmm.cu; `csr_pass_kernel` below) and its
+// dynamic-value sibling for K7 (dyn_spmm.cu; `dyn_pass_kernel` below).
 //
 // One launch runs every part of a plan (the buckets and the hub top of a
 // hybrid-ELL plan, or the one part of a degree plan):
@@ -71,7 +72,7 @@ struct PartDesc {
   int32_t block0;  // the part's first block; ascending over the parts
   int32_t split;   // slot indices >= split read the second table
   int32_t wide;    // 1: a warp per output row; 0: a group per output row
-  int32_t pad;
+  int32_t slot0;   // the flat slot of (0, 0): the slots of the plan's earlier parts
 };
 static_assert(sizeof(PartDesc) == 64, "PartDesc must match ops/gather_parts.py");
 
@@ -122,6 +123,13 @@ struct Lane<float> {
     d = fmaf(__uint_as_float(x.y), y[1], d);
     d = fmaf(__uint_as_float(x.z), y[2], d);
     return fmaf(__uint_as_float(x.w), y[3], d);
+  }
+  // <x, y> with each product in T (f32 here), sums in f32
+  __device__ __forceinline__ static float dot_in_t(uint4 x, uint4 y) {
+    float d = __uint_as_float(x.x) * __uint_as_float(y.x);
+    d = fmaf(__uint_as_float(x.y), __uint_as_float(y.y), d);
+    d = fmaf(__uint_as_float(x.z), __uint_as_float(y.z), d);
+    return fmaf(__uint_as_float(x.w), __uint_as_float(y.w), d);
   }
   template <bool kUnit>
   __device__ __forceinline__ static void add(float (&acc)[4], uint4 x, uint32_t a) {
@@ -175,6 +183,20 @@ struct Lane<__nv_bfloat16> {
     uint32_t r;
     memcpy(&r, &z, 4);
     return r;
+  }
+  // <x, y> with each product rounded to bf16 (mul.bf16x2), sums in f32: the
+  // plain version's bf16 multiply of the two rows
+  __device__ __forceinline__ static float dot_in_t(uint4 x, uint4 y) {
+    const uint32_t a[4] = {x.x, x.y, x.z, x.w};
+    const uint32_t b[4] = {y.x, y.y, y.z, y.w};
+    float d = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t p = mul2(a[k], b[k]);
+      d += __uint_as_float(p << 16);
+      d += __uint_as_float(p & 0xffff0000u);
+    }
+    return d;
   }
   template <bool kUnit>
   __device__ __forceinline__ static void add(float (&acc)[8], uint4 x, uint32_t a) {
@@ -267,15 +289,21 @@ __device__ __forceinline__ void team_pass(const PartDesc& d, const Src& src, int
   }
 }
 
-template <typename T, int G, bool kUnit, class Src>
-__global__ void __launch_bounds__(kPassThreads, 4)
-gather_pass_kernel(const __grid_constant__ PassParams p, const Src src, int f,
-                   float* __restrict__ out) {
+// The part of the block: the last whose first block is at or below it
+// (uniform across the block).
+__device__ __forceinline__ int part_of_block(const PassParams& p) {
   int k = 0;
   for (int j = 1; j < p.n_parts; ++j) {
     if (static_cast<int>(blockIdx.x) >= p.parts[j].block0) k = j;
   }
-  const PartDesc d = p.parts[k];
+  return k;
+}
+
+template <typename T, int G, bool kUnit, class Src>
+__global__ void __launch_bounds__(kPassThreads, 4)
+gather_pass_kernel(const __grid_constant__ PassParams p, const Src src, int f,
+                   float* __restrict__ out) {
+  const PartDesc d = p.parts[part_of_block(p)];
   const int rel = blockIdx.x - d.block0;
   if (G < 32 && d.wide) {
     team_pass<T, G, 32 / G, kUnit>(d, src, f, rel, out);
@@ -523,6 +551,164 @@ csr_pass_kernel(const __grid_constant__ CsrParams p) {
     csr_team<T, G, 32 / G, kSum, kDot>(p);
   } else {
     csr_team<T, G, 1, kSum, kDot>(p);
+  }
+}
+
+// ---- The dynamic-value team: K7's forward, its dh, and dh with the value gradient ----
+//
+// The slot plans of team_pass with per-edge values (JAX's dynamic mode):
+// slot (r, j) of a part weighs its table row by val[s2e[slot0 + r*w + j]],
+// rounded to T, with s2e the plan's slot->edge map in flat slot order (the
+// plan's parts in plan order, each row-major: JAX's order, in which its e2s
+// names an edge's slot). With kDot, the pass over the transposed plan (tab =
+// gout, own = h) also forms each live slot's value gradient
+//
+//   flat[slot0 + r*w + j] = < tab[rows[r, j], :], own[out_idx[i], :] >
+//
+// with each product in T, as the plain version's (and JAX's) bf16 multiply
+// of the two rows; the caller gathers dval = flat[e2s]. The stores are
+// coalesced, one writer a slot: the lane that loaded the slot's index.
+//
+// Lanes, loads, weights and the dots' reduce-scatter as team_pass and
+// csr_team above; the part of a block as gather_pass_kernel. Rows wider than
+// G * 16 bytes walk their column tiles inside the team (as csr_team), so that
+// one lane writes a slot's dot: a tile past the first adds to the value its
+// lane stored for the tile before. A hub's slot rows run through row_ptr;
+// each slot's dot is its own (the runs are summed for out, not for flat).
+// A slot's weight comes from wslot (T, in flat slot order, gathered by the
+// caller) where given, else from val through s2e.
+
+struct DynArgs {
+  const void* tab;      // (rows, ld) in T: the gathered table
+  const void* own;      // (own_rows, ld) in T: the output rows' own rows (kDot)
+  const int32_t* s2e;   // (slots,): the edge of each slot, flat slot order
+  const float* val;     // (E,) f32 values, read at s2e (wslot null)
+  const void* wslot;    // (slots,) in T: each slot's weight, or null
+  float* out;           // (num_out, f) f32
+  float* flat;          // (slots,) f32: each live slot's dot (kDot)
+  int32_t ld;           // a multiple of 16 bytes
+  int32_t f;            // out's columns, f <= ld
+  int32_t own_rows;     // rows of own; an output row past them has dot 0
+};
+
+template <typename T, int G, int R, bool kDot>
+__device__ __forceinline__ void dyn_team(const PartDesc& d, const DynArgs& p, int rel) {
+  constexpr int kVec = Lane<T>::kVec;
+  constexpr int kTeam = G * R;
+  // as csr_team: 8 loads in flight for f32 rows of 32 lanes, 4 with the dot
+  constexpr int kUnroll = sizeof(T) == 4 && G == 32 && !kDot ? 8 : 4;
+  static_assert(kUnroll <= G, "the reduce-scatter needs a slot per lane at most");
+  const int tid = threadIdx.x;
+  const int tl = tid % kTeam;
+  const int q = tl / G;
+  const int gl = tl % G;
+  const int i = rel * (kPassThreads / kTeam) + tid / kTeam;
+  if (i >= d.n_out) return;  // uniform across the team
+  const unsigned mask =
+      kTeam == 32 ? kFullMask : ((1u << (kTeam % 32)) - 1u) << ((tid & 31) & ~(kTeam - 1));
+  const T* tab = static_cast<const T*>(p.tab);
+  const int v = d.out_idx[i];
+  const int r_begin = d.row_ptr ? d.row_ptr[i] : i;
+  const int r_end = d.row_ptr ? d.row_ptr[i + 1] : i + 1;
+  // the lane that holds slot step u's dot, and the step of the lane's own slot
+  const int my_step = tl / R;
+  const int holder = (tl % R) * G + brev_low<kUnroll>(my_step % kUnroll);
+
+  for (int tile = 0; tile < p.ld; tile += G * kVec) {
+    const int c0 = tile + gl * kVec;
+    const bool col_live = c0 < p.ld;
+    float acc[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) acc[k] = 0.f;
+    uint4 own = make_uint4(0u, 0u, 0u, 0u);
+    if (kDot && col_live && v < p.own_rows) {
+      own = __ldg(reinterpret_cast<const uint4*>(static_cast<const T*>(p.own) +
+                                                 (int64_t)v * p.ld + c0));
+    }
+    for (int r = r_begin; r < r_end; ++r) {
+      const int n = d.cnt[r];  // live prefix of slot row r
+      const int64_t row0 = (int64_t)r * d.w;
+      const int64_t slot = d.slot0 + row0;  // flat slot of (r, 0)
+      for (int j0 = 0; j0 < n; j0 += kTeam) {
+        int my_s = 0;
+        uint32_t my_a = 0;
+        if (j0 + tl < n) {
+          my_s = d.rows[row0 + j0 + tl];
+          my_a = p.wslot ? Lane<T>::weight(p.wslot, slot + j0 + tl)
+                         : Lane<T>::weight_of(p.val[p.s2e[slot + j0 + tl]]);
+        }
+        const int m = min(kTeam, n - j0);   // slots of this chunk
+        const int steps = (m + R - 1) / R;  // uniform across the team
+        float mine = 0.f;                   // the dot of the lane's slot
+        for (int t0 = 0; t0 < steps; t0 += kUnroll) {
+          uint4 x[kUnroll];
+          uint32_t a[kUnroll];
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            const int sl = q + R * (t0 + u);  // this group's slot of the chunk
+            const int s = __shfl_sync(mask, my_s, sl % kTeam, kTeam);
+            x[u] = make_uint4(0u, 0u, 0u, 0u);
+            if (col_live && sl < m) {
+              x[u] = __ldg(reinterpret_cast<const uint4*>(tab + (int64_t)s * p.ld + c0));
+            }
+          }
+          // the weights after the row loads are issued: a value read through
+          // s2e arrives a load after the slot's index
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            a[u] = __shfl_sync(mask, my_a, (q + R * (t0 + u)) % kTeam, kTeam);
+          }
+          float dd[kUnroll];
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            Lane<T>::template add<false>(acc, x[u], a[u]);
+            dd[u] = kDot ? Lane<T>::dot_in_t(x[u], own) : 0.f;
+          }
+          if (kDot) {
+            const float got = __shfl_sync(mask, reduce_scatter<G, kUnroll>(dd, gl, mask),
+                                          holder, kTeam);
+            if (my_step >= t0 && my_step < t0 + kUnroll) mine = got;
+          }
+        }
+        if (kDot && tl < m) {
+          float* o = p.flat + slot + j0 + tl;  // coalesced
+          *o = tile == 0 ? mine : *o + mine;
+        }
+      }
+    }
+    // the groups' partial sums, in the same order on every run
+#pragma unroll
+    for (int o = G; o < kTeam; o <<= 1) {
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) acc[k] += __shfl_xor_sync(mask, acc[k], o);
+    }
+    if (q == 0 && c0 < p.f) {
+      float* dst = p.out + (int64_t)v * p.f + c0;
+      if (c0 + kVec <= p.f && (p.f & 3) == 0) {
+#pragma unroll
+        for (int k = 0; k < kVec; k += 4) {
+          *reinterpret_cast<float4*>(dst + k) =
+              make_float4(acc[k], acc[k + 1], acc[k + 2], acc[k + 3]);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+          if (c0 + k < p.f) dst[k] = acc[k];
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int G, bool kDot>
+__global__ void __launch_bounds__(kPassThreads, 4)
+dyn_pass_kernel(const __grid_constant__ PassParams p, const __grid_constant__ DynArgs a) {
+  const PartDesc d = p.parts[part_of_block(p)];
+  const int rel = blockIdx.x - d.block0;
+  if (G < 32 && d.wide) {
+    dyn_team<T, G, 32 / G, kDot>(d, a, rel);
+  } else {
+    dyn_team<T, G, 1, kDot>(d, a, rel);
   }
 }
 

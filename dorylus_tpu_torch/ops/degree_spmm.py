@@ -21,10 +21,11 @@ On the card a degree plan is one hub part of the hybrid-ELL kernels: rows =
 slot_src, cnt = live_cnt, one output row per vertex with block rows, and
 row_ptr the vertex's run of block rows (block_row is ascending). So static
 and unit passes launch K1 / K2 (csrc/hyb_spmm.cu), and the dynamic pass K7
-(csrc/dyn_spmm.cu, with s2e = slot_to_edge), once per plan: the lanes that
-own a vertex sum its block rows in registers, which is the final
-segment-sum, and write the vertex's row once. Isolated vertices have no block row and
-keep the zero fill, as JAX's segment_sum leaves them.
+(csrc/dyn_spmm.cu, with s2e = slot_to_edge, its slots in the plan's flat
+order, and the value gradient pulled back through edge_to_slot), once per
+plan: the lanes that own a vertex sum its block rows in registers, which is
+the final segment-sum, and write the vertex's row once. Isolated vertices
+have no block row and keep the zero fill, as JAX's segment_sum leaves them.
 
 The plain version (`degree_pass_plain`) is a line-for-line port of
 `_degree_pass`: gather (R, 16, F), weight, f32 row sum, `index_add_` over
@@ -47,8 +48,8 @@ from dorylus_tpu_torch.common.logging import log
 from dorylus_tpu_torch.ops.degree_plan import build_degree_plan
 from dorylus_tpu_torch.ops.gather_parts import PartTable
 from dorylus_tpu_torch.ops.hyb_spmm import (HybDstFn, HybDynFn, HybStaticFn,
-                                            HybUnitFn, _is_narrow, kernel_pass,
-                                            reduce_slots_plain, val_ext_of)
+                                            HybUnitFn, _is_narrow, edge_ordered,
+                                            kernel_pass, reduce_slots_plain, val_ext_of)
 
 # Kernel launches on degree plans made by this process (K1, K2 or K7; each
 # also counts in that kernel's own counter in ops/hyb_spmm.py).
@@ -57,9 +58,13 @@ DEGREE_LAUNCHES = 0
 
 
 def _upload(plan: dict, n_src: int, n_edges: int, vals: np.ndarray | None,
-            vals_dtype: torch.dtype, device: torch.device) -> dict:
+            vals_dtype: torch.dtype, device: torch.device, transposed: bool = False) -> dict:
     """numpy degree plan -> the kernels' hub part and its descriptor table
-    (`parts`) plus what the plain version reads, as tensors on `device`."""
+    (`parts`) plus what the plain version reads, as tensors on `device`;
+    `s2e_flat` is the part's slot_to_edge in flat slot order (K7 reads it)
+    and `s2e_in_order` whether it runs in edge order (hyb_spmm.edge_ordered:
+    K7 then reads val through it); `transposed` marks the backward plan,
+    only for K7's counters (its dh alone counts apart)."""
     def t(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
 
@@ -75,7 +80,9 @@ def _upload(plan: dict, n_src: int, n_edges: int, vals: np.ndarray | None,
         part["vals"] = t(vals, torch.float32).to(vals_dtype)
     return {"part": part, "parts": PartTable([part]), "block_row": t(block_row, torch.int64),
             "edge_to_slot": t(plan["edge_to_slot"], torch.int32),
-            "n_src": n_src, "n_edges": n_edges}
+            "s2e_flat": part["s2e"].view(-1),
+            "s2e_in_order": edge_ordered(plan["slot_to_edge"].ravel(), n_edges),
+            "n_src": n_src, "n_edges": n_edges, "transposed": transposed}
 
 
 def degree_pass_plain(table: torch.Tensor, plan: dict, num_out: int,
@@ -163,7 +170,7 @@ class DegreeSpMM:
         self.fwd = _upload(fwd, int(src.max()) + 1 if e else 0, e, fvals,
                            vals_dtype, self.device)
         self.bwd = _upload(bwd, int(dst.max()) + 1 if e else 0, e, bvals,
-                           vals_dtype, self.device)
+                           vals_dtype, self.device, transposed=True)
 
     def _pass(self, table, plan, num_out, mode, val=None, other=None):
         return degree_pass(table, plan, num_out, self.gather_dtype, mode, val, other)

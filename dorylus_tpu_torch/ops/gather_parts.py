@@ -1,7 +1,7 @@
 """The gather kernels' view of a slot plan: the part-descriptor table of
-csrc/gather_pass.cuh (K1/K2 in hyb_spmm.cu, K8 in fused_spmm.cu) and the
-padded gather table; and of a CSR (K3/K4 in edge_spmm.cu): the CSR team's
-launch geometry.
+csrc/gather_pass.cuh (K1/K2 in hyb_spmm.cu, K8 in fused_spmm.cu, K7 in
+dyn_spmm.cu) and the padded gather table; and of a CSR (K3/K4 in
+edge_spmm.cu): the CSR team's launch geometry.
 
 A plan's parts (the buckets and the hub top of a hybrid-ELL plan, the one
 part of a degree plan) run in ONE launch. `PartTable` is built once, when
@@ -13,8 +13,11 @@ g (the lanes that read one table row, set by the pass's width) it lays out
 the 64-byte descriptors the launch carries in its parameters: pointers, the
 slot-row width, the output rows, the part's first block, `split` (slot
 indices from split on read the second table of K8; LOCAL_ONLY for a part
-that reads local rows only) and `wide` (a warp per output row instead of a
-group). A block finds its part from the first blocks.
+that reads local rows only), `wide` (a warp per output row instead of a
+group) and `slot0`, the flat slot of the part's first slot: the slots of the
+parts before it in plan order, the order in which a dynamic plan's e2s
+names an edge's slot (K7 reads s2e and writes its dots there). A block
+finds its part from the first blocks.
 
 `gather_table` writes the table the kernel reads: the gather dtype, rows
 padded to a multiple of 16 bytes (the kernel loads 16 bytes a lane), pad
@@ -23,9 +26,10 @@ columns zero. An f32 table of aligned width is used as it is.
 `walk_plain` computes a pass by walking the descriptor table block by block
 in plain torch: the CPU tests hold it against the plain passes, which shows
 that the blocks cover every output row once and that each part reads the
-table it should. `walk_csr_plain` does the same for a CSR pass, down to the
-slots each group takes and the reduce-scatter that hands each edge's dot to
-the lane that writes it.
+table it should. `walk_csr_plain` does the same for a CSR pass and
+`walk_dyn_plain` for K7's passes, down to the slots each group takes and the
+reduce-scatter that hands each edge's (slot's) dot to the lane that writes
+it.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ WIDE_SLOTS = 64
 
 PART_DTYPE = np.dtype([("rows", "<u8"), ("vals", "<u8"), ("cnt", "<u8"), ("row_ptr", "<u8"),
                        ("out_idx", "<u8"), ("w", "<i4"), ("n_out", "<i4"), ("block0", "<i4"),
-                       ("split", "<i4"), ("wide", "<i4"), ("pad", "<i4")])
+                       ("split", "<i4"), ("wide", "<i4"), ("slot0", "<i4")])
 assert PART_DTYPE.itemsize == 64
 
 
@@ -113,16 +117,21 @@ class PartTable:
         _check(len(splits) == len(parts), "one split per part")
         self.device = parts[0]["rows"].device if parts else torch.device("cpu")
         kept = []
+        slot0 = 0
         for part, split in zip(parts, splits):
             n_out = check_part(part, self.device)
             if n_out:
                 live = int(part["cnt"].sum())
-                kept.append((-live / n_out, len(kept), part, split, n_out, live))
+                kept.append((-live / n_out, len(kept), part, split, n_out, live, slot0))
+            slot0 += part["rows"].numel()
+        _check(slot0 < 2**31, f"{slot0} slots: past the kernels' int32 slot index")
+        self.n_slots = slot0  # of every part given, in plan order
         kept.sort(key=lambda k: k[:2])  # longest rows first, then plan order
         self.parts = [k[2] for k in kept]
         self.splits = [k[3] for k in kept]
         self.n_out = [k[4] for k in kept]
         self.live = [k[5] for k in kept]
+        self.slot0 = [k[6] for k in kept]
         self.wide = [live >= WIDE_SLOTS * n for live, n in zip(self.live, self.n_out)]
         # of every part given, so that a plan whose parts are all empty keeps
         # its values' dtype (its static pass launches nothing and is no error)
@@ -155,6 +164,7 @@ class PartTable:
                     row["row_ptr"] = p["row_ptr"].data_ptr() if "row_ptr" in p else 0
                     row["w"], row["n_out"] = p["rows"].shape[1], self.n_out[k]
                     row["block0"], row["split"], row["wide"] = block, self.splits[k], self.wide[k]
+                    row["slot0"] = self.slot0[k]
                     block += -(-self.n_out[k] // self.teams(g, k))
                 launches.append((desc, k0, block, desc.ctypes.data))
             self._layouts[g] = launches
@@ -255,6 +265,42 @@ def _reduce_scatter(d: torch.Tensor, g: int, u: int) -> torch.Tensor:
     return v
 
 
+def _team_chunk(x_rows: torch.Tensor, wts: torch.Tensor | None, own_i: torch.Tensor | None,
+                g: int, r: int, u: int, cols: torch.Tensor, live: torch.Tensor) -> tuple:
+    """One chunk of m <= g * r slots of a team, as `csr_team` and `dyn_team`
+    run it: group q takes the chunk's slots q, q + r, ..., u at a time, each
+    lane the 16 bytes `cols` of the slot's row. x_rows: (m, ld) the chunk's
+    table rows; wts: (m,) their weights in the table's dtype, or None; own_i:
+    (g, vec) the team's own row in the dtype its products are formed in, or
+    None. Returns the chunk's weighted sums per lane ((g, vec) f32, or None)
+    and each slot's dot as the lane that loaded its index receives it after
+    the reduce-scatter ((m,) f32, or None)."""
+    m = x_rows.shape[0]
+    steps = -(-m // r)
+    n_st = -(-steps // u) * u  # steps in whole batches of u
+    sl = torch.arange(r)[None, :] + r * torch.arange(n_st)[:, None]  # (steps, r)
+    alive = (sl < m)[..., None, None] & live
+    idx = sl.clamp(max=m - 1)
+    x = x_rows[idx][..., cols] * alive  # (steps, r, g, vec) in the table's dtype
+    sums = dots = None
+    if wts is not None:
+        sums = (x * wts[idx][..., None, None]).float().sum(dim=(0, 1))
+    if own_i is not None:
+        d = (x.to(own_i.dtype) * own_i).float().sum(-1)  # (steps, r, g)
+        d = d.reshape(n_st // u, u, r, g).permute(0, 2, 3, 1)
+        v = _reduce_scatter(d, g, u)  # (batches, r, g)
+        step = torch.arange(m) // r
+        dots = v[step // u, torch.arange(m) % r, _brev_low(step % u, u)]
+    return sums, dots
+
+
+def _lane_cols(tile: int, g: int, vec: int, ld: int) -> tuple:
+    """(g, vec) columns of each lane's 16 bytes in a column tile, clamped
+    into the row, and which of them lie in it."""
+    cols = tile + torch.arange(g)[:, None] * vec + torch.arange(vec)
+    return cols.clamp(max=ld - 1), cols < ld
+
+
 def walk_csr_plain(tab: torch.Tensor, own: torch.Tensor | None, row_ptr: torch.Tensor,
                    col: torch.Tensor, val: torch.Tensor | None, perm: torch.Tensor | None,
                    f: int) -> tuple:
@@ -273,41 +319,90 @@ def walk_csr_plain(tab: torch.Tensor, own: torch.Tensor | None, row_ptr: torch.T
     dval = torch.zeros(e) if own is not None else None
     writes = torch.zeros(e, dtype=torch.int64)
     rp = row_ptr.long().tolist()
-    lanes = torch.arange(g)
     for i in range(n_rows):  # block i // rows_a_block, its team i % rows_a_block
         rb, re = rp[i], rp[i + 1]
         for tile in range(0, ld, g * vec):
-            cols = tile + lanes[:, None] * vec + torch.arange(vec)  # (g, vec): a lane's 16 bytes
-            live = cols < ld
-            cols = cols.clamp(max=ld - 1)
-            own_i = torch.zeros((g, vec))
-            if own is not None and i < own.shape[0] and rb < re:
-                own_i = own[i][cols].float() * live
+            cols, live = _lane_cols(tile, g, vec, ld)
+            own_i = None
+            if own is not None:
+                own_i = torch.zeros((g, vec))
+                if i < own.shape[0] and rb < re:
+                    own_i = own[i][cols].float() * live
             acc = torch.zeros((g, vec))
             for e0 in range(rb, re, team):
-                m = min(team, re - e0)
-                steps = -(-m // r)
-                n_st = -(-steps // u) * u  # steps in whole batches of u
-                sl = torch.arange(r)[None, :] + r * torch.arange(n_st)[:, None]  # (steps, r)
-                alive = (sl < m)[..., None, None] & live
-                edge = e0 + sl.clamp(max=m - 1)
-                w = perm[edge].long() if perm is not None else edge
-                x = tab[col[edge].long()][..., cols] * alive  # (steps, r, g, vec) in tab's dtype
+                edge = torch.arange(e0, min(e0 + team, re))
+                wts = None
                 if val is not None:
-                    a = val[w].to(tab.dtype)[..., None, None]
-                    acc += (x * a).float().sum(dim=(0, 1))
-                if own is not None:
-                    d = (x.float() * own_i).sum(-1)  # (steps, r, g)
-                    d = d.reshape(n_st // u, u, r, g).permute(0, 2, 3, 1)
-                    v = _reduce_scatter(d, g, u)  # (batches, r, g)
-                    tl = torch.arange(m)
-                    step = tl // r
-                    mine = v[step // u, tl % r, _brev_low(step % u, u)]
-                    dval[e0 + tl] = mine if tile == 0 else dval[e0 + tl] + mine
+                    wts = val[perm[edge].long() if perm is not None else edge].to(tab.dtype)
+                sums, mine = _team_chunk(tab[col[edge].long()], wts, own_i, g, r, u, cols, live)
+                if sums is not None:
+                    acc += sums
+                if mine is not None:
+                    dval[edge] = mine if tile == 0 else dval[edge] + mine
                     if tile == 0:
-                        writes[e0 + tl] += 1
+                        writes[edge] += 1
             if out is not None:
                 keep = (cols < f) & live
                 out[i, cols[keep]] = acc[keep]
     return out, dval, writes
 
+
+def dyn_geometry(ld: int, itemsize: int, wide: bool, dot: bool = False) -> dict:
+    """The team of a K7 pass (gather_pass.cuh `dyn_team`) over a table of
+    leading dimension ld: `g` lanes a group, `r` groups a team (a warp a row
+    for a wide part), `unroll`, the 16-byte loads a lane keeps in flight (4
+    with the dot, as `csr_team`)."""
+    g, _ = group_lanes(ld, itemsize)
+    return {"g": g, "r": 32 // g if wide and g < 32 else 1,
+            "unroll": 8 if itemsize == 4 and g == 32 and not dot else 4}
+
+
+def walk_dyn_plain(pt: PartTable, tab: torch.Tensor, s2e: torch.Tensor, val: torch.Tensor,
+                   own: torch.Tensor | None, num_out: int, f: int,
+                   wslot: torch.Tensor | None = None) -> tuple:
+    """K7's pass computed block by block and team by team as
+    `dyn_pass_kernel` runs it, in plain torch: out (num_out, f) f32, slot
+    (r, j) of part k weighing its row by val[s2e[slot0_k + r*w + j]] rounded
+    to tab's dtype (or by wslot at that slot), products in tab's dtype; with
+    own, each live slot's dot (products in tab's dtype) into flat
+    (pt.n_slots,) at slot0_k + r*w + j, written by the lane that loaded the
+    slot's index, a later column tile adding to it. tab and own are laid out
+    by `gather_table`, s2e is the plan's map in flat slot order. Returns
+    (out, flat or None, the live slots' visits per flat slot)."""
+    ld, itemsize = tab.shape[1], tab.element_size()
+    vec = 16 // itemsize
+    out = torch.zeros((num_out, f))
+    flat = torch.zeros(pt.n_slots) if own is not None else None
+    visits = torch.zeros(pt.n_slots, dtype=torch.int64)
+    for k, rows in pt.block_rows(group_lanes(ld, itemsize)[0]):
+        part = pt.parts[k]
+        geo = dyn_geometry(ld, itemsize, pt.wide[k], dot=own is not None)
+        g, r, u = geo["g"], geo["r"], geo["unroll"]
+        w, rp = part["rows"].shape[1], part.get("row_ptr")
+        for i in rows.tolist():
+            v = int(part["v"][i])
+            run = range(int(rp[i]), int(rp[i + 1])) if rp is not None else range(i, i + 1)
+            for tile in range(0, ld, g * vec):
+                cols, live = _lane_cols(tile, g, vec, ld)
+                own_i = None
+                if own is not None:
+                    own_i = torch.zeros((g, vec), dtype=own.dtype)
+                    if v < own.shape[0]:
+                        own_i = own[v][cols] * live
+                acc = torch.zeros((g, vec))
+                for rr in run:
+                    n, slot = int(part["cnt"][rr]), pt.slot0[k] + rr * w
+                    for j0 in range(0, n, g * r):
+                        sl = torch.arange(slot + j0, slot + min(j0 + g * r, n))
+                        wts = (wslot[sl] if wslot is not None
+                               else val[s2e[sl].long()].to(tab.dtype))
+                        x_rows = tab[part["rows"][rr, j0:j0 + len(sl)].long()]
+                        sums, mine = _team_chunk(x_rows, wts, own_i, g, r, u, cols, live)
+                        acc += sums
+                        if mine is not None:
+                            flat[sl] = mine if tile == 0 else flat[sl] + mine
+                        if tile == 0:
+                            visits[sl] += 1
+                keep = (cols < f) & live
+                out[v, cols[keep]] = acc[keep]
+    return out, flat, visits

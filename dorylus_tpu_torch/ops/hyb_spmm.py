@@ -20,8 +20,10 @@ Dynamic mode (`apply`, JAX: `hyb_spmm_apply` and `_apply_bwd`): per-edge
 values read through each slot's edge id (`s2e`), differentiable in h and
 val. Its backward is one pass over the transposed plan with table = gout
 that also forms dval[e] = <gout[dst e], h[src e]> from the rows it gathers
-(the fused SDDMM). The engines never build it (the JAX engine builds
-`dynamic=False`); GCN reaches it on an op without static values.
+(the fused SDDMM): each live slot's dot in flat slot order, pulled back to
+edge order through `e2s`, as JAX does. The engines never build it (the JAX
+engine builds `dynamic=False`); GCN reaches it on an op without static
+values.
 
 Two implementations of the pass, on the same plan layout:
   * `hyb_static_pass_plain` / `hyb_mask_pass_plain` /
@@ -30,12 +32,12 @@ Two implementations of the pass, on the same plan layout:
     sum, hub chunks summed per hub, output placed through `_n_iso` or
     `inv`, dval pulled back through `e2s`). They are the CPU path and the
     reference for the kernels.
-  * the CUDA kernels: csrc/hyb_spmm.cu (K1 static, K2 mask: one launch
-    per pass over every part of the plan, through the gather core
-    csrc/gather_pass.cuh and the plan's descriptor table,
-    ops/gather_parts.py) and csrc/dyn_spmm.cu (K7 dynamic, with the fused
-    SDDMM; one launch per part), built with nvcc at first use and bound
-    with ctypes (ops/cuda_build.py).
+  * the CUDA kernels: csrc/hyb_spmm.cu (K1 static, K2 mask) and
+    csrc/dyn_spmm.cu (K7 dynamic, alone or with the fused SDDMM), each one
+    launch per pass over every part of the plan, through the gather core
+    csrc/gather_pass.cuh and the plan's descriptor table
+    (ops/gather_parts.py), built with nvcc at first use and bound with
+    ctypes (ops/cuda_build.py).
 
 `hyb_static_pass`, `hyb_mask_pass` and `hyb_dynamic_pass` dispatch on the
 table's device: a CPU tensor takes the plain version, a CUDA tensor
@@ -59,13 +61,17 @@ from dorylus_tpu_torch.ops import cuda_build
 from dorylus_tpu_torch.ops.gather_parts import PartTable, gather_table, group_lanes
 from dorylus_tpu_torch.ops.hyb_plan import _LAMBDA_SLOTS, build_hyb_plan
 
-# Kernel launches made by this process: K1 (static mode) and K2 (mask
-# mode), one per pass (a plan of more than gather_parts.MAX_PARTS parts
-# takes one per MAX_PARTS), and K7 (dynamic mode), one per plan part.
-# chip_smoke.py resets them before each main path and reads them after.
+# Kernel launches made by this process, one per pass (a plan of more than
+# gather_parts.MAX_PARTS parts takes one per MAX_PARTS), each counted once:
+# K1 (static mode), K2 (mask mode) and K7 (dynamic mode): its forward
+# (DYN_), its dh alone over a transposed plan (DYN_T_) and its dh with the
+# fused value gradient (DYN_DVAL_). chip_smoke.py resets them before each
+# main path and reads them after.
 KERNEL_LAUNCHES = 0
 MASK_LAUNCHES = 0
 DYN_LAUNCHES = 0
+DYN_T_LAUNCHES = 0
+DYN_DVAL_LAUNCHES = 0
 
 _CSRC = cuda_build.CSRC / "hyb_spmm.cu"
 _DYN_CSRC = cuda_build.CSRC / "dyn_spmm.cu"
@@ -233,41 +239,14 @@ def build_dyn_kernel() -> ctypes.CDLL:
         return _dyn_lib
     lib, info = cuda_build.load(_DYN_CSRC)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.dyn_part.argtypes = [ci, ci, vp, ci, vp, vp, vp, vp, ci, vp, vp, ci,
-                             vp, vp, vp, vp]
-    lib.dyn_part.restype = ci
+    lib.dyn_pass.argtypes = [ci, ci, ci, ci, vp, ci, ci, vp, vp, ci, ci, vp, vp, vp, ci,
+                             vp, vp, vp]
+    lib.dyn_pass.restype = ci
     lib.dyn_error_string.argtypes = [ci]
     lib.dyn_error_string.restype = ctypes.c_char_p
     DYN_BUILD_INFO.update(info)
     _dyn_lib = lib
     return lib
-
-
-def _check_part(tb: torch.Tensor, part: dict, out: torch.Tensor,
-                extra_ints: list, extra: list) -> int:
-    """What every K7 launch assumes of its table, output and part; returns
-    the part's output row count."""
-    rows, cnt, out_idx = part["rows"], part["cnt"], part["v"]
-    row_ptr = part.get("row_ptr")
-    _check(tb.is_cuda, f"table must be a CUDA tensor, got {tb.device}")
-    _check(tb.dtype in _DTYPE_CODE,
-           f"table dtype {tb.dtype} (kernel takes float32 or bfloat16)")
-    _check(out.dtype == torch.float32, f"out dtype {out.dtype} (needs float32)")
-    _check(tb.dim() == 2 and out.dim() == 2 and out.shape[1] == tb.shape[1],
-           f"table {tuple(tb.shape)} / out {tuple(out.shape)} widths differ")
-    ints = [rows, cnt, out_idx] + ([row_ptr] if row_ptr is not None else []) + extra_ints
-    _check(all(t.dtype == torch.int32 for t in ints), "plan indices must be int32")
-    for t in ints + [tb, out] + extra:
-        _check(t.device == tb.device, f"tensor on {t.device}, table on {tb.device}")
-        _check(t.is_contiguous(), "all tensors must be contiguous")
-    _check(rows.dim() == 2 and cnt.shape == (rows.shape[0],),
-           f"rows {tuple(rows.shape)} / cnt {tuple(cnt.shape)} disagree")
-    n_out = out_idx.shape[0]
-    if row_ptr is None:
-        _check(n_out == rows.shape[0], "bucket needs one slot row per output row")
-    else:
-        _check(row_ptr.shape == (n_out + 1,), "row_ptr must have n_out + 1 entries")
-    return n_out
 
 
 def _device_index(t: torch.Tensor) -> int:
@@ -354,58 +333,98 @@ def _launch_pass(tb: torch.Tensor, plan: dict, out: torch.Tensor, unit: bool = F
     return launched
 
 
-def _launch_dyn_part(tb: torch.Tensor, part: dict, val: torch.Tensor,
-                     out: torch.Tensor, other: torch.Tensor | None = None,
-                     dval: torch.Tensor | None = None) -> bool:
-    """Launch K7 for one plan part: the weight of slot (r, j) is
-    val[s2e[r, j]]; with `other` (rows in the table's dtype, one per
-    output row id) it also writes dval[s2e[r, j]] for every live slot.
-    Validates everything the kernel assumes and raises on anything it
-    does not take. Returns whether it launched."""
-    global DYN_LAUNCHES
-    s2e = part.get("s2e")
+def _launch_dyn_pass(tb: torch.Tensor, plan: dict, val: torch.Tensor, out: torch.Tensor,
+                     own: torch.Tensor | None = None, flat: torch.Tensor | None = None,
+                     wslot: torch.Tensor | None = None) -> int:
+    """K7 over every part of `plan`, accumulating into `out` (which the
+    caller zero-filled): slot (r, j) weighs its row by val[s2e[r, j]], or by
+    wslot (each slot's weight in tb's dtype, in flat slot order) where
+    given. With `own` (a row per output row id, laid out as tb) it also
+    writes each live slot's dot <tb[rows[r, j]], own[v]> into flat (f32, one
+    entry per slot of the plan, in flat slot order). tb is laid out by
+    `gather_table` in the gather dtype. Raises on anything the kernel does
+    not take. Returns the launches made (0 for a plan without output
+    rows)."""
+    global DYN_LAUNCHES, DYN_T_LAUNCHES, DYN_DVAL_LAUNCHES
+    ld, g, _ = check_pass_tables([tb], plan, out, unit=True)
+    pt, s2e = plan["parts"], plan.get("s2e_flat")
     _check(s2e is not None, "dynamic mode needs a plan with slot->edge maps")
-    _check(s2e.shape == part["rows"].shape,
-           f"s2e {tuple(s2e.shape)} / rows {tuple(part['rows'].shape)} disagree")
-    _check(val.dtype == torch.float32 and val.dim() == 1,
-           f"val dtype {val.dtype} / shape {tuple(val.shape)} (needs a float32 vector)")
-    _check((other is None) == (dval is None), "other and dval go together")
-    extra = [val]
-    if other is not None:
-        _check(other.dtype == tb.dtype,
-               f"other dtype {other.dtype} differs from table dtype {tb.dtype}")
-        _check(other.dim() == 2 and other.shape[1] == tb.shape[1],
-               f"other {tuple(other.shape)} / table {tuple(tb.shape)} widths differ")
-        _check(dval.dtype == torch.float32 and dval.shape == val.shape,
-               f"dval {dval.dtype} {tuple(dval.shape)} must be float32 like val")
-        extra += [other, dval]
-    n_out = _check_part(tb, part, out, [s2e], extra)
-    if n_out == 0:
-        return False
-    rows, row_ptr = part["rows"], part.get("row_ptr")
+    _check(s2e.dtype == torch.int32 and s2e.shape == (pt.n_slots,),
+           f"s2e {s2e.dtype} {tuple(s2e.shape)} for a plan of {pt.n_slots} slots")
+    _check(val.dtype == torch.float32 and val.shape == (plan["n_edges"],),
+           f"val dtype {val.dtype} / shape {tuple(val.shape)} (needs a float32 vector "
+           f"of the plan's {plan['n_edges']} edges)")
+    _check((own is None) == (flat is None), "own and flat go together")
+    extra = [s2e, val]
+    if own is not None:
+        _check(own.dtype == tb.dtype and own.dim() == 2 and own.shape[1] == ld
+               and own.shape[0] >= pt.out_rows,
+               f"own dtype {own.dtype} / shape {tuple(own.shape)}: needs the table's dtype "
+               f"{tb.dtype} and {ld} columns, a row per output row ({pt.out_rows})")
+        _check(own.data_ptr() % 16 == 0, "own must be 16-byte aligned")
+        _check(flat.dtype == torch.float32 and flat.shape == (pt.n_slots,),
+               f"flat {flat.dtype} {tuple(flat.shape)} must be float32, one per slot "
+               f"({pt.n_slots})")
+        extra += [own, flat]
+    if wslot is not None:
+        _check(wslot.dtype == tb.dtype and wslot.shape == (pt.n_slots,),
+               f"wslot {wslot.dtype} {tuple(wslot.shape)} must be {tb.dtype}, one per slot")
+        extra.append(wslot)
+    for t in extra:
+        _check(t.device == tb.device, f"tensor on {t.device}, table on {tb.device}")
+        _check(t.is_contiguous(), "all tensors must be contiguous")
+    _check(tb.shape[0] >= plan["n_src"],
+           f"table of {tb.shape[0]} rows, the plan reads {plan['n_src']} source rows")
     lib = build_dyn_kernel()
-    code = lib.dyn_part(
-        _device_index(tb), _DTYPE_CODE[tb.dtype], tb.data_ptr(), tb.shape[1],
-        rows.data_ptr(), s2e.data_ptr(), val.data_ptr(), part["cnt"].data_ptr(),
-        rows.shape[1], row_ptr.data_ptr() if row_ptr is not None else None,
-        part["v"].data_ptr(), n_out,
-        other.data_ptr() if other is not None else None, out.data_ptr(),
-        dval.data_ptr() if dval is not None else None,
-        torch.cuda.current_stream(tb.device).cuda_stream)
-    if code != 0:
-        raise RuntimeError(f"dyn_part launch failed: "
-                           f"{lib.dyn_error_string(code).decode()} ({code})")
-    DYN_LAUNCHES += 1
-    return True
+    dot = own is not None
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    launched = 0
+    for desc, _, n_blocks, address in pt.layout(g):
+        code = lib.dyn_pass(
+            _device_index(out), _DTYPE_CODE[tb.dtype], int(dot), g, address, len(desc),
+            n_blocks, tb.data_ptr(), own.data_ptr() if dot else None, ld, out.shape[1],
+            s2e.data_ptr(), val.data_ptr(), wslot.data_ptr() if wslot is not None else None,
+            own.shape[0] if dot else 0, out.data_ptr(), flat.data_ptr() if dot else None,
+            stream)
+        if code != 0:
+            raise RuntimeError(f"dyn_pass launch failed: "
+                               f"{lib.dyn_error_string(code).decode()} ({code})")
+        launched += 1
+    if dot:
+        DYN_DVAL_LAUNCHES += launched
+    elif plan.get("transposed"):
+        DYN_T_LAUNCHES += launched
+    else:
+        DYN_LAUNCHES += launched
+    return launched
+
+
+def edge_ordered(s2e: np.ndarray, n_edges: int) -> bool:
+    """Whether a slot->edge map (flat slot order, dead slots holding the
+    sentinel n_edges) runs in the edges' order: at least half of its live
+    slots read the edge after the previous live slot's. A plan over
+    dst-sorted edges does (each slot row a run of one vertex's edges); its
+    transposed plan, whose map is a permutation, does not."""
+    live = s2e[s2e < n_edges]
+    return 2 * int(np.count_nonzero(np.diff(live) == 1)) >= live.size - 1
+
+
+def slot_weights(plan: dict, val: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Each slot's weight in flat slot order, in `dtype`: val rounded to
+    dtype through the plan's s2e, its pad slots reading a zero sentinel
+    (val_ext_of's values, rounded before the gather, not after: the same
+    values, half the bytes gathered in bf16)."""
+    ext = torch.cat([val.to(dtype), torch.zeros(1, dtype=dtype, device=val.device)])
+    return ext.index_select(0, plan["s2e_flat"])
 
 
 def kernel_pass(name: str, table: torch.Tensor, plan: dict, num_out: int,
                 gather_dtype: torch.dtype | None, mode: str,
                 val: torch.Tensor | None = None, other: torch.Tensor | None = None):
-    """A slot pass on the card: K1 (static) or K2 (mask), one launch over
-    every part of the plan, or K7 (dynamic; with `other` also the fused
-    SDDMM, returned as (out, dval)), one launch per part. The table must be
-    a CUDA tensor; anything else raises. Returns (result, launches)."""
+    """A slot pass on the card, one launch over every part of the plan: K1
+    (static), K2 (mask) or K7 (dynamic; with `other` also the fused SDDMM,
+    returned as (out, dval)). The table must be a CUDA tensor; anything
+    else raises. Returns (result, launches)."""
     if table.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {table.device}")
     if table.dim() != 2 or table.shape[0] < plan["n_src"]:
@@ -414,24 +433,34 @@ def kernel_pass(name: str, table: torch.Tensor, plan: dict, num_out: int,
     dt = gather_dtype if _is_narrow(gather_dtype) else torch.float32
     out = torch.zeros((num_out, table.shape[1]), dtype=torch.float32,
                       device=table.device)
+    tb = gather_table(table, dt)
     if mode != "dynamic":
-        return out, _launch_pass(gather_table(table, dt), plan, out, mode == "mask")
+        return out, _launch_pass(tb, plan, out, mode == "mask")
     n_edges = plan.get("n_edges")
     if val is None or val.shape != (n_edges,):
         raise ValueError(f"{name}: val {None if val is None else tuple(val.shape)} "
                          f"needs one value per edge ({n_edges})")
-    tb = table.to(dt).contiguous()
     val32 = val.float().contiguous()
-    oth = dval = None
+    own = flat = None
     if other is not None:
         if other.dim() != 2 or other.shape[0] < num_out:
             raise ValueError(f"{name}: other {tuple(other.shape)} has fewer "
                              f"than the pass's {num_out} output rows")
-        oth = other.to(tb.dtype).contiguous()
-        dval = torch.zeros(n_edges, dtype=torch.float32, device=table.device)
-    launched = sum(_launch_dyn_part(tb, part, val32, out, oth, dval)
-                   for part in plan["parts"].parts)
-    return (out if other is None else (out, dval)), launched
+        own = gather_table(other, dt)
+        flat = torch.empty(plan["parts"].n_slots, dtype=torch.float32, device=table.device)
+    # A slot's weight. Where the plan's s2e runs in edge order, the kernel
+    # reads val through it (0.04 ms over K1's loop); where it scatters (a
+    # transposed plan's permutation), those reads cost 0.28-0.32 ms inside
+    # the kernel, and gathering the values into slot order first costs 0.16
+    # outside it (H100, Reddit graph, bf16 F=128; in f32 the gather wins too,
+    # PERF.md §6)
+    wslot = None if plan["s2e_in_order"] else slot_weights(plan, val32, dt)
+    launched = _launch_dyn_pass(tb, plan, val32, out, own, flat, wslot)
+    if other is None:
+        return out, launched
+    # dval in edge order (a degree plan names its e2s edge_to_slot)
+    e2s = plan["e2s"] if "e2s" in plan else plan["edge_to_slot"]
+    return (out, flat.index_select(0, e2s[:n_edges])), launched
 
 
 _PASS_NAMES = {"static": "hyb_static_pass", "mask": "hyb_mask_pass",
@@ -469,7 +498,7 @@ def hyb_dynamic_pass(table: torch.Tensor, plan: dict, num_out: int,
                      other: torch.Tensor | None = None):
     """The dynamic-mode pass -> (num_out, F) f32, or (out, dval) with
     `other` (the fused SDDMM). CPU tensors run the plain version; CUDA
-    tensors run K7 (one launch per plan part) or raise."""
+    tensors run K7 (one launch over the plan's parts) or raise."""
     return _hyb_pass(table, plan, num_out, gather_dtype, "dynamic", val, other)
 
 
@@ -477,19 +506,23 @@ def hyb_dynamic_pass(table: torch.Tensor, plan: dict, num_out: int,
 
 
 def _upload(plan: dict, n_src: int, vals_dtype: torch.dtype,
-            device: torch.device, n_edges: int | None = None) -> dict:
+            device: torch.device, n_edges: int | None = None,
+            transposed: bool = False) -> dict:
     """numpy plan -> torch tensors on `device`; `vals` only where the plan
     has them (mask plans have none). Adds `n_src` (rows the gather table
     must have), for the hub top `row_ptr` (each hub's run of chunk rows;
-    rowv is ascending), and `parts`, the kernels' descriptor table of the
+    rowv is ascending), `parts`, the kernels' descriptor table of the
     buckets and the top (ops/gather_parts.py), which checks every part
-    once.
+    once, and `transposed` (the backward plan), which says only which
+    counter K7's dh alone goes to (DYN_T_LAUNCHES, not DYN_LAUNCHES).
 
-    n_edges given (a dynamic op): the slot->edge maps ship too, `s2e` per
-    part as int32 for the kernel and the plan's `e2s` (int32) for the
-    plain version, which pulls dval back through it; the kernel writes
-    dval through s2e and never reads e2s. Otherwise both maps are
-    dropped."""
+    n_edges given (a dynamic op): the slot->edge maps ship too: `s2e_flat`,
+    every part's s2e in flat slot order (the parts in plan order, each
+    row-major: the order of the plan's e2s and of the descriptors' slot0),
+    int32, which K7 reads, with each part's `s2e` a view of it for the
+    plain version, `s2e_in_order` (see edge_ordered), and the plan's `e2s`
+    (int32), through which both pull dval back into edge order. Otherwise
+    both maps are dropped."""
     def t(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
 
@@ -500,24 +533,32 @@ def _upload(plan: dict, n_src: int, vals_dtype: torch.dtype,
                "v": t(p["v"], torch.int32)}
         if "vals" in p:
             out["vals"] = t(p["vals"], torch.float32).to(vals_dtype)
-        if dynamic:
-            out["s2e"] = t(p["s2e"], torch.int32)
         return out
 
     out = {"buckets": tuple(part(b) for b in plan["buckets"]), "top": None,
-           "n_src": n_src}
+           "n_src": n_src, "transposed": transposed}
     top = plan["top"]
     if top is not None:
         n_hubs = len(top["v"])
         row_ptr = np.searchsorted(top["rowv"], np.arange(n_hubs + 1))
         out["top"] = dict(part(top), rowv=t(top["rowv"], torch.int64),
                           row_ptr=t(row_ptr, torch.int32))
-    out["parts"] = PartTable(list(out["buckets"]) + ([out["top"]] if top is not None else []))
+    parts = list(out["buckets"]) + ([out["top"]] if top is not None else [])
+    out["parts"] = PartTable(parts)
     if "_n_iso" in plan:
         out["n_iso"] = int(plan["_n_iso"])
     else:
         out["inv"] = t(plan["inv"], torch.int64)
     if dynamic:
+        np_parts = list(plan["buckets"]) + ([top] if top is not None else [])
+        flat_np = np.concatenate([p["s2e"].ravel() for p in np_parts] + [np.zeros(0, np.int32)])
+        flat = t(flat_np, torch.int32)
+        off = 0
+        for pd, p in zip(parts, np_parts):
+            pd["s2e"] = flat[off:off + p["s2e"].size].view(p["s2e"].shape)
+            off += p["s2e"].size
+        out["s2e_flat"] = flat
+        out["s2e_in_order"] = edge_ordered(flat_np, n_edges)
         out["e2s"] = t(plan["e2s"], torch.int32)
         out["n_edges"] = n_edges
     return out
@@ -673,7 +714,7 @@ class HybSpMM:
         self.fwd = _upload(fwd, int(src.max()) + 1 if e else 0, vals_dtype,
                            self.device, n_edges)
         self.bwd = _upload(bwd, int(dst.max()) + 1 if e else 0, vals_dtype,
-                           self.device, n_edges)
+                           self.device, n_edges, transposed=True)
 
     def _pass(self, table, plan, num_out, mode, val=None, other=None):
         return _hyb_pass(table, plan, num_out, self.gather_dtype, mode, val, other)

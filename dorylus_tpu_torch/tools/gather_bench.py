@@ -1,9 +1,9 @@
-"""Time the slot-gather passes K1 (static), K2 (mask) and K8 (two tables)
-and the edgewise CSR passes K3 and K4 on the card, at the shapes the main
-paths give them.
+"""Time the slot-gather passes K1 (static), K2 (mask), K7 (dynamic values)
+and K8 (two tables) and the edgewise CSR passes K3 and K4 on the card, at
+the shapes the main paths give them.
 
     python dorylus_tpu_torch/tools/gather_bench.py [--tree DIR] [--label NAME]
-        [--iters 20] [--out FILE]
+        [--iters 20] [--out FILE] [--only REGEX]
 
 `--tree` names the checkout whose `dorylus_tpu_torch` is measured (default:
 the one that holds this file), so one call can hold two checkouts against
@@ -33,7 +33,20 @@ partition), each at bf16 F=128, bf16 F=41 and f32 F=128:
     two summed for dh+dval (f32 only);
   * `gcn xla step` / `gat xla step`: the Reddit-config train step on
     kernel="xla" (f32), as the GCN and GAT steps above, its kernel time that
-    of K3 and K4.
+    of K3 and K4;
+  * `{hyb, degree} dyn {fwd, dh, dh+dval}`, at bf16 F=128, bf16 F=41 and f32
+    F=128: K7 over the Reddit graph's dynamic hyb plan and its degree plan,
+    random per-edge values: the forward, dh alone over the transposed plan
+    and dh with the value gradient (what `apply`'s backward runs when val
+    needs a gradient; the pass includes the gather into edge order);
+    `library_ms` is `torch.sparse.mm` with the call's values (of the
+    transposed CSR for dh), and that plus `torch.sparse.sampled_addmm` for
+    dh+dval (f32 only);
+  * `gcn {static-op, dyn, degree dyn} step`: the Reddit-config GCN train
+    step (bf16 gather tables) through the model and the reference Adam on a
+    static-value hyb op, a dynamic hyb op and a degree op without static
+    values (the model's `apply(h, edge_val)` branch: K7's forward and dh
+    alone), as chip_smoke.py's phase 4f runs it.
 
 For each case: `pass_ms` (CUDA events around `iters` calls of the pass
 entry: the cast of the table, the zero-filled output and the kernel
@@ -62,10 +75,13 @@ REDDIT = dict(v=232_965, deg=50, feat=602, classes=41)
 CONFIGS = (("bfloat16", 128), ("bfloat16", 41), ("float32", 128))
 # The gather kernels' names in every version of the port's sources.
 KERNEL_NAMES = re.compile(r"hyb_part_kernel|fused_part_kernel|gather_pass_kernel|"
-                          r"csr_spmm_kernel|sddmm_kernel|csr_pass_kernel")
+                          r"csr_spmm_kernel|sddmm_kernel|csr_pass_kernel|"
+                          r"dyn_part_kernel|dyn_pass_kernel")
 EDGE_CONFIGS = (("float32", 128), ("float32", 41), ("bfloat16", 128))
 # The edgewise launch counters of every version of ops/spmm.py (K5 apart).
 EDGE_COUNTERS = ("SPMM_LAUNCHES", "SPMM_T_LAUNCHES", "SPMM_DVAL_LAUNCHES", "SDDMM_LAUNCHES")
+# K7's launch counters of every version of ops/hyb_spmm.py.
+DYN_COUNTERS = ("DYN_LAUNCHES", "DYN_T_LAUNCHES", "DYN_DVAL_LAUNCHES")
 
 
 def _ms(torch, fn, iters: int) -> float:
@@ -191,6 +207,176 @@ def edge_cases(args, rows: list, g, gen, counts) -> None:
         torch.cuda.empty_cache()
 
 
+def _row_err(got, ref) -> float:
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(got, ref))
+
+
+def dyn_cases(args, rows: list, g, gen, counts) -> None:
+    """K7's rows (see the module's docstring) on the graph g."""
+    import numpy as np
+    import torch
+
+    from dorylus_tpu_torch.ops import degree_spmm, hyb_spmm
+    from dorylus_tpu_torch.ops.degree_spmm import DegreeSpMM
+    from dorylus_tpu_torch.ops.hyb_spmm import HybSpMM
+
+    v, e = g.num_vertices, g.num_edges
+    src_rows, dst_rows = int(np.unique(g.src).size), int(np.unique(g.dst).size)
+    order = np.argsort(g.src, kind="stable")
+    rp = torch.zeros(v + 1, dtype=torch.int64, device="cuda")
+    rp[1:] = torch.cumsum(torch.bincount(torch.as_tensor(g.dst, device="cuda").long(),
+                                         minlength=v), 0)
+    trp = torch.zeros(v + 1, dtype=torch.int64, device="cuda")
+    trp[1:] = torch.cumsum(torch.bincount(torch.as_tensor(g.src, device="cuda").long(),
+                                          minlength=v), 0)
+    col = torch.as_tensor(g.src, device="cuda").int()
+    tcol = torch.as_tensor(g.dst[order], device="cuda").int()
+    order_t = torch.as_tensor(order, device="cuda")
+    val = torch.randn(e, generator=gen, device="cuda")
+    pattern = torch.sparse_csr_tensor(rp.int(), col, torch.ones_like(val), size=(v, v))
+    a_fwd = torch.sparse_csr_tensor(rp.int(), col, val, size=(v, v))
+    a_bwd = torch.sparse_csr_tensor(trp.int(), tcol, val[order_t], size=(v, v))
+    for kind in ("hyb", "degree"):
+        for gd_name in ("bfloat16", "float32"):
+            if not any(re.search(args.only, f"{kind} dyn {c} {d} {f}")
+                       for c in ("fwd", "dh", "dh+dval") for d, f in CONFIGS if d == gd_name):
+                continue
+            gd = torch.bfloat16 if gd_name == "bfloat16" else None
+            if kind == "hyb":
+                op = HybSpMM(g.src, g.dst, v, v, gather_dtype=gd, dynamic=True, device="cuda")
+
+                def run(table, plan, other=None):
+                    return hyb_spmm.hyb_dynamic_pass(table, plan, v, val, gd, other)
+
+                def plain(table, plan, other=None):
+                    return hyb_spmm.hyb_dynamic_pass_plain(table, plan, v, val, gd, other)
+
+                live = sum(int(p["cnt"].sum()) for p in list(op.fwd["buckets"]) + (
+                    [op.fwd["top"]] if op.fwd["top"] is not None else []))
+            else:
+                op = DegreeSpMM(g.src, g.dst, v, v, gather_dtype=gd, device="cuda")
+
+                def run(table, plan, other=None):
+                    return degree_spmm.degree_pass(table, plan, v, gd, "dynamic", val, other)
+
+                def plain(table, plan, other=None):
+                    return degree_spmm.degree_pass_plain(table, plan, v, gd, "dynamic", val,
+                                                         other)
+
+                live = int(op.fwd["part"]["cnt"].sum())
+            for dtype, f in CONFIGS:
+                if dtype != gd_name:
+                    continue
+                dt = torch.bfloat16 if gd else torch.float32
+                elt = 2 if gd else 4
+                h = torch.randn(v, f, generator=gen, device="cuda")
+                gout = torch.randn(v, f, generator=gen, device="cuda")
+                # a row index per live slot and each value once; the
+                # backward plan's slots also name their edge (a permutation)
+                out_bytes, fwd_slot_bytes = v * f * 4, live * 4 + e * 4
+                slot_bytes = fwd_slot_bytes + live * 4
+                cases = (
+                    ("fwd", lambda: run(h, op.fwd), lambda: plain(h, op.fwd),
+                     src_rows * f * elt + fwd_slot_bytes + out_bytes, [(a_fwd, h)]),
+                    ("dh", lambda: run(gout, op.bwd), lambda: plain(gout, op.bwd),
+                     dst_rows * f * elt + slot_bytes + out_bytes, [(a_bwd, gout)]),
+                    ("dh+dval", lambda: run(gout, op.bwd, h), lambda: plain(gout, op.bwd, h),
+                     (dst_rows + src_rows) * f * elt + slot_bytes + e * 4 + out_bytes,
+                     [(a_bwd, gout), "sddmm"]),
+                )
+                for name, fn, ref_fn, nbytes, libs in cases:
+                    case = f"{kind} dyn {name}"
+                    if not re.search(args.only, f"{case} {dtype} {f}"):
+                        continue
+                    err = _row_err(fn(), ref_fn())
+                    before = counts()
+                    fn()
+                    torch.cuda.synchronize()
+                    launches = counts() - before
+                    pass_ms = _ms(torch, fn, args.iters)
+                    kernel_ms, other_ms = device_split(torch, fn, args.iters)
+                    library_ms = None
+                    try:
+                        if name != "dh+dval" or dt == torch.float32:
+                            library_ms = 0.0
+                            for lib in libs:
+                                if lib == "sddmm":
+                                    ht = h.t()
+                                    library_ms += _ms(torch, lambda: torch.sparse.sampled_addmm(
+                                        pattern, gout, ht, beta=0.0), 10)
+                                else:
+                                    a, x = lib[0].to(dt), lib[1].to(dt)
+                                    library_ms += _ms(torch, lambda: torch.sparse.mm(a, x), 10)
+                                    del a, x
+                    except (RuntimeError, NotImplementedError):
+                        library_ms = None
+                    row = {"label": args.label, "case": case, "dtype": dtype, "F": f,
+                           "pass_ms": pass_ms, "kernel_ms": kernel_ms, "other_ms": other_ms,
+                           "launches": launches, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                           "library_ms": library_ms, "rel_err": err, "live_slots": live}
+                    rows.append(row)
+                    print("bench " + json.dumps(row), flush=True)
+                del h, gout
+                torch.cuda.empty_cache()
+            del op
+            torch.cuda.empty_cache()
+
+
+def model_steps(args, rows: list, g, counts) -> None:
+    """The Reddit-config GCN train step through the model and the reference
+    Adam (chip_smoke.py's phase 4f) on a static-value hyb op and on the two
+    ops without static values, bf16 gather tables."""
+    import torch
+
+    from dorylus_tpu_torch.common.config import LayerConfig, TrainConfig
+    from dorylus_tpu_torch.engine.batch import build_batch
+    from dorylus_tpu_torch.models.gcn import GCN
+    from dorylus_tpu_torch.ops.degree_spmm import DegreeSpMM
+    from dorylus_tpu_torch.ops.hyb_spmm import HybSpMM
+    from dorylus_tpu_torch.optim.adam import adam_init, adam_update
+
+    v, bf16 = g.num_vertices, torch.bfloat16
+    batch = None
+    for case, make in (
+            ("gcn static-op step", lambda: HybSpMM(g.src, g.dst, v, v, gather_dtype=bf16,
+                                                   static_val=g.edge_norm, device="cuda")),
+            ("gcn dyn step", lambda: HybSpMM(g.src, g.dst, v, v, gather_dtype=bf16,
+                                             dynamic=True, device="cuda")),
+            ("gcn degree dyn step", lambda: DegreeSpMM(g.src, g.dst, v, v, gather_dtype=bf16,
+                                                       device="cuda"))):
+        if not re.search(args.only, f"{case} bfloat16 128"):
+            continue
+        batch = batch or build_batch(g, "cuda")
+        model = GCN(LayerConfig([REDDIT["feat"], 128, REDDIT["classes"]]), spmm_op=make())
+        state = {"params": model.init_params(seed=TrainConfig().seed)}
+        state["adam"] = adam_init(state["params"])
+
+        def step():
+            params = state["params"]
+            loss = model.loss(batch)
+            names = list(params)
+            grads = dict(zip(names, torch.autograd.grad(loss, [params[k] for k in names])))
+            state["params"], state["adam"] = adam_update(params, grads, state["adam"], lr=0.01)
+
+        step()
+        before = counts()
+        step()
+        torch.cuda.synchronize()
+        launches = counts() - before
+        step_ms = _ms(torch, step, args.iters)
+        kernel_ms, other_ms = device_split(torch, step, 5)
+        row = {"label": args.label, "case": case, "dtype": "bfloat16", "F": 128,
+               "step_ms": step_ms, "kernel_ms": kernel_ms, "device_ms": kernel_ms + other_ms,
+               "launches": launches}
+        rows.append(row)
+        print("bench " + json.dumps(row), flush=True)
+        del model, state
+        torch.cuda.empty_cache()
+
+
 def main(argv: list | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[2]))
@@ -232,9 +418,12 @@ def main(argv: list | None = None) -> int:
     slot_cases += [f"shard0 {e} static" for e in ("combined", "interior", "boundary")]
     slot_cases += ["shard0 fused static", "shard0 fused mask"]
     edge_names = [f"edge {c}" for c in ("fwd", "dh", "dh+dval", "dval")]
+    dyn_names = [f"{k} dyn {c}" for k in ("hyb", "degree") for c in ("fwd", "dh", "dh+dval")]
+    step_names = ["gcn static-op step", "gcn dyn step", "gcn degree dyn step"]
     sources = ([hyb_spmm._CSRC, hyb_sharded._CSRC] if wants(*slot_cases) else []) + (
-        [spmm._CSRC] if wants(*edge_names, "gcn xla step", "gat xla step") else [])
-    info = cuda_build.compile_sources(sources)
+        [spmm._CSRC] if wants(*edge_names, "gcn xla step", "gat xla step") else []) + (
+        [hyb_spmm._CSRC, hyb_spmm._DYN_CSRC] if wants(*dyn_names, *step_names) else [])
+    info = cuda_build.compile_sources(list(dict.fromkeys(sources)))
     for src, inf in info.items():
         for line in inf["log"].splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
@@ -250,7 +439,8 @@ def main(argv: list | None = None) -> int:
 
     def counts():
         return (hyb_spmm.KERNEL_LAUNCHES + hyb_spmm.MASK_LAUNCHES
-                + hyb_sharded.FUSED_LAUNCHES + sum(getattr(spmm, k, 0) for k in EDGE_COUNTERS))
+                + hyb_sharded.FUSED_LAUNCHES + sum(getattr(spmm, k, 0) for k in EDGE_COUNTERS)
+                + sum(getattr(hyb_spmm, k, 0) for k in DYN_COUNTERS))
 
     rows = []
 
@@ -300,6 +490,13 @@ def main(argv: list | None = None) -> int:
     # the edgewise CSR passes (K3, K4) on the Reddit graph
     if wants(*edge_names):
         edge_cases(args, rows, g, gen, counts)
+        torch.cuda.empty_cache()
+    # K7 on the Reddit graph's dynamic plans, and the steps that run it
+    if wants(*dyn_names):
+        dyn_cases(args, rows, g, gen, counts)
+        torch.cuda.empty_cache()
+    if wants(*step_names):
+        model_steps(args, rows, g, counts)
         torch.cuda.empty_cache()
 
     # the single-device hyb and degree plans

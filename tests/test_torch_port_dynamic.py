@@ -128,12 +128,12 @@ def test_dynamic_kernel_path_raises_off_cuda():
     src, dst, val, num_in, num_out, kw = _case("hubs")
     op = thyb.HybSpMM(src, dst, num_in, num_out, dynamic=True, device="cpu", **kw)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        thyb._launch_dyn_part(torch.zeros((num_in, 4)), op.fwd["buckets"][0],
-                              torch.tensor(val), torch.zeros((num_out, 4)))
+        thyb._launch_dyn_pass(torch.zeros((num_in, 4)), op.fwd, torch.tensor(val),
+                              torch.zeros((num_out, 4)))
     with pytest.raises(ValueError, match="unsupported device"):
         thyb.hyb_dynamic_pass(torch.zeros((num_in, 4), device="meta"), op.fwd,
                               num_out, torch.tensor(val))
-    assert thyb.DYN_LAUNCHES == 0
+    assert thyb.DYN_LAUNCHES == thyb.DYN_T_LAUNCHES == thyb.DYN_DVAL_LAUNCHES == 0
 
 
 DIMS = [32, 16, 6]

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
 K1 (hybrid-ELL static mode), K2 (mask mode: apply_unit, apply_dst), the
 edgewise K3 (CSR SpMM), K4 (SDDMM), K5 (sorted segment-sum), K7 (dynamic
-values with the fused SDDMM) on hybrid-ELL and degree plans, K1/K2 on
+values: forward, dh alone and dh with the fused SDDMM, one launch a pass on
+the gather core) on hybrid-ELL and degree plans, K1/K2 on
 degree plans, K6 (the pair-table build) with K2 over a rewritten plan, and
 the sharded engine's K8 (two-table hyb pass), K9 (row gather) and K10
 (gathered sorted segment-sum), with a 4-rank run on the one card (gloo);
@@ -301,11 +302,17 @@ def _dyn_close_all(res, narrow):
         _close(got, ref, narrow)
 
 
+def _dyn_counts(hyb):
+    return hyb.DYN_LAUNCHES, hyb.DYN_T_LAUNCHES, hyb.DYN_DVAL_LAUNCHES
+
+
 @pytest.mark.parametrize("f", [1, 41, 128, 300])
 @pytest.mark.parametrize("narrow", [False, True], ids=["f32", "bf16"])
 def test_dyn_kernel_matches_plain(cuda, narrow, f):
-    """K7 on hybrid-ELL plans with hub rows and the inv layout: forward,
-    dh and dval (F = 300 walks three column tiles in one warp)."""
+    """K7 on hybrid-ELL plans with hub rows and the inv layout: forward
+    (weights read through s2e), dh alone and dh with dval (weights gathered
+    into slot order), each one launch (F = 300 walks three column tiles
+    inside the team)."""
     from dorylus_tpu_torch.ops import hyb_spmm as hyb
 
     src, dst, val = _powerlaw(3000, seed=f + 11)
@@ -317,24 +324,116 @@ def test_dyn_kernel_matches_plain(cuda, narrow, f):
     h = torch.tensor(rng.normal(size=(3000, f)).astype(np.float32), device=cuda)
     gout = torch.tensor(rng.normal(size=(3000, f)).astype(np.float32), device=cuda)
     v_t = torch.tensor(val, device=cuda)
-    before = hyb.DYN_LAUNCHES
+    fwd, dh, dval = _dyn_counts(hyb)
     hk = h.clone().requires_grad_(True)
     vk = v_t.clone().requires_grad_(True)
     out = op.apply(hk, vk)
     out.backward(gout)
+    dh_alone = hyb.hyb_dynamic_pass(gout, op.bwd, 3000, v_t, gd)
     torch.cuda.synchronize()
-    assert hyb.DYN_LAUNCHES > before
+    assert _dyn_counts(hyb) == (fwd + 1, dh + 1, dval + 1)
     ref_dh, ref_dval = hyb.hyb_dynamic_pass_plain(gout, op.bwd, 3000, v_t, gd, other=h)
     _dyn_close_all([(out.detach(), hyb.hyb_dynamic_pass_plain(h, op.fwd, 3000, v_t, gd)),
-                    (hk.grad, ref_dh), (vk.grad, ref_dval)], narrow)
+                    (hk.grad, ref_dh), (dh_alone, ref_dh), (vk.grad, ref_dval)], narrow)
+
+
+@pytest.mark.parametrize("narrow", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["fwd", "dh", "dh+dval"])
+@pytest.mark.parametrize("kind", ["hyb", "degree"])
+def test_dyn_pass_is_one_launch_and_the_same_bits_twice(cuda, kind, mode, narrow):
+    """Each K7 pass is one launch over every part of its plan, counted under
+    its direction, and two passes give identical bits (one writer per
+    output row and per slot, a fixed order of sums)."""
+    from dorylus_tpu_torch.ops import degree_spmm as dg
+    from dorylus_tpu_torch.ops import hyb_spmm as hyb
+
+    gd = torch.bfloat16 if narrow else None
+    src, dst, val = _powerlaw(3000, seed=26)
+    rng = np.random.default_rng(26)
+    h = torch.tensor(rng.normal(size=(3000, 128)).astype(np.float32), device=cuda)
+    g = torch.tensor(rng.normal(size=(3000, 128)).astype(np.float32), device=cuda)
+    v_t = torch.tensor(val, device=cuda)
+    if kind == "hyb":
+        op = hyb.HybSpMM(src, dst, 3000, 3000, max_width=16, gather_dtype=gd, lam_slots=256,
+                         dynamic=True, device=cuda)
+        assert len(op.fwd["parts"].parts) > 1
+    else:
+        op = dg.DegreeSpMM(src, dst, 3000, 3000, gather_dtype=gd, device=cuda)
+    plan, table = (op.fwd, h) if mode == "fwd" else (op.bwd, g)
+    other = h if mode == "dh+dval" else None
+
+    def run():
+        return op._pass(table, plan, 3000, "dynamic", v_t, other)
+
+    before = _dyn_counts(hyb)
+    a = run()
+    torch.cuda.synchronize()
+    moved = [n - b for n, b in zip(_dyn_counts(hyb), before)]
+    assert moved == {"fwd": [1, 0, 0], "dh": [0, 1, 0], "dh+dval": [0, 0, 1]}[mode]
+    b = run()
+    for x, y in zip(a if other is not None else (a,), b if other is not None else (b,)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("f", [8, 128])
+@pytest.mark.parametrize("narrow", [False, True], ids=["f32", "bf16"])
+def test_dyn_pass_on_a_hub_of_more_than_2000_slots(cuda, narrow, f):
+    """K7 over a hub row of 2,500 edges (five chunk rows of the hub top, a
+    warp a row, each slot's dot its own) beside short rows, forward and dh
+    with dval, against plain."""
+    from dorylus_tpu_torch.ops import hyb_spmm as hyb
+
+    rng = np.random.default_rng(27)
+    deg = rng.integers(1, 40, size=2000)
+    deg[7] = 2500
+    dst = np.repeat(np.arange(2000, dtype=np.int32), deg)
+    src = rng.integers(0, 2000, size=len(dst)).astype(np.int32)
+    src[dst == 7] = 11  # the hub's transposed row: 2,500 slots of vertex 11 too
+    gd = torch.bfloat16 if narrow else None
+    op = hyb.HybSpMM(src, dst, 2000, 2000, gather_dtype=gd, dynamic=True, device=cuda)
+    assert int(op.fwd["top"]["cnt"].sum()) == 2500 and op.bwd["top"] is not None
+    h = torch.tensor(rng.normal(size=(2000, f)).astype(np.float32), device=cuda)
+    gout = torch.tensor(rng.normal(size=(2000, f)).astype(np.float32), device=cuda)
+    v_t = torch.tensor(rng.normal(size=len(dst)).astype(np.float32), device=cuda)
+    dh, dv = hyb.hyb_dynamic_pass(gout, op.bwd, 2000, v_t, gd, other=h)
+    ref_dh, ref_dv = hyb.hyb_dynamic_pass_plain(gout, op.bwd, 2000, v_t, gd, other=h)
+    _dyn_close_all([(hyb.hyb_dynamic_pass(h, op.fwd, 2000, v_t, gd),
+                     hyb.hyb_dynamic_pass_plain(h, op.fwd, 2000, v_t, gd)),
+                    (dh, ref_dh), (dv, ref_dv)], narrow)
+
+
+def test_dyn_pass_of_more_parts_than_one_launch_holds(cuda):
+    """A dynamic plan of 63 buckets (lam_slots=0) takes two launches a pass,
+    forward and dh with dval, and matches plain (slot0 past the first
+    launch's parts)."""
+    from dorylus_tpu_torch.ops import gather_parts as gp
+    from dorylus_tpu_torch.ops import hyb_spmm as hyb
+
+    rng = np.random.default_rng(28)
+    dst = np.repeat(np.arange(504, dtype=np.int32), np.arange(1, 505))
+    src = rng.integers(0, 504, size=len(dst)).astype(np.int32)
+    op = hyb.HybSpMM(src, dst, 504, 504, lam_slots=0, dynamic=True, device=cuda)
+    assert len(op.fwd["parts"].parts) > gp.MAX_PARTS
+    h = torch.tensor(rng.normal(size=(504, 41)).astype(np.float32), device=cuda)
+    v_t = torch.tensor(rng.normal(size=len(dst)).astype(np.float32), device=cuda)
+    fwd, dh, dval = _dyn_counts(hyb)
+    out = hyb.hyb_dynamic_pass(h, op.fwd, 504, v_t)
+    # the backward plan (out-degrees about 250) has a hub top: one launch
+    got = hyb.hyb_dynamic_pass(h, op.bwd, 504, v_t, other=h)
+    torch.cuda.synchronize()
+    assert _dyn_counts(hyb)[0] == fwd + 2
+    assert _dyn_counts(hyb)[2] == dval + -(-len(op.bwd["parts"].parts) // gp.MAX_PARTS)
+    ref = hyb.hyb_dynamic_pass_plain(h, op.bwd, 504, v_t, other=h)
+    _dyn_close_all([(out, hyb.hyb_dynamic_pass_plain(h, op.fwd, 504, v_t)),
+                    (got[0], ref[0]), (got[1], ref[1])], False)
 
 
 @pytest.mark.parametrize("f", [1, 41, 128, 300])
 @pytest.mark.parametrize("narrow", [False, True], ids=["f32", "bf16"])
 def test_degree_kernels_match_plain(cuda, narrow, f):
-    """K1 (static), K2 (unit, dst) and K7 (dynamic, with dval) on degree
-    plans against the plain degree pass, on a graph with isolated rows
-    and vertices of many block rows."""
+    """K1 (static), K2 (unit, dst) and K7 (dynamic: forward, dh with dval,
+    dh alone) on degree plans against the plain degree pass, on a graph
+    with isolated rows and vertices of many block rows."""
     from dorylus_tpu_torch.ops import degree_spmm as deg
 
     src, dst, val = _powerlaw(3000, seed=f + 13)
@@ -367,6 +466,9 @@ def test_degree_kernels_match_plain(cuda, narrow, f):
     out_y.backward(gout)
     torch.cuda.synchronize()
     assert deg.DEGREE_LAUNCHES == before + 6
+    dh_alone = deg.degree_pass(gout, op.bwd, 3000, gd, "dynamic", v_t)
+    torch.cuda.synchronize()
+    assert deg.DEGREE_LAUNCHES == before + 7
     u = plain(h, op.fwd, "mask")
     ref_dh, ref_dval = plain(gout, op.bwd, "dynamic", other=h)
     _dyn_close_all([(out_s.detach(), plain(h, op.fwd, "static")),
@@ -375,7 +477,7 @@ def test_degree_kernels_match_plain(cuda, narrow, f):
                     (hd.grad, plain(gout * dst_val[:, None], op.bwd, "mask")),
                     (dd.grad, (u * gout).sum(-1)),
                     (out_y.detach(), plain(h, op.fwd, "dynamic")),
-                    (hy.grad, ref_dh), (vy.grad, ref_dval)], narrow)
+                    (hy.grad, ref_dh), (dh_alone, ref_dh), (vy.grad, ref_dval)], narrow)
 
 
 @pytest.mark.parametrize("f", [128, 41])
@@ -427,23 +529,39 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
     rop = reuse.ReuseSpMM(csrc, cdst, 1000, 1000, device=cuda)
     v_t = torch.tensor(val, device=cuda)
     out = torch.zeros((500, 8), device=cuda)
-    counts = (hyb.KERNEL_LAUNCHES, hyb.MASK_LAUNCHES, hyb.DYN_LAUNCHES,
+    counts = (hyb.KERNEL_LAUNCHES, hyb.MASK_LAUNCHES, *_dyn_counts(hyb),
               deg.DEGREE_LAUNCHES, reuse.PAIR_LAUNCHES)
+    flat = torch.zeros(hop.bwd["parts"].n_slots, device=cuda)
     for bad in (torch.float16, torch.float64):
         tb = torch.zeros((500, 8), dtype=bad, device=cuda)
         with pytest.raises(ValueError, match="dtype"):
-            hyb._launch_dyn_part(tb, hop.fwd["buckets"][0], v_t, out)
+            hyb._launch_dyn_pass(tb, hop.fwd, v_t, out)
         with pytest.raises(ValueError, match="dtype"):
-            hyb._launch_dyn_part(tb.float(), hop.fwd["buckets"][0], v_t.to(bad), out)
+            hyb._launch_dyn_pass(tb.float(), hop.fwd, v_t.to(bad), out)
+        with pytest.raises(ValueError, match="dtype"):
+            hyb._launch_dyn_pass(tb, hop.bwd, v_t, out, own=tb, flat=flat)
+        with pytest.raises(ValueError, match="dtype"):
+            hyb._launch_dyn_pass(tb.float(), hop.bwd, v_t, out, own=tb, flat=flat)
+        with pytest.raises(ValueError, match="wslot"):
+            hyb._launch_dyn_pass(tb.float(), hop.fwd, v_t, out,
+                                 wslot=torch.zeros(hop.fwd["parts"].n_slots, dtype=bad,
+                                                   device=cuda))
         for unit in (False, True):
             with pytest.raises(ValueError, match="dtype"):
                 hyb._launch_pass(tb, dop.fwd, out, unit=unit)
         with pytest.raises(ValueError, match="dtype"):
-            hyb._launch_dyn_part(tb, dop.fwd["part"], v_t, out)
+            hyb._launch_dyn_pass(tb, dop.fwd, v_t, out)
         with pytest.raises(ValueError, match="dtype"):
             reuse.build_pair_table(torch.zeros((1000, 8), dtype=bad, device=cuda),
                                    rop.lvl_fwd, rop.fwd_table_size)
-    assert (hyb.KERNEL_LAUNCHES, hyb.MASK_LAUNCHES, hyb.DYN_LAUNCHES,
+    good = torch.zeros((500, 8), device=cuda)
+    with pytest.raises(ValueError, match="one per slot"):
+        hyb._launch_dyn_pass(good, hop.bwd, v_t, out, own=good, flat=flat[:-1])
+    with pytest.raises(ValueError, match="go together"):
+        hyb._launch_dyn_pass(good, hop.bwd, v_t, out, own=good)
+    with pytest.raises(ValueError, match="edges"):
+        hyb._launch_dyn_pass(good, hop.fwd, v_t[:-1], out)
+    assert (hyb.KERNEL_LAUNCHES, hyb.MASK_LAUNCHES, *_dyn_counts(hyb),
             deg.DEGREE_LAUNCHES, reuse.PAIR_LAUNCHES) == counts
 
 
@@ -595,13 +713,13 @@ def test_four_ranks_on_one_card_match_the_cpu(cuda, model):
     np.testing.assert_allclose(a, b, rtol=1e-5)
 
 
-@pytest.mark.parametrize("f", [41, 128])
+@pytest.mark.parametrize("f", [41, 128, 300])
 @pytest.mark.parametrize("narrow", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("edges", ["combined", "interior", "boundary"])
 def test_sharded_degree_plans_match_plain(cuda, edges, narrow, f):
     """A rank's three degree plans on the card (K1 static, K2 dst, K7
-    dynamic, forward and gradients) against `degree_pass_plain`; and the
-    interior and boundary passes add up to the combined one."""
+    dynamic: forward, gradients and dh alone) against `degree_pass_plain`;
+    and the interior and boundary passes add up to the combined one."""
     from dorylus_tpu_torch.ops import degree_spmm as dg
     from dorylus_tpu_torch.ops.degree_sharded import ShardedDegreeSpMM
 
@@ -640,6 +758,7 @@ def test_sharded_degree_plans_match_plain(cuda, edges, narrow, f):
     ref_dh, ref_dval = plain(gout, op.bwd, op.num_in, "dynamic", other=table)
     _close(tk.grad, ref_dh, narrow)
     _close(vk.grad, ref_dval, narrow)
+    _close(dg.degree_pass(gout, op.bwd, op.num_in, gd, "dynamic", val), ref_dh, narrow)
     torch.cuda.synchronize()
     assert dg.DEGREE_LAUNCHES >= before + 6
     if edges == "combined":
