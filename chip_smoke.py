@@ -20,9 +20,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the dst CSR, dh over the src CSR), K3's dh pass with K4's value
      gradient fused in (what GAT's backward runs, checked through autograd
      too: one forward and one fused launch), K4 (SDDMM) alone and K5 (sorted
-     segment-sum); K3 and K4 (the gather core's CSR team) with their pass ms
-     and, apart, their kernel's device ms; then every kernel refuses
-     float16 and float64 and counts no launch;
+     segment-sum; the (E,) form also on a view one element past a 16-byte
+     boundary); each with its pass ms and, apart, its kernel's device ms,
+     K5 also with the host's µs to enqueue a pass and a bound for its (E, F)
+     form; then every kernel refuses float16 and float64 and counts no
+     launch;
   3d. K7 (dynamic values; the gather core's dynamic team, one launch a
      pass) vs its plain version at the Reddit shape (F=128 and 41, f32 and
      bf16): the forward and the fused dh + dval through autograd, and dh
@@ -48,8 +50,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      F=128 and 41, f32 and bf16) vs plain, and on a power-law graph whose
      hubs sit near the cut; K9 (row gather) bit for bit and K10 (gathered
      sorted segment-sum) vs plain at that shard's send lists on both
-     wires; times of kernel, plain and the one PyTorch call. One process,
-     no collective;
+     wires; times of kernel, plain and the one PyTorch call, and for K9's
+     pack and placement and K10 the kernel-only ms and the host's µs to
+     enqueue a pass. One process, no collective;
   3h. (beside 3g) the sharded degree op on the same shard: the degree
      pass over rank 0's combined, interior and boundary plans (K1 static,
      K2 dst, K7 dynamic with dval; forward, dh or dghosts, d_dst, dval;
@@ -147,7 +150,8 @@ zero-filled output and the launch) and, apart, the kernel's own device ms
 and the rest's (torch.profiler, `*_kernel_ms` / `*_other_ms`).
 Each main path runs with every launch count set to 0 just before it and
 read just after (in each rank, for the sharded engine). Then one JSON line
-with the kernels' numbers (K1-K10, K3's dh alone and fused with K4's value
+with the kernels' numbers (K1-K10 (K5, K9 and K10 also with their kernel-only
+ms and the host's µs to enqueue a pass), K3's dh alone and fused with K4's value
 gradient, K7's dh alone and fused with its value gradient, the fused plan's
 backward, the degree, reuse, sharded-degree and sharded-reuse passes, which
 run on K1/K2/K7 and K6 + K2, and the probes P1-P4): beside each kernel's time
@@ -167,6 +171,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -456,7 +461,7 @@ def compare_edge(name: str, eop, src, dst, val, f: int, dtype: str, seed: int,
     Timed: each entry's pass ms (CUDA events: the table's layout and the
     launch) and, apart, its kernel's device ms (`*_kernel_ms`)."""
     from dorylus_tpu_torch.ops import spmm
-    from dorylus_tpu_torch.tools.gather_bench import device_split
+    from dorylus_tpu_torch.tools.gather_bench import device_split, enqueue_us
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dt = DTYPES[dtype]
@@ -490,6 +495,12 @@ def compare_edge(name: str, eop, src, dst, val, f: int, dtype: str, seed: int,
     g_vec = randn(gen, eop.num_edges)
     close(res, "K5", "K5_vec", spmm.segment_sum(g_vec, eop.row_ptr),
           spmm.segment_sum_plain(g_vec, eop.row_ptr), "float32")
+    # a view one element past a 16-byte boundary: the chunks at g's ends
+    # are read element by element
+    g_view = randn(gen, eop.num_edges + 1)[1:]
+    close(res, "K5", "K5_vec_view", spmm.segment_sum(g_view, eop.row_ptr),
+          spmm.segment_sum_plain(g_view, eop.row_ptr), "float32")
+    del g_view
     g_mat = randn(gen, eop.num_edges, f, dtype=dt)
     close(res, "K5", "K5_mat", spmm.segment_sum(g_mat, eop.row_ptr),
           spmm.segment_sum_plain(g_mat, eop.row_ptr), dtype)
@@ -510,8 +521,9 @@ def compare_edge(name: str, eop, src, dst, val, f: int, dtype: str, seed: int,
         ):
             res[f"{key}_ms"] = cuda_ms(kern, iters)
             res[f"{key}_plain_ms"] = cuda_ms(plain, 3)
-            if key.startswith(("K3", "K4")):
-                res[f"{key}_kernel_ms"], res[f"{key}_other_ms"] = device_split(torch, kern, 20)
+            res[f"{key}_kernel_ms"], res[f"{key}_other_ms"] = device_split(torch, kern, 20)
+            if key.startswith("K5"):
+                res[f"{key}_host_us"] = enqueue_us(torch, kern)
         e = eop.num_edges
         out = spmm.csr_spmm(h, eop.row_ptr, src, val)
         dval = torch.empty(e, device="cuda")
@@ -520,6 +532,8 @@ def compare_edge(name: str, eop, src, dst, val, f: int, dtype: str, seed: int,
         res["K3_dh_dval"] = bound(nbytes(gout, h, trp, tc, order, val, out, dval), 4.0 * e * f)
         res["K4"] = bound(nbytes(h, gout, eop.row_ptr, src, dval), 2.0 * e * f)
         res["K5"] = bound(nbytes(g_vec, eop.row_ptr) + 4 * eop.num_out, e)
+        # (E, F): g once, row_ptr once, the f32 rows once; an add an element
+        res["K5_mat"] = bound(nbytes(g_mat, eop.row_ptr) + 4 * eop.num_out * f, e * f)
         del out, dval
         shape = (eop.num_out, eop.num_in)
         lib = {}
@@ -548,6 +562,11 @@ def compare_edge(name: str, eop, src, dst, val, f: int, dtype: str, seed: int,
         res["K5"]["library_ms"] = library_ms(
             lambda: torch.zeros(eop.num_out, device="cuda").index_add_(0, dst_l, g_vec),
             "index_add_")
+        g_mat32 = g_mat.float()
+        res["K5_mat"]["library_ms"] = library_ms(
+            lambda: torch.zeros((eop.num_out, f), device="cuda").index_add_(0, dst_l, g_mat32),
+            "index_add_")
+        del g_mat32
     print("compare " + json.dumps(res), flush=True)
     return res
 
@@ -716,6 +735,11 @@ def compare_pairs(name: str, levels, table_size: int, v: int, f: int, dtype: str
            "ms": cuda_ms(lambda: build_pair_table(h, levels, table_size), 20),
            "plain_ms": cuda_ms(lambda: build_pair_table_plain(h, levels), 5)}
     from dorylus_tpu_torch.ops import reuse_spmm
+    from dorylus_tpu_torch.tools.gather_bench import device_split
+
+    # the K6 launches' own device ms per build (the rest: h's copy)
+    res["kernel_ms"] = device_split(torch, lambda: build_pair_table(h, levels, table_size), 20,
+                                    re.compile("pair_level_kernel"))[0]
 
     base = v
     level_ms = []
@@ -1137,13 +1161,20 @@ def compare_halo(name: str, plan, f: int, dtype: str, seed: int, timed: bool) ->
           "float32")
     del buf, ref, dh
     if timed:
-        res["K9_ms"] = cuda_ms(lambda: halo.row_gather(h, plan.pack), 20)
-        res["K9_plain_ms"] = cuda_ms(lambda: halo.row_gather_plain(h, plan.pack), 5)
+        from dorylus_tpu_torch.tools.gather_bench import device_split, enqueue_us
+
+        passes = {"K9": lambda: halo.row_gather(h, plan.pack),
+                  "K10": lambda: halo.segsum_gather(back, plan.order, plan.rows,
+                                                    plan.row_ptr, plan.vp)}
         if recv is not None:
-            res["K9_place_ms"] = cuda_ms(lambda: halo.row_gather(recv, plan.place), 20)
-        res["K10_ms"] = cuda_ms(
-            lambda: halo.segsum_gather(back, plan.order, plan.rows, plan.row_ptr, plan.vp),
-            20)
+            passes["K9_place"] = lambda: halo.row_gather(recv, plan.place)
+        # pass ms (CUDA events), the kernel's own device ms (torch.profiler)
+        # and the host's microseconds to enqueue one pass
+        for key, fn in passes.items():
+            res[f"{key}_ms"] = cuda_ms(fn, 20)
+            res[f"{key}_kernel_ms"] = device_split(torch, fn, 20)[0]
+            res[f"{key}_host_us"] = enqueue_us(torch, fn)
+        res["K9_plain_ms"] = cuda_ms(lambda: halo.row_gather_plain(h, plan.pack), 5)
         res["K10_plain_ms"] = cuda_ms(
             lambda: halo.segsum_gather_plain(back, plan.order, plan.rows, plan.vp), 5)
         s_rows, row_b = int(plan.pack.shape[0]), f * h.element_size()
@@ -1157,6 +1188,12 @@ def compare_halo(name: str, plan, f: int, dtype: str, seed: int, timed: bool) ->
         res["K9"] = bound(uniq * row_b + 4 * s_rows + s_rows * row_b, 0)
         res["K10"] = bound(n_live * row_b + 4 * n_live + 4 * (plan.vp + 1) + plan.vp * f * 4,
                            n_live * f)
+        if recv is not None:
+            # the placement reads every received row once and writes every
+            # ghost slot (a dead one as zeros), an index a slot
+            slots = int(plan.place.shape[0])
+            res["K9_place"] = bound(recv.shape[0] * row_b + 4 * slots + slots * row_b, 0)
+            res["K9_place"]["library_ms"] = None
         back_live = back[live]
         res["K9"]["library_ms"] = library_ms(lambda: h.index_select(0, live_l), "index_select")
         res["K10"]["library_ms"] = library_ms(
@@ -2245,6 +2282,15 @@ def main() -> None:
 
     for k, fields in entry.items():
         add(k, *fields)
+    # K5, K9 and K10: beside the pass ms, the kernel's own device ms and the
+    # host's microseconds to enqueue one pass; K6: its launches' device ms
+    for k in kernels:
+        for name, row, key in (("segment_sum", ke, "K5_vec"), ("halo_row_gather", kh, "K9"),
+                               ("halo_segsum", kh, "K10")):
+            if k["name"] == name:
+                k.update(kernel_ms=row[f"{key}_kernel_ms"], host_us=row[f"{key}_host_us"])
+        if k["name"] == "pair_build":
+            k["kernel_ms"] = k6["kernel_ms"]
     # The probes, on the grid that fills the card: each input once, each
     # output once; one f32 add per summed element.
     n_ops, tiles = probe_res["n_ops"], 8 * 128

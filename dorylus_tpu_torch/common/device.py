@@ -17,3 +17,16 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
                 "run on the CPU")
         device = "cuda"
     return torch.device(device)
+
+
+# PyTorch's own handle of the current stream, without building a Stream
+# object per call (what torch.cuda.current_stream(i).cuda_stream returns).
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_handle(index: int) -> int:
+    """The raw cudaStream_t (an int) of the current stream on card `index`,
+    for a kernel launch."""
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream

@@ -21,7 +21,13 @@
 //                   the gout rows serves dh and dval (GAT on the edgewise
 //                   path, every layer);
 //   K5 segment_sum  out[r] = sum_{e in [ptr[r], ptr[r+1])} g[e], for (E,)
-//                   and (E, F) cotangents: take_sorted's backward.
+//                   and (E, F) cotangents: take_sorted's backward. The
+//                   (E,) form (GAT's attention cotangent, 11.65M edges at
+//                   Reddit scale, 47 MB) reads g in 16-byte chunks, a team
+//                   of 4-32 lanes a row sized from the mean row length,
+//                   and a warp for a row of more than 128 chunks (see
+//                   `segment_sum_team_kernel`); the (E, F) form gives a
+//                   warp a row, lanes across F.
 //
 // K3 and K4 are the CSR team of the gather core (gather_pass.cuh,
 // `csr_pass_kernel`): one launch a pass, a group of 8-32 lanes reads a row
@@ -48,6 +54,7 @@
 namespace {
 
 using dorylus::csr_pass_kernel;
+using dorylus::kFullMask;
 using dorylus::CsrParams;
 using dorylus::kPassThreads;
 using dorylus::to_float;
@@ -83,20 +90,120 @@ segment_sum_kernel(const T* __restrict__ g, int f,
   }
 }
 
-// (E,) cotangent: lanes across the row's edges, then a warp sum.
+// (E,) cotangent. A team of G lanes sums a row: the row's edges lie in
+// 16-byte chunks of g (chunk c holds the elements [c*V - head, c*V - head +
+// V), V = 16 / sizeof(T), head = the elements between g and the 16-byte
+// boundary below it, so a view of any alignment reads whole aligned
+// chunks), lane j takes chunks j, j + G, ..., two in flight, keeps the
+// elements of its row, and the team adds its lanes in a fixed butterfly;
+// the team's first lane writes the row. A chunk that reaches past either
+// end of g is read element by element. A row of more than kHubChunks chunks
+// is left by its team to the whole warp, which walks the warp's hub rows
+// one after the other after its teams' rows (a warp's 32 lanes, 32 chunks a
+// step). One writer a row, the same order on every run.
+constexpr int kHubChunks = 128;
+
 template <typename T>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-segment_sum_vec_kernel(const T* __restrict__ g,
-                       const int32_t* __restrict__ row_ptr, int n_rows,
-                       float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (r >= n_rows) return;
+struct Chunk {
+  static constexpr int V = 16 / sizeof(T);
+  // The sum of the elements of chunk c that lie in [b, e), in order.
+  static __device__ __forceinline__ float sum(const T* __restrict__ g, int64_t n, int head,
+                                              int64_t c, int64_t b, int64_t e) {
+    const int64_t lo = c * V - head;
+    float acc = 0.f;
+    if (lo >= 0 && lo + V <= n) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(g + lo);
+      const T* x = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        if (lo + k >= b && lo + k < e) acc += to_float(x[k]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        if (lo + k >= b && lo + k < e) acc += to_float(g[lo + k]);
+      }
+    }
+    return acc;
+  }
+};
+
+// The sum of g over [b, e) by the n lanes tl = 0..n-1 that share `mask`,
+// chunks tl, tl + n, ... of the row, two a step; each lane's share.
+template <typename T>
+__device__ __forceinline__ float lane_share(const T* __restrict__ g, int64_t n_el, int head,
+                                            int64_t b, int64_t e, int tl, int n) {
+  constexpr int V = Chunk<T>::V;
   float acc = 0.f;
-  const int end = row_ptr[r + 1];
-  for (int e = row_ptr[r] + lane; e < end; e += 32) acc += to_float(g[e]);
-  acc = warp_sum(acc);
-  if (lane == 0) out[r] = acc;
+  if (b >= e) return acc;
+  const int64_t c_lo = (b + head) / V, c_hi = (e - 1 + head) / V;
+  for (int64_t c = c_lo + tl; c <= c_hi; c += 2 * n) {
+    const float a0 = Chunk<T>::sum(g, n_el, head, c, b, e);
+    const float a1 = c + n <= c_hi ? Chunk<T>::sum(g, n_el, head, c + n, b, e) : 0.f;
+    acc += a0;
+    acc += a1;
+  }
+  return acc;
+}
+
+template <typename T, int G>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+segment_sum_team_kernel(const T* __restrict__ g, int64_t n_el, int head,
+                        const int32_t* __restrict__ row_ptr, int n_rows,
+                        float* __restrict__ out) {
+  constexpr int V = Chunk<T>::V;
+  const int lane = threadIdx.x & 31;
+  const int tl = lane & (G - 1);
+  const unsigned mask = G == 32 ? kFullMask : ((1u << G) - 1u) << (lane & ~(G - 1));
+  const int r = (blockIdx.x * 32 * kWarpsPerBlock + threadIdx.x) / G;
+  int64_t b = 0, e = 0;
+  if (r < n_rows) {
+    b = row_ptr[r];
+    e = row_ptr[r + 1];
+  }
+  const bool hub = G < 32 && e > b && (e - 1 + head) / V - (b + head) / V >= kHubChunks;
+  if (r < n_rows && !hub) {
+    float acc = lane_share(g, n_el, head, b, e, tl, G);
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(mask, acc, o);
+    if (tl == 0) out[r] = acc;
+  }
+  if (G < 32) {
+    // the warp's hub rows, by the whole warp
+    unsigned hubs = __ballot_sync(kFullMask, hub && tl == 0);
+    while (hubs) {
+      const int leader = __ffs(hubs) - 1;
+      hubs &= hubs - 1;
+      const int64_t hb = __shfl_sync(kFullMask, b, leader);
+      const int64_t he = __shfl_sync(kFullMask, e, leader);
+      const float acc = warp_sum(lane_share(g, n_el, head, hb, he, lane, 32));
+      if (lane == leader) out[r] = acc;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_segment_sum_vec(int team, const void* g, int64_t n_el,
+                                   const int32_t* row_ptr, int n_rows, float* out,
+                                   cudaStream_t s) {
+  const T* gp = static_cast<const T*>(g);
+  // the elements between g and the 16-byte boundary at or below it
+  const int head = (int)((reinterpret_cast<uintptr_t>(g) & 15) / sizeof(T));
+  const dim3 block(32 * kWarpsPerBlock);
+  const int rows_a_block = 32 * kWarpsPerBlock / team;
+  const int blocks = (n_rows + rows_a_block - 1) / rows_a_block;
+  switch (team) {
+    case 4: segment_sum_team_kernel<T, 4><<<blocks, block, 0, s>>>(gp, n_el, head, row_ptr,
+                                                                    n_rows, out); break;
+    case 8: segment_sum_team_kernel<T, 8><<<blocks, block, 0, s>>>(gp, n_el, head, row_ptr,
+                                                                    n_rows, out); break;
+    case 16: segment_sum_team_kernel<T, 16><<<blocks, block, 0, s>>>(gp, n_el, head, row_ptr,
+                                                                      n_rows, out); break;
+    case 32: segment_sum_team_kernel<T, 32><<<blocks, block, 0, s>>>(gp, n_el, head, row_ptr,
+                                                                      n_rows, out); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 dim3 row_grid(int n_rows, int f, int cols_per_warp) {
@@ -104,15 +211,13 @@ dim3 row_grid(int n_rows, int f, int cols_per_warp) {
               (f + cols_per_warp - 1) / cols_per_warp);
 }
 
+// (E, F) cotangent: a warp a row, lanes across F.
 template <typename T>
-void segment_sum(const void* g, int f, const int32_t* row_ptr, int n_rows,
-                 float* out, cudaStream_t s) {
+cudaError_t segment_sum_rows(const void* g, int f, const int32_t* row_ptr, int n_rows,
+                             float* out, cudaStream_t s) {
   const dim3 block(32 * kWarpsPerBlock);
   const T* gp = static_cast<const T*>(g);
-  if (f == 1) {
-    segment_sum_vec_kernel<T><<<row_grid(n_rows, 1, 1), block, 0, s>>>(
-        gp, row_ptr, n_rows, out);
-  } else if (f <= 32) {
+  if (f <= 32) {
     segment_sum_kernel<T, 1><<<row_grid(n_rows, f, 32), block, 0, s>>>(
         gp, f, row_ptr, n_rows, out);
   } else if (f <= 64) {
@@ -122,6 +227,7 @@ void segment_sum(const void* g, int f, const int32_t* row_ptr, int n_rows,
     segment_sum_kernel<T, 4><<<row_grid(n_rows, f, 128), block, 0, s>>>(
         gp, f, row_ptr, n_rows, out);
   }
+  return cudaGetLastError();
 }
 
 template <typename T, bool kSum, bool kDot>
@@ -196,10 +302,12 @@ int edge_csr_pass(int device, int dtype, int mode, int g, int wide, int n_blocks
   return static_cast<int>(err);
 }
 
-// f == 1 is the (E,) cotangent.
-int edge_segment_sum(int device, int dtype, const void* g, int f,
-                     const void* row_ptr, int n_rows, void* out,
-                     void* stream) {
+// K5. g: (n_edges,) when f == 1 (the (E,) cotangent, any alignment of its
+// element type; team: lanes a row, 4, 8, 16 or 32, ops/spmm.py
+// `segment_sum_geometry`), else (n_edges, f) (a warp a row, team unused); row_ptr: n_rows + 1 int32 offsets; out: n_rows f32
+// (times f), every row written.
+int edge_segment_sum(int device, int dtype, const void* g, int f, long long n_edges,
+                     const void* row_ptr, int n_rows, int team, void* out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_rows <= 0 || f <= 0) return 0;
@@ -207,13 +315,15 @@ int edge_segment_sum(int device, int dtype, const void* g, int f,
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    segment_sum<float>(g, f, p, n_rows, o, s);
+    err = f == 1 ? launch_segment_sum_vec<float>(team, g, n_edges, p, n_rows, o, s)
+                 : segment_sum_rows<float>(g, f, p, n_rows, o, s);
   } else if (dtype == 1) {
-    segment_sum<__nv_bfloat16>(g, f, p, n_rows, o, s);
+    err = f == 1 ? launch_segment_sum_vec<__nv_bfloat16>(team, g, n_edges, p, n_rows, o, s)
+                 : segment_sum_rows<__nv_bfloat16>(g, f, p, n_rows, o, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 const char* edge_error_string(int code) {

@@ -11,10 +11,19 @@
 //   Packs the rows each peer needs (idx = the send lists) and, on the exact
 //   wire, places the received rows into the padded ghost layout (idx = a
 //   host-built slot map, -1 for the slots past a pair's exact count, which
-//   stay zero). Bound by bytes: it reads and writes each row once. A row is
-//   copied in the widest unit (16, 8, 4 or 2 bytes) that divides its byte
-//   width, neighbouring threads on neighbouring units, so F = 128 moves 16
-//   bytes a thread and F = 41 still moves whole elements.
+//   stay zero). Bound by bytes: it reads each row it names and writes each
+//   output row once, 14-120 MB at rank 0's Reddit shard, a few tens of
+//   microseconds. A team of g lanes owns an output row (the team sized from
+//   the row's bytes, parallel/halo.py `row_gather_geometry`); one lane reads
+//   the row's index and the team shares it by shuffle; a team issues the
+//   loads of kRows rows before it stores any, and walks its rows
+//   grid-stride, with no division. A row moves in the widest unit of 16, 8,
+//   4 or 2 bytes that divides its bytes, lane j on units j, j + g, ...: the
+//   rows of F = 128 move 16 bytes a lane, F = 41 4 bytes (f32) or 2 (bf16).
+//   (Realigning F = 41's rows into 16-byte blocks with funnel shifts, and
+//   their heads and tails an element at a time, ran 1.3-1.6x slower on the
+//   H100: PERF.md, the K9 findings.) A -1 slot reads nothing and writes
+//   zeros.
 //
 // K10, gathered sorted segment-sum:
 //   out[r, :] = sum_{j in [row_ptr[r], row_ptr[r+1])} float(g[order[j], :])
@@ -38,47 +47,78 @@ using dorylus::to_float;
 
 constexpr int kThreads = 256;
 constexpr int kWarpsPerBlock = 8;
+constexpr int kRows = 4;  // rows a K9 team has in flight
 
 template <typename U>
-__device__ __forceinline__ U zero_unit();
-template <>
-__device__ __forceinline__ uint4 zero_unit<uint4>() {
-  return make_uint4(0u, 0u, 0u, 0u);
-}
-template <>
-__device__ __forceinline__ uint2 zero_unit<uint2>() {
-  return make_uint2(0u, 0u);
-}
-template <>
-__device__ __forceinline__ uint32_t zero_unit<uint32_t>() {
-  return 0u;
-}
-template <>
-__device__ __forceinline__ uint16_t zero_unit<uint16_t>() {
-  return 0;
+__device__ __forceinline__ U zero_unit() {
+  return U{};
 }
 
-// One thread copies one unit of one output row.
-template <typename U>
+// The lanes of this lane's team of g (a power of two, 4..32) in its warp.
+template <int G>
+__device__ __forceinline__ unsigned team_mask() {
+  if (G == 32) return kFullMask;
+  return ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+}
+
+// Lane j of the team copies units j, j + g, ... of kRows rows, S of them a
+// row before the next column chunk.
+template <typename U, int G, int S>
 __global__ void __launch_bounds__(kThreads)
-row_gather_kernel(const U* __restrict__ in, const int32_t* __restrict__ idx,
-                  int units_per_row, int64_t total, U* __restrict__ out) {
-  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= total) return;
-  const int64_t row = t / units_per_row;
-  const int c = (int)(t - row * units_per_row);
-  const int s = idx[row];
-  out[t] = s >= 0 ? in[(int64_t)s * units_per_row + c] : zero_unit<U>();
+row_gather_units(const U* __restrict__ in, const int32_t* __restrict__ idx, int units,
+                 int n_out, U* __restrict__ out) {
+  const int tl = threadIdx.x & (G - 1);
+  const unsigned mask = team_mask<G>();
+  const int n_teams = gridDim.x * (kThreads / G);
+  for (int r0 = (blockIdx.x * kThreads + threadIdx.x) / G * kRows; r0 < n_out;
+       r0 += n_teams * kRows) {
+    const int my = tl < kRows && r0 + tl < n_out ? idx[r0 + tl] : -1;
+    int src[kRows];
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) src[k] = __shfl_sync(mask, my, k, G);
+    for (int c0 = 0; c0 < units; c0 += G * S) {
+      U v[kRows][S];
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const int c = c0 + s * G + tl;
+          v[k][s] = src[k] >= 0 && c < units ? in[(int64_t)src[k] * units + c]
+                                               : zero_unit<U>();
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        if (r0 + k >= n_out) break;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const int c = c0 + s * G + tl;
+          if (c < units) out[(int64_t)(r0 + k) * units + c] = v[k][s];
+        }
+      }
+    }
+  }
+}
+
+template <typename U, int G, int S>
+cudaError_t launch_units(const void* in, const int32_t* idx, int rb, int n_out, void* out,
+                         int blocks, cudaStream_t s) {
+  row_gather_units<U, G, S><<<blocks, kThreads, 0, s>>>(
+      static_cast<const U*>(in), idx, rb / (int)sizeof(U), n_out, static_cast<U*>(out));
+  return cudaGetLastError();
 }
 
 template <typename U>
-void launch_gather(const void* in, const int32_t* idx, int row_bytes,
-                   int n_out, void* out, cudaStream_t stream) {
-  const int units = row_bytes / (int)sizeof(U);
-  const int64_t total = (int64_t)n_out * units;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  row_gather_kernel<U><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const U*>(in), idx, units, total, static_cast<U*>(out));
+cudaError_t launch_units_g(int g, int steps, const void* in, const int32_t* idx, int rb,
+                           int n_out, void* out, int blocks, cudaStream_t s) {
+  switch (g * 4 + steps) {
+    case 4 * 4 + 1: return launch_units<U, 4, 1>(in, idx, rb, n_out, out, blocks, s);
+    case 8 * 4 + 1: return launch_units<U, 8, 1>(in, idx, rb, n_out, out, blocks, s);
+    case 16 * 4 + 1: return launch_units<U, 16, 1>(in, idx, rb, n_out, out, blocks, s);
+    case 32 * 4 + 1: return launch_units<U, 32, 1>(in, idx, rb, n_out, out, blocks, s);
+    case 32 * 4 + 2: return launch_units<U, 32, 2>(in, idx, rb, n_out, out, blocks, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, int NF>
@@ -151,28 +191,35 @@ extern "C" {
 
 // K9. in: rows of row_bytes bytes each (any element type; the copy is
 // bitwise); idx: n_out int32 row ids, negative = a zero row; out: n_out rows
-// of row_bytes bytes. in and out must be 16-byte aligned. Returns the CUDA
-// error code of the launch. Launches on `stream`; does not synchronise and
-// allocates nothing.
-int halo_row_gather(int device, const void* in, int row_bytes,
-                    const void* idx, int n_out, void* out, void* stream) {
+// of row_bytes bytes. in and out must be 16-byte aligned. The launch
+// (parallel/halo.py `row_gather_geometry`): unit = 16, 8, 4 or 2, the bytes
+// a lane moves at once (row_bytes a multiple of it); g: lanes a team (4, 8,
+// 16 or 32); steps: units a lane a row per column chunk (1, or 2 with g =
+// 32); blocks of 256 threads, each team kRows = 4 rows at a time,
+// grid-stride. Returns the CUDA error code of the launch. Launches on
+// `stream`; does not synchronise and allocates nothing.
+int halo_row_gather(int device, const void* in, int row_bytes, const void* idx, int n_out,
+                    void* out, int unit, int g, int steps, int blocks, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_out <= 0 || row_bytes <= 0) return 0;
+  if (n_out <= 0 || row_bytes <= 0 || blocks <= 0) return 0;
+  if (unit <= 0 || row_bytes % unit != 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto* idx_i = static_cast<const int32_t*>(idx);
   auto s = static_cast<cudaStream_t>(stream);
-  if (row_bytes % 16 == 0) {
-    launch_gather<uint4>(in, idx_i, row_bytes, n_out, out, s);
-  } else if (row_bytes % 8 == 0) {
-    launch_gather<uint2>(in, idx_i, row_bytes, n_out, out, s);
-  } else if (row_bytes % 4 == 0) {
-    launch_gather<uint32_t>(in, idx_i, row_bytes, n_out, out, s);
-  } else if (row_bytes % 2 == 0) {
-    launch_gather<uint16_t>(in, idx_i, row_bytes, n_out, out, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  switch (unit) {
+    case 16: err = launch_units_g<uint4>(g, steps, in, idx_i, row_bytes, n_out, out, blocks, s);
+      break;
+    case 8: err = launch_units_g<uint2>(g, steps, in, idx_i, row_bytes, n_out, out, blocks, s);
+      break;
+    case 4: err = launch_units_g<uint32_t>(g, steps, in, idx_i, row_bytes, n_out, out, blocks,
+                                           s);
+      break;
+    case 2: err = launch_units_g<uint16_t>(g, steps, in, idx_i, row_bytes, n_out, out, blocks,
+                                           s);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 // K10. dtype: 0 = float32 g, 1 = bfloat16 g. order: int32 row ids into g,

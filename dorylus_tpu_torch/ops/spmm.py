@@ -52,11 +52,12 @@ op as `spmm_edgewise`).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
-from dorylus_tpu_torch.common.device import resolve_device
+from dorylus_tpu_torch.common.device import resolve_device, stream_handle
 from dorylus_tpu_torch.ops import cuda_build
 from dorylus_tpu_torch.ops.gather_parts import csr_geometry, gather_table
 
@@ -121,6 +122,80 @@ def segment_sum_plain(g: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
     return out.index_add_(0, _rows_of(row_ptr), g.float())
 
 
+# ---- K5's (E,) launch geometry, and the pass walked as the kernel runs it ----
+
+SEGSUM_WARPS = 8  # warps of a K5 block (edge_spmm.cu kWarpsPerBlock)
+HUB_CHUNKS = 128  # a row of more chunks is the warp's (edge_spmm.cu kHubChunks)
+
+
+@functools.lru_cache(maxsize=256)
+def segment_sum_geometry(n_rows: int, n_edges: int, itemsize: int) -> tuple[int, int]:
+    """(team, blocks) of K5's (E,) pass (edge_spmm.cu
+    `segment_sum_team_kernel`): lanes a row, so that the team's 16-byte
+    loads (16 / itemsize elements a lane) cover about half the mean row a
+    step, a power of two in 4..32 (Reddit, 50 edges a row in f32: 8); one
+    team a row, 256 / team rows a block."""
+    per_lane = 16 // itemsize
+    want = -(-n_edges // max(n_rows, 1)) // (2 * per_lane)
+    team = min(32, max(4, 1 << max(want - 1, 0).bit_length()))
+    return team, -(-n_rows // (32 * SEGSUM_WARPS // team))
+
+
+def walk_segment_sum(g: torch.Tensor, row_ptr: torch.Tensor, head: int = 0) -> tuple:
+    """K5's (E,) pass computed team by team as `segment_sum_team_kernel`
+    runs it, in plain torch: g's elements in 16-byte chunks counted from
+    `head` elements before g (g's offset from a 16-byte boundary), lane j
+    of a team on chunks j, j + team, ..., two a step, its elements of the
+    row summed in order, the lanes added by the butterfly; a row of more
+    than HUB_CHUNKS chunks by the warp's 32 lanes. Returns (out (rows,) f32,
+    writes per row, chunks read element by element (reaching past g's
+    ends), the hub rows)."""
+    n_rows, n_el = row_ptr.shape[0] - 1, g.shape[0]
+    v = 16 // g.element_size()
+    team, blocks = segment_sum_geometry(n_rows, n_el, g.element_size())
+    gf = g.float()
+    out = torch.zeros(n_rows)
+    writes = torch.zeros(n_rows, dtype=torch.int64)
+    scalar, hubs = set(), []
+    rp = row_ptr.long().tolist()
+
+    def chunk_sum(c, b, e):
+        lo = c * v - head
+        if not (lo >= 0 and lo + v <= n_el):
+            scalar.add(c)
+        acc = torch.zeros((), dtype=torch.float32)
+        for k in range(v):
+            if b <= lo + k < e:
+                acc = acc + gf[lo + k]
+        return acc
+
+    def lanes(b, e, n):
+        acc = [torch.zeros((), dtype=torch.float32) for _ in range(n)]
+        if b < e:
+            c_lo, c_hi = (b + head) // v, (e - 1 + head) // v
+            for tl in range(n):
+                for c in range(c_lo + tl, c_hi + 1, 2 * n):
+                    a0 = chunk_sum(c, b, e)
+                    a1 = chunk_sum(c + n, b, e) if c + n <= c_hi else torch.zeros(())
+                    acc[tl] = acc[tl] + a0
+                    acc[tl] = acc[tl] + a1
+        o = n // 2
+        while o:  # the butterfly: lane tl adds lane tl ^ o
+            acc = [acc[tl] + acc[tl ^ o] for tl in range(n)]
+            o //= 2
+        return acc[0]
+
+    for r in range(min(n_rows, blocks * 32 * SEGSUM_WARPS // team)):
+        b, e = rp[r], rp[r + 1]
+        if team < 32 and e > b and (e - 1 + head) // v - (b + head) // v >= HUB_CHUNKS:
+            hubs.append(r)
+            out[r] = lanes(b, e, 32)
+        else:
+            out[r] = lanes(b, e, team)
+        writes[r] += 1
+    return out, writes, scalar, hubs
+
+
 # ---- CUDA kernels: build, bind, launch ----
 
 
@@ -133,7 +208,7 @@ def build_kernel() -> ctypes.CDLL:
     lib, info = cuda_build.load(_CSRC)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.edge_csr_pass.argtypes = [ci] * 6 + [vp, vp, ci, ci] + [vp] * 4 + [ci, ci] + [vp] * 3
-    lib.edge_segment_sum.argtypes = [ci, ci, vp, ci, vp, ci, vp, vp]
+    lib.edge_segment_sum.argtypes = [ci, ci, vp, ci, ctypes.c_longlong, vp, ci, ci, vp, vp]
     for fn in (lib.edge_csr_pass, lib.edge_segment_sum):
         fn.restype = ci
     lib.edge_error_string.argtypes = [ci]
@@ -175,7 +250,7 @@ def _dev_index(dev: torch.device) -> int:
 
 
 def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    return stream_handle(_dev_index(dev))
 
 
 def _launch_csr(name: str, mode: int, tab, own, row_ptr, col, val, perm, out, dval) -> None:
@@ -247,18 +322,27 @@ def _launch_csr_spmm_dval(gout, h, t_row_ptr, t_col, val, order, out, dval) -> N
 
 
 def _launch_segment_sum(g, row_ptr, out) -> None:
+    """Launch K5 on g (E,) or (E, F) over a CSR's row_ptr. Checks per call
+    what a call can change (devices, dtypes, shapes, contiguity) in one
+    expression, and explains a failure only then; row_ptr's values are
+    checked where the CSR is built (`EdgeSpMM`)."""
     global SEGSUM_LAUNCHES
-    dev = g.device
-    _check_launch("segment_sum", [g], [], row_ptr, dev)
-    _check(g.dim() in (1, 2), f"segment_sum: g has {g.dim()} dims")
-    _check(out.dtype == torch.float32
-           and out.shape == (row_ptr.shape[0] - 1,) + tuple(g.shape[1:]),
-           f"segment_sum: out {tuple(out.shape)} {out.dtype}")
-    lib = build_kernel()
-    code = lib.edge_segment_sum(
-        _dev_index(dev), _DTYPE_CODE[g.dtype], g.data_ptr(),
-        g.shape[1] if g.dim() == 2 else 1, row_ptr.data_ptr(), out.shape[0],
-        out.data_ptr(), _stream(dev))
+    di = g.get_device()
+    n_rows = row_ptr.shape[0] - 1
+    if not (di >= 0 and g.dtype in _DTYPE_CODE and row_ptr.dtype == torch.int32
+            and out.dtype == torch.float32 and g.dim() in (1, 2) and row_ptr.dim() == 1
+            and row_ptr.get_device() == di and out.get_device() == di
+            and g.is_contiguous() and row_ptr.is_contiguous() and out.is_contiguous()
+            and out.shape == (n_rows,) + tuple(g.shape[1:])):
+        _check_launch("segment_sum", [g], [], row_ptr, g.device)
+        _check(g.dim() in (1, 2), f"segment_sum: g has {g.dim()} dims")
+        _check(False, f"segment_sum: out {tuple(out.shape)} {out.dtype} on {out.device}")
+    f = g.shape[1] if g.dim() == 2 else 1
+    team, _ = segment_sum_geometry(n_rows, g.shape[0], g.element_size())
+    lib = _lib or build_kernel()
+    code = lib.edge_segment_sum(di, _DTYPE_CODE[g.dtype], g.data_ptr(), f, g.shape[0],
+                                row_ptr.data_ptr(), n_rows, team, out.data_ptr(),
+                                stream_handle(di))
     _raise_on(lib, "edge_segment_sum", code)
     SEGSUM_LAUNCHES += 1
 
@@ -307,13 +391,14 @@ def csr_spmm_dval(gout: torch.Tensor, h: torch.Tensor, t_row_ptr: torch.Tensor,
 
 
 def segment_sum(g: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
-    """K5 -> (rows,) or (rows, F) f32."""
-    if _device_of("segment_sum", g) == "cpu":
-        return segment_sum_plain(g, row_ptr)
-    out = torch.empty((row_ptr.shape[0] - 1,) + tuple(g.shape[1:]),
-                      dtype=torch.float32, device=g.device)
-    _launch_segment_sum(g, row_ptr, out)
-    return out
+    """K5 -> (rows,) or (rows, F) f32. CPU tensors run the plain version;
+    CUDA tensors launch the kernel or raise."""
+    if g.is_cuda:
+        out = g.new_empty((row_ptr.shape[0] - 1,) + tuple(g.shape[1:]), dtype=torch.float32)
+        _launch_segment_sum(g, row_ptr, out)
+        return out
+    _device_of("segment_sum", g)
+    return segment_sum_plain(g, row_ptr)
 
 
 # ---- op + autograd ----
@@ -354,6 +439,8 @@ class EdgeSpMM:
             np.cumsum(np.bincount(idx, minlength=n), out=p[1:])
             return self._t(p)
 
+        # built from the checked edges, so each rises from 0 to e: the
+        # launchers take them as they are, call after call
         self.row_ptr = ptr(dst, num_out)
         self.order = self._t(order)
         inv = np.empty_like(order)

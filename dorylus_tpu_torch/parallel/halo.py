@@ -41,12 +41,13 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional
+import functools
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from dorylus_tpu_torch.common.device import resolve_device
+from dorylus_tpu_torch.common.device import resolve_device, stream_handle
 from dorylus_tpu_torch.graph.partition import Shard, build_recv_plan
 from dorylus_tpu_torch.ops import cuda_build
 from dorylus_tpu_torch.parallel import multihost
@@ -80,6 +81,69 @@ def segsum_gather_plain(g: torch.Tensor, order: torch.Tensor, rows: torch.Tensor
     return out.index_add_(0, rows.long(), g.index_select(0, order.long()).float())
 
 
+# ---- K9's launch geometry, and the copy walked as the kernel runs it ----
+
+THREADS = 256  # threads of a K9 block (halo.cu kThreads)
+TEAM_ROWS = 4  # rows a team has in flight (halo.cu kRows)
+
+
+class RowGatherGeometry(NamedTuple):
+    unit: int  # bytes a lane moves at once: 16, 8, 4 or 2
+    g: int  # lanes a team, one team an output row
+    steps: int  # units a lane a row per column chunk
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def row_gather_geometry(row_bytes: int, n_out: int) -> RowGatherGeometry:
+    """K9's launch for rows of row_bytes bytes: the widest unit of 16, 8, 4
+    or 2 bytes that divides the row; lanes a team, the row's units rounded
+    up to a power of two in 4..32; 2 units a lane a chunk for rows of more
+    than 32 units; blocks enough for every team to hold TEAM_ROWS rows."""
+    if row_bytes <= 0 or row_bytes % 2:
+        raise ValueError(f"halo kernel: rows of {row_bytes} bytes (the kernel takes an even "
+                         f"positive width)")
+    unit = next(u for u in (16, 8, 4, 2) if row_bytes % u == 0)
+    units = row_bytes // unit
+    g = min(32, max(4, 1 << (units - 1).bit_length()))
+    steps = 2 if units > 32 else 1
+    rows_a_block = THREADS // g * TEAM_ROWS
+    return RowGatherGeometry(unit, g, steps, max(1, -(-n_out // rows_a_block)))
+
+
+def walk_row_gather(x: torch.Tensor, idx: torch.Tensor, geo: RowGatherGeometry) -> tuple:
+    """K9 computed team by team as `row_gather_units` runs it, in numpy on
+    the rows' bytes: each block's teams, each team's TEAM_ROWS rows a step,
+    grid-stride, its lanes' units column chunk by column chunk. Returns
+    (out, writes per output byte)."""
+    n_out, f = idx.shape[0], x.shape[1]
+    src_b = x.contiguous().view(torch.uint8).numpy().reshape(-1)
+    rb, u = f * x.element_size(), geo.unit
+    units = rb // u
+    ids = idx.numpy()
+    out = np.zeros(n_out * rb, np.uint8)
+    writes = np.zeros(n_out * rb, np.int64)
+    g, teams = geo.g, geo.blocks * (THREADS // geo.g)
+    for team in range(teams):
+        for r0 in range(team * TEAM_ROWS, n_out, teams * TEAM_ROWS):
+            for r in range(r0, min(r0 + TEAM_ROWS, n_out)):
+                s = int(ids[r])
+                for c0 in range(0, units, g * geo.steps):
+                    for lane in range(g):
+                        for st in range(geo.steps):
+                            c = c0 + st * g + lane
+                            if c < units:
+                                o = r * rb + c * u
+                                out[o: o + u] = (src_b[s * rb + c * u: s * rb + (c + 1) * u]
+                                                 if s >= 0 else 0)
+                                writes[o: o + u] += 1
+    dt = {torch.float32: np.float32, torch.bfloat16: np.uint16}[x.dtype]
+    got = torch.from_numpy(out.view(dt).reshape(n_out, f).copy())
+    if x.dtype == torch.bfloat16:
+        got = got.view(torch.bfloat16)
+    return got, writes.reshape(n_out, rb)
+
+
 # ---- CUDA kernels: build, bind, launch ----
 
 
@@ -91,7 +155,7 @@ def build_kernel() -> ctypes.CDLL:
         return _lib
     lib, info = cuda_build.load(_CSRC)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.halo_row_gather.argtypes = [ci, vp, ci, vp, ci, vp, vp]
+    lib.halo_row_gather.argtypes = [ci, vp, ci, vp, ci, vp, ci, ci, ci, ci, vp]
     lib.halo_row_gather.restype = ci
     lib.halo_segsum.argtypes = [ci, ci, vp, ci, vp, vp, ci, vp, vp]
     lib.halo_segsum.restype = ci
@@ -107,7 +171,9 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"halo kernel: {msg}")
 
 
-def _check_common(x: torch.Tensor, ints: list, out: torch.Tensor) -> None:
+def _refuse(x: torch.Tensor, ints: list, out: torch.Tensor) -> None:
+    """Raise with the reason a launcher's fast check failed (the common
+    part: device, dtype, widths, int32 indices, one device, contiguity)."""
     _check(x.is_cuda, f"input must be a CUDA tensor, got {x.device}")
     _check(x.dtype in _DTYPE_CODE, f"dtype {x.dtype} (kernel takes float32 or bfloat16)")
     _check(x.dim() == 2 and out.dim() == 2 and out.shape[1] == x.shape[1],
@@ -119,27 +185,33 @@ def _check_common(x: torch.Tensor, ints: list, out: torch.Tensor) -> None:
         _check(t.is_contiguous(), "all tensors must be contiguous")
 
 
-def _dev_index(t: torch.Tensor) -> int:
-    return t.device.index if t.device.index is not None else torch.cuda.current_device()
-
-
 def _launch_row_gather(x: torch.Tensor, idx: torch.Tensor, out: torch.Tensor) -> bool:
-    """Launch K9: out[i] = idx[i] >= 0 ? x[idx[i]] : 0. Validates what the
-    kernel assumes and raises on anything it does not take. Returns
-    whether it launched (no output rows: nothing to launch)."""
+    """Launch K9: out[i] = idx[i] >= 0 ? x[idx[i]] : 0. Checks per call
+    what a call can change (devices, dtypes, shapes, contiguity,
+    alignment) in one expression, and explains a failure only then; the
+    index values are checked where the plan is built (`HaloPlan`).
+    Returns whether it launched (no output rows: nothing to launch)."""
     global PACK_LAUNCHES
-    _check_common(x, [idx], out)
-    _check(out.dtype == x.dtype, f"out dtype {out.dtype} differs from {x.dtype}")
-    _check(out.shape[0] == idx.shape[0], "one index per output row")
-    _check(x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0,
-           "buffers must be 16-byte aligned")
-    if out.shape[0] == 0:
+    di = x.get_device()
+    n = out.shape[0]
+    if not (di >= 0 and x.dtype in _DTYPE_CODE and out.dtype == x.dtype
+            and idx.dtype == torch.int32 and x.dim() == 2 and out.dim() == 2
+            and idx.dim() == 1 and out.shape[1] == x.shape[1] and idx.shape[0] == n
+            and idx.get_device() == di and out.get_device() == di and x.is_contiguous()
+            and out.is_contiguous() and idx.is_contiguous() and x.data_ptr() % 16 == 0
+            and out.data_ptr() % 16 == 0):
+        _refuse(x, [idx], out)
+        _check(out.dtype == x.dtype, f"out dtype {out.dtype} differs from {x.dtype}")
+        _check(idx.shape[0] == n, "one index per output row")
+        _check(False, "buffers must be 16-byte aligned")
+    if n == 0:
         return False
     _check(x.shape[0] > 0, "gather from an empty table")
-    lib = build_kernel()
-    code = lib.halo_row_gather(
-        _dev_index(x), x.data_ptr(), x.shape[1] * x.element_size(), idx.data_ptr(),
-        out.shape[0], out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    lib = _lib or build_kernel()
+    rb = x.shape[1] * x.element_size()
+    geo = row_gather_geometry(rb, n)
+    code = lib.halo_row_gather(di, x.data_ptr(), rb, idx.data_ptr(), n, out.data_ptr(),
+                               geo.unit, geo.g, geo.steps, geo.blocks, stream_handle(di))
     if code != 0:
         raise RuntimeError(f"halo_row_gather launch failed: "
                            f"{lib.halo_error_string(code).decode()} ({code})")
@@ -150,18 +222,27 @@ def _launch_row_gather(x: torch.Tensor, idx: torch.Tensor, out: torch.Tensor) ->
 def _launch_segsum(g: torch.Tensor, order: torch.Tensor, row_ptr: torch.Tensor,
                    out: torch.Tensor) -> bool:
     """Launch K10: out[r] = sum_{j in [row_ptr[r], row_ptr[r+1])}
-    float(g[order[j]]); every row of out is written."""
+    float(g[order[j]]); every row of out is written. Checks as K9's
+    launcher does."""
     global HALO_BWD_LAUNCHES
-    _check_common(g, [order, row_ptr], out)
-    _check(out.dtype == torch.float32, f"out dtype {out.dtype} (needs float32)")
-    _check(row_ptr.shape[0] == out.shape[0] + 1, "row_ptr must have rows + 1 entries")
-    if out.shape[0] == 0:
+    di = g.get_device()
+    n = out.shape[0]
+    if not (di >= 0 and g.dtype in _DTYPE_CODE and out.dtype == torch.float32
+            and order.dtype == torch.int32 and row_ptr.dtype == torch.int32
+            and g.dim() == 2 and out.dim() == 2 and order.dim() == 1 and row_ptr.dim() == 1
+            and out.shape[1] == g.shape[1] and row_ptr.shape[0] == n + 1
+            and order.get_device() == di and row_ptr.get_device() == di
+            and out.get_device() == di and g.is_contiguous() and out.is_contiguous()
+            and order.is_contiguous() and row_ptr.is_contiguous()):
+        _refuse(g, [order, row_ptr], out)
+        _check(out.dtype == torch.float32, f"out dtype {out.dtype} (needs float32)")
+        _check(False, "row_ptr must have rows + 1 entries")
+    if n == 0:
         return False
-    lib = build_kernel()
-    code = lib.halo_segsum(
-        _dev_index(g), _DTYPE_CODE[g.dtype], g.data_ptr(), g.shape[1], order.data_ptr(),
-        row_ptr.data_ptr(), out.shape[0], out.data_ptr(),
-        torch.cuda.current_stream(g.device).cuda_stream)
+    lib = _lib or build_kernel()
+    code = lib.halo_segsum(di, _DTYPE_CODE[g.dtype], g.data_ptr(), g.shape[1],
+                           order.data_ptr(), row_ptr.data_ptr(), n, out.data_ptr(),
+                           stream_handle(di))
     if code != 0:
         raise RuntimeError(f"halo_segsum launch failed: "
                            f"{lib.halo_error_string(code).decode()} ({code})")
@@ -174,16 +255,19 @@ def row_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     version; CUDA tensors launch the kernel or raise. A table without rows
     (a rank that received no ghost row) gives zero rows on either device:
     every slot of its placement map is a dead one."""
-    if x.device.type not in ("cpu", "cuda"):
+    if x.is_cuda:
+        if x.shape[0] == 0:
+            return x.new_zeros((idx.shape[0], x.shape[1]))
+        if not x.is_contiguous():
+            x = x.contiguous()
+        out = x.new_empty((idx.shape[0], x.shape[1]))
+        _launch_row_gather(x, idx, out)
+        return out
+    if x.device.type != "cpu":
         raise ValueError(f"row_gather: unsupported device {x.device}")
     if x.shape[0] == 0:
-        return torch.zeros((idx.shape[0], x.shape[1]), dtype=x.dtype, device=x.device)
-    if x.device.type == "cpu":
-        return row_gather_plain(x, idx)
-    x = x.contiguous()
-    out = torch.empty((idx.shape[0], x.shape[1]), dtype=x.dtype, device=x.device)
-    _launch_row_gather(x, idx, out)
-    return out
+        return torch.zeros((idx.shape[0], x.shape[1]), dtype=x.dtype)
+    return row_gather_plain(x, idx)
 
 
 def segsum_gather(g: torch.Tensor, order: torch.Tensor, rows: torch.Tensor,
@@ -192,14 +276,15 @@ def segsum_gather(g: torch.Tensor, order: torch.Tensor, rows: torch.Tensor,
     order entry) serves the plain version, `row_ptr` (its run offsets) the
     kernel. CPU tensors run the plain version; CUDA tensors launch the
     kernel or raise."""
-    if g.device.type == "cpu":
-        return segsum_gather_plain(g, order, rows, num_rows)
-    if g.device.type != "cuda":
+    if g.is_cuda:
+        if not g.is_contiguous():
+            g = g.contiguous()
+        out = g.new_empty((num_rows, g.shape[1]), dtype=torch.float32)
+        _launch_segsum(g, order, row_ptr, out)
+        return out
+    if g.device.type != "cpu":
         raise ValueError(f"segsum_gather: unsupported device {g.device}")
-    g = g.contiguous()
-    out = torch.empty((num_rows, g.shape[1]), dtype=torch.float32, device=g.device)
-    _launch_segsum(g, order, row_ptr, out)
-    return out
+    return segsum_gather_plain(g, order, rows, num_rows)
 
 
 # ---- host-side plans ----
@@ -273,6 +358,16 @@ class HaloPlan:
         live = rows >= 0  # the pad slots sort first
         order, rows = order[live], rows[live]
         row_ptr = np.searchsorted(rows, np.arange(vp + 1))
+
+        # The kernels take these arrays as they are, call after call: check
+        # their values once, here.
+        total = int(np.asarray(recv_cnt).sum())
+        for a, lo, hi, what in ((pack, -1, vp, "pack"), (place, -1, total, "place"),
+                                (unplace, 0, n * mh, "unplace"), (order, 0, len(pack), "order")):
+            if a is not None and len(a) and (int(a.min()) < lo or int(a.max()) >= hi):
+                raise ValueError(f"halo plan: {what} indices outside [{lo}, {hi})")
+        if row_ptr[0] != 0 or row_ptr[-1] != len(order) or (np.diff(row_ptr) < 0).any():
+            raise ValueError("halo plan: row_ptr must rise from 0 to the plan's entries")
 
         def t(a):
             return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(self.device)

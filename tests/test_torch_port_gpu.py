@@ -11,7 +11,12 @@ the non-square reuse pass of a shard, the probes P1-P4 (P3 at 512- and
 256-byte rows), and the degree pair, pair reuse and the edgewise split on 4
 ranks of the one card. K1/K2 and K8 share one gather core: one launch a
 pass (two for a plan past MAX_PARTS parts), the same bits on a second run,
-hub rows of 2,500 slots, fused parts of no ghost or only ghost slots.
+hub rows of 2,500 slots, fused parts of no ghost or only ghost slots. K9 at
+rows of 2, 4, 8 and 16-byte multiples, with -1 slots and a table of one
+row; K5's (E,) teams of 4-32
+lanes, a hub row of 5,000 edges, views at every offset from a 16-byte
+boundary, E = 0, bit for bit against its team-by-team walk; the launchers'
+per-call checks (device, width, rows, contiguity, alignment).
 
 Marked `gpu`: each test skips where torch sees no CUDA device (the kernel
 has no CPU or interpret mode). On a machine with a card and without jax:
@@ -186,6 +191,45 @@ def test_edge_kernels_match_plain(cuda, narrow, f):
     assert spmm.SEGSUM_LAUNCHES == before + 1
 
 
+@pytest.mark.parametrize("mean", [3, 50, 400])
+@pytest.mark.parametrize("narrow", [False, True], ids=["f32", "bf16"])
+def test_segment_sum_teams_hubs_and_views(cuda, narrow, mean):
+    """K5's (E,) pass against its plain version and its team-by-team walk:
+    teams of 4-32 lanes (mean row lengths 3, 50, 400), rows of 0 edges, a
+    row of 5,000 edges (the warp's), g as a view at every element offset
+    from a 16-byte boundary, the same bits twice; E = 0 writes zeros."""
+    from dorylus_tpu_torch.ops import spmm
+
+    rng = np.random.default_rng(mean)
+    deg = rng.poisson(mean, size=3000)
+    deg[::7] = 0
+    deg[11] = 5000
+    rp = torch.tensor(np.concatenate([[0], np.cumsum(deg)]).astype(np.int32), device=cuda)
+    e = int(deg.sum())
+    dt = torch.bfloat16 if narrow else torch.float32
+    base = torch.tensor(rng.normal(size=e + 8).astype(np.float32), device=cuda).to(dt)
+    for off in range(16 // base.element_size()):
+        g = base[off: off + e]
+        before = spmm.SEGSUM_LAUNCHES
+        got = spmm.segment_sum(g, rp)
+        again = spmm.segment_sum(g, rp)
+        torch.cuda.synchronize()
+        assert spmm.SEGSUM_LAUNCHES == before + 2
+        ref = spmm.segment_sum_plain(g, rp)
+        _close(got, ref, False)
+        assert torch.equal(got, again)
+        assert not bool(got[torch.as_tensor(deg == 0, device=cuda)].any())
+        if off <= 1 and mean == 50:
+            walk, writes, _, hubs = spmm.walk_segment_sum(g.cpu(), rp.cpu(), head=off)
+            assert hubs == [11] and bool((writes == 1).all())
+            assert torch.equal(got.cpu(), walk)
+    empty = torch.zeros(0, device=cuda, dtype=dt)
+    zero_rp = torch.zeros(10, dtype=torch.int32, device=cuda)
+    out = spmm.segment_sum(empty, zero_rp)
+    torch.cuda.synchronize()
+    assert out.shape == (9,) and not bool(out.any())
+
+
 @pytest.mark.parametrize("f", [1, 8, 41, 128, 300])
 @pytest.mark.parametrize("narrow", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("graph", ["powerlaw", "dense"])
@@ -284,6 +328,16 @@ def test_edge_kernels_refuse_what_they_do_not_take(cuda):
                                        torch.zeros(len(src), device=cuda))
         with pytest.raises(ValueError, match="dtype"):
             spmm._launch_segment_sum(v_t.to(bad), op.row_ptr, torch.zeros(500, device=cuda))
+    # K5's per-call check: the device, the output's shape, contiguity
+    with pytest.raises(ValueError, match="expected"):
+        spmm._launch_segment_sum(v_t, op.row_ptr.cpu(), torch.zeros(500, device=cuda))
+    with pytest.raises(ValueError, match="out"):
+        spmm._launch_segment_sum(v_t, op.row_ptr, torch.zeros(499, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        spmm._launch_segment_sum(torch.zeros((8, len(src)), device=cuda).t(), op.row_ptr,
+                                 torch.zeros((500, 8), device=cuda))
+    with pytest.raises(ValueError, match="int32"):
+        spmm._launch_segment_sum(v_t, op.row_ptr.long(), torch.zeros(500, device=cuda))
     with pytest.raises(ValueError, match="contiguous"):
         spmm._launch_csr_spmm(torch.zeros((8, 500), device=cuda).t(), op.row_ptr,
                               s_t, v_t, None, out)
@@ -620,12 +674,12 @@ def test_fused_kernel_matches_plain(cuda, static, narrow, f):
         _close(dk.grad, (u * gout).sum(-1), narrow)
 
 
-@pytest.mark.parametrize("f", [1, 41, 128, 300])
+@pytest.mark.parametrize("f", [1, 3, 41, 128, 300])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_halo_kernels_match_plain(cuda, dtype, f):
     """K9 equals the plain gather bit for bit (negative indices give zero
-    rows); K10 equals the plain segment-sum within the f32 tolerance, on
-    both wires' plans of a hub graph's shard."""
+    rows), also from a table of one row and into zero rows; K10 equals the plain segment-sum within the f32
+    tolerance, on both wires' plans of a hub graph's shard."""
     from dorylus_tpu_torch.parallel import halo
 
     sg = _hub_shard()
@@ -652,6 +706,17 @@ def test_halo_kernels_match_plain(cuda, dtype, f):
         torch.cuda.synchronize()
         assert halo.PACK_LAUNCHES > before[0] and halo.HALO_BWD_LAUNCHES > before[1]
         _close(dh, halo.segsum_gather_plain(back, plan.order, plan.rows, plan.vp), False)
+    # -1 slots, rows past the first block's, a table of one row, no rows
+    idx = torch.tensor(rng.integers(-1, 900, size=5003).astype(np.int32), device=cuda)
+    x = torch.tensor(rng.normal(size=(900, f)).astype(np.float32), device=cuda).to(dtype)
+    one = x[:1].clone()
+    idx1 = torch.tensor([0, -1, 0, 0, -1], dtype=torch.int32, device=cuda)
+    before = halo.PACK_LAUNCHES
+    assert torch.equal(halo.row_gather(x, idx), halo.row_gather_plain(x, idx))
+    assert torch.equal(halo.row_gather(one, idx1), halo.row_gather_plain(one, idx1))
+    assert halo.row_gather(x, idx[:0]).shape == (0, f)
+    torch.cuda.synchronize()
+    assert halo.PACK_LAUNCHES == before + 2
 
 
 def test_sharded_kernels_refuse_what_they_do_not_take(cuda):
@@ -687,6 +752,28 @@ def test_sharded_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="int32"):
         halo._launch_row_gather(torch.zeros((4, 8), device=cuda), idx.long(),
                                 torch.zeros((4, 8), device=cuda))
+    # what the per-call check keeps: the device, the width, the output rows,
+    # contiguity and alignment
+    x = torch.zeros((4, 8), device=cuda)
+    with pytest.raises(ValueError, match="input on"):
+        halo._launch_row_gather(x, idx.cpu(), torch.zeros((4, 8), device=cuda))
+    with pytest.raises(ValueError, match="widths differ"):
+        halo._launch_row_gather(x, idx, torch.zeros((4, 6), device=cuda))
+    with pytest.raises(ValueError, match="one index per output row"):
+        halo._launch_row_gather(x, idx, torch.zeros((5, 8), device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        halo._launch_row_gather(torch.zeros((8, 4), device=cuda).t(), idx,
+                                torch.zeros((4, 8), device=cuda))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        halo._launch_row_gather(torch.zeros(40, device=cuda)[1:33].view(4, 8), idx,
+                                torch.zeros((4, 8), device=cuda))
+    with pytest.raises(ValueError, match="rows \\+ 1"):
+        halo._launch_segsum(x, idx, idx, torch.zeros((4, 8), device=cuda))
+    with pytest.raises(ValueError, match="input on"):
+        halo._launch_segsum(x, idx, torch.zeros(5, dtype=torch.int32),
+                            torch.zeros((4, 8), device=cuda))
+    with pytest.raises(ValueError, match="CUDA"):
+        halo._launch_row_gather(x.cpu(), idx.cpu(), torch.zeros((4, 8)))
     assert counts == (hs.FUSED_LAUNCHES, halo.PACK_LAUNCHES, halo.HALO_BWD_LAUNCHES)
 
 
