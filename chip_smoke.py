@@ -4,7 +4,7 @@
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. the card: torch.cuda must see one; print nvidia-smi's name and power
-     limit;
+     limit, and its maximum SM clock (the probes' bounds read it);
   2. build the seven CUDA libraries from ops/csrc/ with nvcc, one process
      each, started together; report which pair miner the host has;
   3. K1 (hybrid-ELL static mode) vs its plain PyTorch version on the card,
@@ -75,11 +75,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
      `bincount`, `index_select`), timed on those inputs;
   4. main path, GCN: Engine.run() of the Reddit-config GCN (602-128-41,
      kernel="hyb", bf16 gather tables) for 3 epochs; losses finite and
-     falling, K1 launches > 0; then a torch.profiler table of 10 train
-     steps (device time by kernel, the device's idle share), as for 4b;
+     falling, K1 launches > 0; the train step's ms, also with staleness 1;
+     then a torch.profiler table of 10 train steps (device time by kernel,
+     the device's idle share), as for 4b;
   4b. main path, GAT: the Reddit-config GAT (kernel="hyb", bf16 gather,
      lr 0.005) for 3 epochs; losses finite and falling, K2 launches > 0,
-     predict() finite (V, 41);
+     predict() finite (V, 41); the step also with staleness 1;
   4c. the edgewise path at full size: GCN and GAT with kernel="xla" for 3
      epochs in f32, each against the same model on kernel="hyb" with f32
      aggregation (the same sums in another order: loss rtol 1e-4); train
@@ -143,6 +144,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
      reuse="pairs": rtol 1e-5;
   6c. only where torch.cuda.device_count() >= 2: phase 6's GCN over NCCL,
      one rank per card; else one line says the NCCL path was not run.
+  7. the command line, through `cli.main` on the card it picks by default,
+     at the Reddit config (602-128-41) on synthetic_graph(232_965, 25, 602,
+     41, seed=8888) (11.6M edges), degree-ascending, one graph for 7a-7d:
+     (a) GCN on hyb with bf16 gather tables, --staleness 1, 4 epochs with a
+     checkpoint every 2, then --resume for 2, an uninterrupted 6-epoch run
+     and a synchronous 2-epoch one: losses finite and falling, K1 launched
+     on every step, the checkpointed run equal to the uninterrupted one's
+     first 4 epochs and the resumed epochs to the loss at the loaded params
+     (rtol 1e-5: a resumed window starts there), S=1 apart from S=0 at
+     epoch 1; (b) `infer` from that checkpoint writes 232,965 finite lines
+     of 41; (c) GAT with --kernel xla --staleness 2 for 3 epochs: K3, its
+     dh fused with K4 and K5 launched, the 3 losses those of the starting
+     params; (d) --shards 4 over gloo on the card, S=1, 3 epochs, one
+     checkpoint: losses within 1e-3 of (a)'s; each sub-phase's seconds;
 K1, K2, K7 and K8 (and the degree passes on K1/K7) are one launch a pass
 over every part of their plan (the gather core, csrc/gather_pass.cuh); their
 timed rows carry the pass ms (CUDA events: the table's cast, the
@@ -157,7 +172,10 @@ backward, the degree, reuse, sharded-degree and sharded-reuse passes, which
 run on K1/K2/K7 and K6 + K2, and the probes P1-P4): beside each kernel's time
 its plain version's, its bound (the bytes it must move over 3.35 TB/s, or
 its operations over 67 TFLOP/s of f32, whichever is larger, from this
-run's inputs) and, where one PyTorch call computes the same function, that
+run's inputs; for the probes what each uses: P1's and P2's shared-memory
+bytes at 128 B a clock on every SM, P4's warp shuffles at one a clock on
+every SM, at the SM clock nvidia-smi reports) and, where one PyTorch call
+computes the same function, that
 call's time (a yardstick only: the port never calls it). Last, the
 contract line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -194,6 +212,9 @@ COMMUNITY = dict(comm=400, core=60, p_core=0.85, seed=0)
 # the tensor cores (the gather kernels multiply and add in f32 registers).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# Shared memory moves 128 bytes a clock on each SM (32 banks of 4 bytes),
+# the rate the probes P1 and P2 use.
+SMEM_BYTES_PER_CLOCK = 128
 RANKS = 4
 
 
@@ -229,6 +250,21 @@ def bound(nbytes: float, flops: float) -> dict:
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bound_bytes": int(nbytes), "bound_flops": int(flops)}
+
+
+def probe_bound(smem_bytes: float, shuffles: float, flops: float, sm_hz: float,
+                n_sms: int) -> dict:
+    """The bound of a probe by what it uses: its shared-memory bytes at
+    SMEM_BYTES_PER_CLOCK a clock on every SM, its warp shuffles at one a
+    clock on every SM (both at the SM clock the card reports), or its f32
+    operations over the f32 rate, whichever is largest."""
+    by_smem = 1e3 * smem_bytes / (SMEM_BYTES_PER_CLOCK * n_sms * sm_hz)
+    by_shfl = 1e3 * shuffles / (n_sms * sm_hz)
+    by_ops = 1e3 * flops / F32_FLOPS
+    ms = max(by_smem, by_shfl, by_ops)
+    return {"bound_ms": ms, "bound_by": "bytes" if ms == by_smem else "operations",
+            "bound_smem_bytes": int(smem_bytes), "bound_shuffles": int(shuffles),
+            "bound_flops": int(flops)}
 
 
 def nbytes(*tensors) -> int:
@@ -956,7 +992,10 @@ def train(g, layers, cfg, label: str):
 
 def main_path(g, layers, cfg, label: str, kernel: str) -> tuple[dict, dict]:
     """A Reddit-config run: falling finite losses, its kernel
-    launched, finite (V, C) predictions; warm epoch and train step ms."""
+    launched, finite (V, C) predictions; warm epoch and train step ms, the
+    step also with staleness 1."""
+    from dorylus_tpu_torch.engine.engine import StaleWindow
+
     eng, rep, counts = train(g, layers, cfg, label)
     losses = [e.loss for e in rep.epochs]
     check(losses[-1] < losses[0], f"{label}: training loss did not fall")
@@ -970,14 +1009,24 @@ def main_path(g, layers, cfg, label: str, kernel: str) -> tuple[dict, dict]:
     # bench.py's eval_every=0 epochs
     step_ms = cuda_ms(lambda: eng._train_epoch(cfg.learning_rate), 5)
     per_step = step_launches(lambda: eng._train_epoch(cfg.learning_rate))
+    # the same step with staleness 1: gradients at the window's oldest copy
+    # (through torch.func.functional_call), then the window's roll
+    window = StaleWindow(eng.params, 1)
+
+    def stale_step():
+        eng._train_epoch(cfg.learning_rate, window.oldest)
+        window.roll(eng.params)
+
+    s1_step_ms = cuda_ms(stale_step, 5)
     print(f"{label} warm epoch (with eval) {warm_epoch_ms:.3f} ms, train step "
-          f"{step_ms:.3f} ms, launches per train step {json.dumps(per_step)}, peak mem "
+          f"{step_ms:.3f} ms (staleness 1: {s1_step_ms:.3f}), launches per train step "
+          f"{json.dumps(per_step)}, peak mem "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     profile_steps(eng, cfg, label)
     del eng
     torch.cuda.empty_cache()
     return counts, {"warm_epoch_ms": warm_epoch_ms, "step_ms": step_ms,
-                    "launches_per_step": per_step}
+                    "s1_step_ms": s1_step_ms, "launches_per_step": per_step}
 
 
 def profile_steps(eng, cfg, label: str, steps: int = 10) -> None:
@@ -1075,6 +1124,7 @@ def compare_fused(name: str, op, f: int, seed: int, timed: bool,
             lambda: hyb_sharded.fused_pass_plain(h, gh, op.fwd, op.n_pure, gd, mode), 3)
         # the backward is K1/K2 over the transpose plan into one buffer
         res["bwd_ms"] = cuda_ms(lambda: op._pass(gout, op.bwd, op.table, mode), 20)
+        kernel_split(res, "bwd", op.bwd, lambda: op._pass(gout, op.bwd, op.table, mode))
         res["bwd_plain_ms"] = cuda_ms(lambda: _hyb_pass_plain(gout, op.bwd, op.table, gd, mode),
                                       3)
         elt = 2 if gd is torch.bfloat16 else 4
@@ -1193,7 +1243,11 @@ def compare_halo(name: str, plan, f: int, dtype: str, seed: int, timed: bool) ->
             # ghost slot (a dead one as zeros), an index a slot
             slots = int(plan.place.shape[0])
             res["K9_place"] = bound(recv.shape[0] * row_b + 4 * slots + slots * row_b, 0)
-            res["K9_place"]["library_ms"] = None
+            # the same function as the pack's (a row gather with -1 dead
+            # slots): index_select of the rows the live slots name
+            place_l = plan.place[plan.place >= 0].long()
+            res["K9_place"]["library_ms"] = library_ms(lambda: recv.index_select(0, place_l),
+                                                       "index_select")
         back_live = back[live]
         res["K9"]["library_ms"] = library_ms(lambda: h.index_select(0, live_l), "index_select")
         res["K10"]["library_ms"] = library_ms(
@@ -1551,6 +1605,140 @@ def sharded_phases(sg, sgc, layers, hyb_f32_losses, kernel_sources) -> dict:
     return {"launches": launches, "timings": timings}
 
 
+def cli_phases(card: str) -> dict:
+    """Phase 7: the command line (dorylus_tpu_torch/cli.py) through
+    `cli.main`, on the card it picks by default, at the Reddit config on
+    `synthetic_graph(232_965, 25, 602, 41, seed=8888)` (11.6M edges after
+    symmetrising), degree-ascending. One graph serves 7a, 7c and 7d: the
+    command's graph loader is memoised on the flags that shape the graph.
+    Every run is held with the launch counts set to 0 just before it and
+    read just after. Returns the sub-phases' seconds."""
+    from dorylus_tpu_torch import cli
+    from dorylus_tpu_torch.graph.dataio import save_dataset
+
+    graphs = {}
+    load_graph = cli.load_graph
+
+    def load_graph_once(args):
+        key = (args.data_dir, args.dataset, args.config, args.synth_vertices,
+               args.synth_degree, args.reorder, args.parts_file)
+        if key not in graphs:
+            graphs[key] = load_graph(args)
+        return graphs[key]
+
+    work = tempfile.mkdtemp(prefix="dorylus_smoke_cli_")
+    times = {}
+
+    def run(label, argv, epochs):
+        """One cli.main call: its seconds, the report's losses, the launch
+        counts; K1 on every step where the run is GCN on hyb."""
+        out = f"{work}/{label}.json"
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(argv + ["--output", out])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        times[label] = time.perf_counter() - t0
+        check(rc == 0, f"phase {label}: cli.main returned {rc}")
+        with open(out) as f:
+            losses = [e["loss"] for e in json.load(f)["epochs"]]
+        print(f"phase {label}: {times[label]:.1f} s, losses {json.dumps(losses)}, launches "
+              f"{json.dumps({k: n for k, n in counts.items() if n})}", flush=True)
+        check(len(losses) == epochs and all(np.isfinite(losses)),
+              f"phase {label}: losses {losses}, want {epochs} finite")
+        return np.array(losses), counts
+
+    def files(d):
+        import os
+
+        return sorted(os.listdir(d))
+
+    graph = ["train", "--dataset", "synthetic", "--synth-vertices", "232965",
+             "--synth-degree", "25", "--config", "reddit", "--reorder", "degree-asc"]
+    gcn = graph + ["--kernel", "hyb", "--agg-bf16", "--model", "gcn", "--eval-every", "2"]
+    ck, ck4 = f"{work}/ck", f"{work}/ck4"
+    cli.load_graph = load_graph_once
+    try:
+        # 7a. S=1 with checkpoints, the resume, the uninterrupted run, S=0
+        t7 = time.perf_counter()
+        a, ca = run("7a_checkpointed", gcn + ["--staleness", "1", "--epochs", "4",
+                                             "--checkpoint-dir", ck, "--checkpoint-every", "2"],
+                    4)
+        check(files(ck) == ["LATEST", "ckpt_00000002.npz", "ckpt_00000004.npz"],
+              f"7a: checkpoint dir holds {files(ck)}")
+        r, cr = run("7a_resumed", gcn + ["--staleness", "1", "--epochs", "2",
+                                        "--checkpoint-dir", ck, "--resume"], 2)
+        u, cu = run("7a_uninterrupted", gcn + ["--staleness", "1", "--epochs", "6"], 6)
+        s0, c0 = run("7a_sync", gcn + ["--epochs", "2"], 2)
+        for label, counts, n in (("checkpointed", ca, 4), ("resumed", cr, 2),
+                                 ("uninterrupted", cu, 6), ("sync", c0, 2)):
+            # 4 K1 passes a GCN step (2 forwards, 2 dh), more for eval
+            check(counts["K1"] >= 4 * n, f"7a {label}: {counts['K1']} K1 launches for {n} steps")
+        # K1 writes the same bits on every call: the checkpointed run is the
+        # uninterrupted one's first 4 epochs. The resumed run's window starts
+        # at the loaded params (epoch 4's), so its epochs 4 and 5 both take
+        # the loss at them, as the uninterrupted run's epoch 5 does.
+        gaps = {"first_4": rel_gap(a, u[:4]), "resumed_4_vs_5": rel_gap(r[:1], u[5:6]),
+                "resumed_5_vs_4": rel_gap(r[1:], r[:1]),
+                "s1_vs_s0_epoch_1": rel_gap(a[1:2], s0[1:2])}
+        print(f"phase 7a relative gaps: {json.dumps(gaps)}", flush=True)
+        check(max(gaps["first_4"], gaps["resumed_4_vs_5"], gaps["resumed_5_vs_4"]) <= 1e-5,
+              f"7a: resume does not continue the uninterrupted run: {gaps}")
+        check(u[-1] < u[0] and s0[1] < s0[0], f"7a: losses {u.tolist()} did not fall")
+        check(gaps["s1_vs_s0_epoch_1"] > 1e-4, "7a: S=1 equals S=0 at epoch 1")
+        times["7a"] = time.perf_counter() - t7
+
+        # 7b. infer from that checkpoint: one line per vertex
+        t7 = time.perf_counter()
+        g = next(iter(graphs.values()))[0]
+        save_dataset(f"{work}/ds", g)
+        preds = f"{work}/preds.txt"
+        reset_counts()
+        rc = cli.main(["infer", "--data-dir", f"{work}/ds", "--config", "reddit",
+                       "--checkpoint-dir", ck, "--out", preds])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check(rc == 0 and counts["K1"] >= 2, f"7b: infer returned {rc}, launches {counts}")
+        p = np.loadtxt(preds, dtype=np.float32)
+        check(p.shape == (g.num_vertices, 41) and bool(np.isfinite(p).all()),
+              f"7b: infer wrote {p.shape} (want ({g.num_vertices}, 41) finite)")
+        times["7b"] = time.perf_counter() - t7
+        print(f"phase 7b: infer wrote {p.shape[0]} lines of {p.shape[1]} in {times['7b']:.1f} s, "
+              f"launches {json.dumps({k: n for k, n in counts.items() if n})}", flush=True)
+        del p
+
+        # 7c. GAT on the edgewise kernels with S=2: the first 3 epochs all
+        # take their gradients (and losses) at the starting params
+        t7 = time.perf_counter()
+        gat, counts = run("7c_gat_xla_s2", graph + ["--kernel", "xla", "--model", "gat",
+                                                   "--learning-rate", "0.005", "--staleness",
+                                                   "2", "--epochs", "3", "--eval-every", "1"], 3)
+        check(all(counts[k] > 0 for k in ("K3", "K3_dh_dval", "K5")),
+              f"7c: launches {json.dumps(counts)}")
+        check(rel_gap(gat[1:], gat[:1].repeat(2)) <= 1e-5,
+              f"7c: S=2 losses {gat.tolist()} not all the starting params' loss")
+        times["7c"] = time.perf_counter() - t7
+
+        # 7d. --shards 4: four ranks on the one card over gloo, S=1, one
+        # checkpoint (rank 0 writes it); the losses are 7a's single-device
+        # ones (bf16 tables rounded alike; summation orders differ)
+        t7 = time.perf_counter()
+        sh, _ = run("7d_shards4", gcn + ["--staleness", "1", "--epochs", "3", "--shards",
+                                        str(RANKS), "--checkpoint-dir", ck4,
+                                        "--checkpoint-every", "3"], 3)
+        check(files(ck4) == ["LATEST", "ckpt_00000003.npz"], f"7d: checkpoints {files(ck4)}")
+        gap = rel_gap(sh, u[:3])
+        print(f"phase 7d: 4 ranks vs one device, max relative loss gap {gap:.3e}", flush=True)
+        check(gap <= 1e-3, f"7d: 4-rank losses differ from one device's by {gap:.3e}")
+        times["7d"] = time.perf_counter() - t7
+    finally:
+        cli.load_graph = load_graph
+        shutil.rmtree(work, ignore_errors=True)
+    times["7"] = sum(times[k] for k in ("7a", "7b", "7c", "7d"))
+    print(f"phase 7 seconds ({card}): " + json.dumps(times), flush=True)
+    return times
+
+
 def main() -> None:
     # 1. the card
     if not torch.cuda.is_available():
@@ -1586,6 +1774,13 @@ def main() -> None:
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     print(f"nvidia-smi: {card}", flush=True)
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60)
+    check(clk.returncode == 0, f"nvidia-smi clocks failed: {clk.stderr.strip()}")
+    sm_hz = 1e6 * float(clk.stdout.strip().splitlines()[0])
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"SM clock (max, nvidia-smi): {sm_hz / 1e6:.0f} MHz, {n_sms} SMs", flush=True)
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}",
           flush=True)
@@ -2186,6 +2381,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     sharded = sharded_phases(sg, sgc, layers, hyb_f32_losses, sources)
 
+    # 7. the command line: checkpoints, resume, staleness, infer, --shards
+    del g, cg
+    torch.cuda.empty_cache()
+    cli_times = cli_phases(card)
+
     def pick(rows, **kw):
         return next(r for r in rows if all(r.get(k) == x for k, x in kw.items()))
 
@@ -2291,24 +2491,28 @@ def main() -> None:
                 k.update(kernel_ms=row[f"{key}_kernel_ms"], host_us=row[f"{key}_host_us"])
         if k["name"] == "pair_build":
             k["kernel_ms"] = k6["kernel_ms"]
-    # The probes, on the grid that fills the card: each input once, each
-    # output once; one f32 add per summed element.
+        if k["name"] == "fused_bwd_pass":
+            k["kernel_ms"] = k8["bwd_kernel_ms"]
+    # The probes, on the grid that fills the card, bound by what each uses:
+    # P1 reads a 4 KB tile from shared memory per op and block (one f32 add
+    # per element), P2 reads and writes it; P3 moves each row it copies
+    # once from device memory; P4 runs 128 warp shuffles per op and warp
+    # (one add per gathered element).
     n_ops, tiles = probe_res["n_ops"], 8 * 128
     p1, p2, p4 = (probe_res[k]["card"] for k in ("P1", "P2", "P4"))
     p3_tab = probe_res["P3"]["tables"]["65536"]
     p3 = p3_tab["card"]
     probe_rows = {
-        "P1": ("probe_dyn_load", ":66", p1, probe_res["P1"]["plain_ms"], bound(
-            probe_res["table_bytes"] + p1["streams"] * (n_ops * 4 + tiles * 4),
-            p1["streams"] * n_ops * tiles)),
-        "P2": ("probe_dyn_rmw", ":76", p2, probe_res["P2"]["plain_ms"], bound(
-            p2["streams"] * (n_ops * 4 + probe_res["table_bytes"]),
-            p2["streams"] * n_ops * tiles)),
+        "P1": ("probe_dyn_load", ":66", p1, probe_res["P1"]["plain_ms"], probe_bound(
+            p1["streams"] * n_ops * tiles * 4, 0, p1["streams"] * n_ops * tiles, sm_hz, n_sms)),
+        "P2": ("probe_dyn_rmw", ":76", p2, probe_res["P2"]["plain_ms"], probe_bound(
+            2 * p2["streams"] * n_ops * tiles * 4, 0, p2["streams"] * n_ops * tiles, sm_hz,
+            n_sms)),
         "P3": ("probe_row_copy", ":123", p3, p3_tab["plain_ms"], bound(
             min(p3_tab["table_bytes"], p3["streams"] * n_ops * 512)
             + p3["streams"] * (n_ops * 4 + 16 * 512), 0)),
-        "P4": ("probe_lane_gather", ":154", p4, probe_res["P4"]["plain_ms"], bound(
-            2 * p4["streams"] * tiles * 4 + 64 * 128 * 4, p4["streams"] * n_ops * tiles)),
+        "P4": ("probe_lane_gather", ":154", p4, probe_res["P4"]["plain_ms"], probe_bound(
+            0, p4["streams"] * n_ops * 128, p4["streams"] * n_ops * tiles, sm_hz, n_sms)),
     }
     for k, (name, line, card_row, plain_ms, row) in probe_rows.items():
         add(k, name, "probe_prims.cu", "tools/probe_pallas_prims.py" + line, probe_launches[k],
@@ -2324,7 +2528,8 @@ def main() -> None:
                                    "gcn_value_ops_bf16": dyn_times,
                                    "sharded_4_ranks": sharded["timings"],
                                    "sharded_reuse_shard0": sharded_reuse_info,
-                                   "degree_pair_vs_combined_shard0": pair_vs_combined}),
+                                   "degree_pair_vs_combined_shard0": pair_vs_combined,
+                                   "cli_seconds": cli_times}),
           flush=True)
     print(f"nvidia-smi: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,7 +5,8 @@ layout and names so each module's counterpart is easy to find:
 
     common/    config, logging, metrics (own copies of the host-side modules)
     graph/     Graph and the synthetic graphs, reordering, the pair miner,
-               the vertex partitioner (own copies, numpy only)
+               the vertex partitioner, the dataset files (own copies,
+               numpy only)
     native.py  ctypes bindings of native/libgraphcore.so (own copy)
     models/    GraphBatch, GCN and GAT (nn.Modules; weights in the JAX
                (in, out) layout), the reference initializers
@@ -14,8 +15,9 @@ layout and names so each module's counterpart is easy to find:
                EdgeSpMM, ShardedHybSpMM, ShardedDegreeSpMM, ShardedReuseSpMM)
                and their hand-written CUDA kernels (ops/csrc/)
     optim/     Adam with the reference math, SGD, LR decay
-    engine/    batch building, the converge monitor, the single-device
-               epoch loop
+    engine/    batch building, the converge monitor, checkpoints, the
+               epoch loop both engines share (with bounded staleness) and
+               the single-device engine
     parallel/  one process per shard over torch.distributed: launch and
                env init (multihost), the halo exchange (halo) and the
                sharded engine (train_step)
@@ -23,6 +25,7 @@ layout and names so each module's counterpart is easy to find:
                loads, read-modify-write, per-row cp.async copies, indexed
                shuffles), the counterparts of tools/probe_pallas_prims.py
     interop.py numpy <-> torch carriers for params and Adam state
+    cli.py     the command line: train, infer, prepare-data, partition
 
 The port imports torch and never jax, and nothing of `dorylus_tpu`: what it
 needs of that package's host-side code it keeps as its own copy, pinned to

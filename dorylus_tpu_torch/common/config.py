@@ -96,8 +96,9 @@ class TrainConfig:
     # Evaluate every N epochs (reference evaluates when eval flag set per chunk).
     eval_every: int = 1
 
-    # Pipeline/async knobs (reference --pipeline / --staleness). The engines
-    # are synchronous; bounded staleness is still to port.
+    # Pipeline/async knobs (reference --pipeline / --staleness). staleness
+    # S > 0 takes each epoch's gradients at weights up to S epochs old (both
+    # engines, engine/engine.py StaleWindow); None or 0 is synchronous.
     pipeline: bool = True
     staleness: Optional[int] = None
 

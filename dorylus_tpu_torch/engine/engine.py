@@ -1,21 +1,38 @@
 """The single-device training engine (port of dorylus_tpu/engine/engine.py
-`Engine` and the sync path of `run_group_loop`).
+`Engine` and `run_group_loop`).
 
 The JAX engine compiles groups of epochs into one `lax.scan` call; PyTorch
-runs eagerly, so here an epoch is a plain Python iteration: loss, backward,
-Adam (or SGD) with the decay_lr schedule, then evaluation on the eval_every
-cadence with the f32 forward on the updated params, the per-epoch log line,
-and the converge state machine's early stop. The final val/test accuracy,
-`predict` and the RunReport are as in JAX.
+runs eagerly, so here an epoch is a plain Python iteration (`run_loop`,
+which both engines share): loss, backward, Adam (or SGD) with the decay_lr
+schedule, then evaluation on the eval_every cadence with the f32 forward on
+the updated params, the per-epoch log line, checkpoints on the
+checkpoint_every cadence, and the converge state machine (the switch to
+synchronous training, the early stop). The final val/test accuracy,
+`predict`, `dump_predictions` and the RunReport are as in JAX. A JAX group
+ends at every eval epoch when a target accuracy is set and at every
+checkpoint epoch, so a monitor fed each epoch switches and stops at the
+epoch JAX's does.
 
-Scope, synchronous (staleness 0): GCN and GAT on kernel="hyb" (GCN on the
-static-mode hybrid-ELL kernel, GAT on its mask mode), on kernel="degree"
-(the degree-padded plans on the same kernels), on kernel="hyb" with
-reuse="pairs" (the pair-reuse rewrite: the pair-table kernel, then the
-mask pass) and on kernel="xla" (the edgewise CSR kernels), with
-kernel="auto" resolved by `resolve_kernel` as in JAX (xla up to 8M edges,
-hyb past). Everything else raises NotImplementedError naming its
-ROADMAP.md item.
+Bounded staleness (staleness = S > 0; the reference's async pipeline,
+pipeline.cpp:95-102, with weight stashing): `StaleWindow` holds S+1
+detached copies of the params; each epoch takes its gradients at the
+oldest (up to S epochs old) through `torch.func.functional_call`, Adam
+applies them to the current params, and the window rolls. Resume and every
+`run()` start a fresh window from the params they hold, as JAX's does (the
+window is not stored in a checkpoint). staleness 0 or None is synchronous.
+
+Checkpoints (engine/checkpoint.py) hold the params and the Adam state in
+the JAX package's npz layout; `resume=True` loads the latest and numbers
+the epochs on from its step (LR schedule, eval cadence, checkpoint steps),
+as JAX's `start_epoch` does.
+
+Scope: GCN and GAT on kernel="hyb" (GCN on the static-mode hybrid-ELL
+kernel, GAT on its mask mode), on kernel="degree" (the degree-padded plans
+on the same kernels), on kernel="hyb" with reuse="pairs" (the pair-reuse
+rewrite: the pair-table kernel, then the mask pass) and on kernel="xla"
+(the edgewise CSR kernels), with kernel="auto" resolved by
+`resolve_kernel` as in JAX (xla up to 8M edges, hyb past). Everything else
+raises NotImplementedError naming its ROADMAP.md item.
 
 reuse="pairs" sizes its pair budget as JAX does (`resolve_reuse_budget`,
 `_max_agg_width`, copied below with the 64 MiB gather-cliff constant, so
@@ -37,8 +54,11 @@ from dorylus_tpu_torch.common.device import resolve_device
 from dorylus_tpu_torch.common.logging import log
 from dorylus_tpu_torch.common.metrics import EpochRecord, RunReport
 from dorylus_tpu_torch.graph.graph import Graph
-from dorylus_tpu_torch.engine.convergence import ConvergeMonitor
 from dorylus_tpu_torch.engine.batch import build_batch
+from dorylus_tpu_torch.engine.checkpoint import (latest_checkpoint, load_checkpoint,
+                                                 save_checkpoint)
+from dorylus_tpu_torch.engine.convergence import ConvergeMonitor
+from dorylus_tpu_torch.interop import adam_state_from_numpy, params_from_numpy
 from dorylus_tpu_torch.models.gat import GAT
 from dorylus_tpu_torch.models.gcn import GCN
 from dorylus_tpu_torch.ops.activations import accuracy_and_loss, row_softmax
@@ -140,10 +160,6 @@ def _unsupported(cfg: TrainConfig, kernel: str) -> Optional[str]:
     checks = [
         (cfg.model not in ("gcn", "gat"), f"model={cfg.model!r}"),
         (kernel not in ("hyb", "xla", "degree"), f"kernel={kernel!r}"),
-        (bool(cfg.staleness), f"staleness={cfg.staleness}: bounded staleness "
-                              "is still to port (queue 1 item 3)"),
-        (bool(cfg.checkpoint_dir) or cfg.resume,
-         "checkpoint_dir/resume: checkpoint interop is queue 1 item 7"),
         (cfg.num_shards > 1 or cfg.feat_shards > 1,
          "num_shards/feat_shards > 1: the sharded engine is queue 1 items "
          "12-13"),
@@ -152,6 +168,123 @@ def _unsupported(cfg: TrainConfig, kernel: str) -> Optional[str]:
          f"compute_dtype={cfg.compute_dtype!r} / agg_dtype={cfg.agg_dtype!r}"),
     ]
     return next((msg for bad, msg in checks if bad), None)
+
+
+def check_staleness(cfg: TrainConfig) -> None:
+    if cfg.staleness is not None and cfg.staleness < 0:
+        raise ValueError(f"staleness={cfg.staleness}: a window of epochs, >= 0")
+
+
+def lr_at(cfg: TrainConfig, epoch: int) -> float:
+    """The learning rate of `epoch` (the reference's decay schedule)."""
+    if not cfg.lr_decay_every:
+        return cfg.learning_rate
+    return decay_lr(cfg.learning_rate, epoch, cfg.lr_decay_every, cfg.lr_decay_factor)
+
+
+class StaleWindow:
+    """The bounded-staleness weight stash (JAX's (S+1)-stacked `history`):
+    S+1 detached copies of the params, all equal to them at the start;
+    `oldest` is the version this epoch's gradients are taken at, and
+    `roll(params)` drops it and appends the just-updated params (reusing
+    its storage)."""
+
+    def __init__(self, params: dict, staleness: int):
+        self.copies = [{k: p.detach().clone().requires_grad_(True)
+                        for k, p in params.items()} for _ in range(staleness + 1)]
+
+    @property
+    def oldest(self) -> dict:
+        return self.copies[0]
+
+    def roll(self, params: dict) -> None:
+        old = self.copies.pop(0)
+        with torch.no_grad():
+            for k, p in params.items():
+                old[k].copy_(p)
+        self.copies.append(old)
+
+
+def resume(eng) -> None:
+    """The resume branch (JAX `Engine.__init__`): with cfg.resume and a
+    checkpoint in cfg.checkpoint_dir, load its params into the model, its
+    Adam state, and number the epochs on from its step."""
+    cfg = eng.cfg
+    eng.start_epoch = 0
+    if not (cfg.resume and cfg.checkpoint_dir):
+        return
+    path = latest_checkpoint(cfg.checkpoint_dir)
+    if path is None:
+        return
+    ck = load_checkpoint(path)
+    # in place, so eng.params (the model's own parameters) stays valid
+    eng.model.load_state_dict(params_from_numpy(ck["params"], eng.device))
+    if ck["opt_state"] is not None and cfg.adam:
+        eng.opt_state = adam_state_from_numpy(ck["opt_state"], eng.device)
+    eng.start_epoch = int(ck["step"])
+    if eng.rank == 0:
+        log("resumed from %s (epoch %d)", path, eng.start_epoch)
+
+
+def checkpoint_due(cfg: TrainConfig, epoch: int) -> bool:
+    return bool(cfg.checkpoint_dir and cfg.checkpoint_every
+                and (epoch + 1) % cfg.checkpoint_every == 0)
+
+
+def run_loop(eng, epochs: int) -> RunReport:
+    """The epoch loop of both engines (JAX `run_group_loop`, one epoch an
+    iteration). The engine supplies `_train_epoch(lr, stale)` (the update;
+    returns the loss), `_stats(mask)` ((correct, loss, count) over every
+    shard), `_maybe_checkpoint(epoch)`, `rank` (0 logs) and the
+    report."""
+    cfg = eng.cfg
+    speak = eng.rank == 0
+    monitor = ConvergeMonitor(cfg.target_accuracy, cfg.switch_threshold)
+    eng.report.notes["kernel"] = eng.kernel_selected
+    eng.report.notes["device"] = str(eng.device)
+    t_run = time.perf_counter()
+    window = StaleWindow(eng.params, cfg.staleness) if cfg.staleness else None
+    # Resume continues the original numbering: LR schedule, eval cadence
+    # and checkpoint steps pick up where the prior run left off.
+    start, end = eng.start_epoch, eng.start_epoch + epochs
+    flags = eval_flags(start, epochs, end, cfg)
+    for i, epoch in enumerate(range(start, end)):
+        t0 = time.perf_counter()
+        loss = eng._train_epoch(lr_at(cfg, epoch),
+                                None if window is None else window.oldest)
+        if window is not None:
+            window.roll(eng.params)
+        acc = None
+        if flags[i]:
+            c, vloss, n = eng._stats(eng.batch.val_mask)
+            acc, vloss = c / max(1.0, n), vloss / max(1.0, n)
+        loss_f = float(loss)  # waits for the device
+        dt_ms = 1e3 * (time.perf_counter() - t0)
+        if acc is not None and speak:
+            log("Epoch %d: %.2f ms, train loss %.4f, val acc %.4f, "
+                "val loss %.4f", epoch, dt_ms, loss_f, acc, vloss)
+        eng.report.add_epoch(EpochRecord(epoch, dt_ms, loss=loss_f, accuracy=acc))
+        eng._maybe_checkpoint(epoch)
+        # Converge state machine (weightserver.cpp:270-294): CLOSE drains
+        # the stale window (async -> sync), DONE stops. The accuracy is
+        # every shard's, so every rank switches and stops together.
+        monitor.update(acc)
+        if window is not None and monitor.synchronous:
+            if speak:
+                log("Converge state CLOSE at epoch %d — switching to sync.", epoch)
+            window = None
+        if monitor.done:
+            if speak:
+                log("Target accuracy %.3f reached at epoch %d — stopping.",
+                    cfg.target_accuracy, epoch)
+            break
+    eng.report.notes["converge_state"] = monitor.state.name
+    eng.report.total_time_s = time.perf_counter() - t_run
+    c, _, n = eng._stats(eng.batch.val_mask)
+    eng.report.final_accuracy = c / max(1.0, n)
+    c, _, n = eng._stats(eng.batch.test_mask)
+    eng.report.test_accuracy = c / max(1.0, n)
+    return eng.report
 
 
 class Engine:
@@ -176,6 +309,7 @@ class Engine:
         if problem is not None:
             raise NotImplementedError(f"dorylus_tpu_torch Engine: {problem} "
                                       "(see ROADMAP.md)")
+        check_staleness(cfg)
         if cfg.reuse == "auto":
             # JAX's payoff gate (engine/engine.py reuse_payoff) is fitted on
             # a TPU; off until re-fit on the H100. At the Reddit scale the
@@ -250,22 +384,28 @@ class Engine:
         self.params = self.model.init_params(seed=cfg.seed)
         self.opt_state = adam_init(self.params) if cfg.adam else None
         self.report = RunReport()
+        resume(self)
         log("dorylus_tpu_torch engine on %s: %s, %d vertices, %d edges, "
             "kernel %s, agg %s", self.device, cfg.model, graph.num_vertices,
             graph.num_edges, self.kernel_selected, cfg.agg_dtype)
 
-    def _evaluate(self, mask: torch.Tensor) -> tuple[float, float, float]:
+    rank = 0  # the one shard: it logs
+
+    def _stats(self, mask: torch.Tensor) -> tuple[float, float, float]:
+        """(correct, loss, count) over the masked rows."""
         with torch.no_grad():
             probs = row_softmax(self.model.forward(self.batch))
             c, loss, n = accuracy_and_loss(probs, self.batch.onehot, mask)
         return float(c), float(loss), float(n)
 
-    def _train_epoch(self, lr: float) -> torch.Tensor:
+    def _train_epoch(self, lr: float, stale: Optional[dict] = None) -> torch.Tensor:
+        """One update; the gradients are taken at `stale` (the staleness
+        window's oldest copy) when given, else at the current params."""
         cfg = self.cfg
-        loss = self.model.loss(self.batch, self.compute_dtype)
+        at = self.params if stale is None else stale
+        loss = self.model.loss(self.batch, self.compute_dtype, params=stale)
         names = list(self.params)
-        grads = dict(zip(names, torch.autograd.grad(
-            loss, [self.params[k] for k in names])))
+        grads = dict(zip(names, torch.autograd.grad(loss, [at[k] for k in names])))
         if cfg.adam:
             self.params, self.opt_state = adam_update(
                 self.params, grads, self.opt_state, lr=lr, beta1=cfg.beta1,
@@ -274,46 +414,16 @@ class Engine:
             self.params = sgd_update(self.params, grads, lr)
         return loss.detach()
 
+    def _maybe_checkpoint(self, epoch: int) -> None:
+        if checkpoint_due(self.cfg, epoch):
+            save_checkpoint(self.cfg.checkpoint_dir, epoch + 1, self.params,
+                            self.opt_state)
+
     def run(self, epochs: Optional[int] = None) -> RunReport:
-        cfg = self.cfg
-        epochs = epochs if epochs is not None else cfg.epochs
-        monitor = ConvergeMonitor(
-            cfg.target_accuracy, cfg.switch_threshold)
-        self.report.notes["kernel"] = self.kernel_selected
-        self.report.notes["device"] = str(self.device)
-        t_run = time.perf_counter()
-        # Like the JAX engine, every run() numbers its epochs from 0 (LR
-        # schedule, eval cadence) while Adam's step counter carries on.
-        flags = eval_flags(0, epochs, epochs, cfg)
-        for epoch in range(epochs):
-            t0 = time.perf_counter()
-            lr = (decay_lr(cfg.learning_rate, epoch, cfg.lr_decay_every,
-                           cfg.lr_decay_factor)
-                  if cfg.lr_decay_every else cfg.learning_rate)
-            loss = self._train_epoch(lr)
-            acc = None
-            if flags[epoch]:
-                c, vloss, n = self._evaluate(self.batch.val_mask)
-                acc, vloss = c / max(1.0, n), vloss / max(1.0, n)
-            loss_f = float(loss)  # waits for the device
-            dt_ms = 1e3 * (time.perf_counter() - t0)
-            if acc is not None:
-                log("Epoch %d: %.2f ms, train loss %.4f, val acc %.4f, "
-                    "val loss %.4f", epoch, dt_ms, loss_f, acc, vloss)
-            self.report.add_epoch(EpochRecord(epoch, dt_ms, loss=loss_f,
-                                              accuracy=acc))
-            monitor.update(acc)
-            if monitor.done:
-                log("Target accuracy %.3f reached at epoch %d — stopping.",
-                    cfg.target_accuracy, epoch)
-                break
-        self.report.notes["converge_state"] = monitor.state.name
-        self.report.total_time_s = time.perf_counter() - t_run
-        c, _, n = self._evaluate(self.batch.val_mask)
-        self.report.final_accuracy = c / max(1.0, n)
-        c, _, n = self._evaluate(self.batch.test_mask)
-        self.report.test_accuracy = c / max(1.0, n)
-        return self.report
+        """Train `epochs` (cfg.epochs by default) from `start_epoch`. A
+        second run() starts again at start_epoch while Adam's step carries
+        on, as JAX's does."""
+        return run_loop(self, epochs if epochs is not None else self.cfg.epochs)
 
     def output(self, path: Optional[str] = None) -> str:
         """Write/return the final report (JAX `Engine.output`; analog of
@@ -329,3 +439,9 @@ class Engine:
             out = (self.model.predict(self.batch) if softmax
                    else self.model.forward(self.batch))
         return out.cpu().numpy()
+
+    def dump_predictions(self, path: str, softmax: bool = False) -> None:
+        """Write per-vertex final-layer outputs, one line per vertex (JAX
+        `Engine.dump_predictions`): what tools/compare_output.py diffs (its
+        line-sum metric needs raw logits; softmax rows always sum to 1)."""
+        np.savetxt(path, self.predict(softmax=softmax), fmt="%.6f")

@@ -102,8 +102,14 @@ class GNN(nn.Module):
 
     def loss(self, batch: GraphBatch,
              compute_dtype: torch.dtype = torch.float32,
-             halo: HaloFn | None = None) -> torch.Tensor:
-        logits = self.forward(batch, compute_dtype, halo)
+             halo: HaloFn | None = None, params: Params | None = None) -> torch.Tensor:
+        """The training loss. params: tensors to run the forward on in
+        place of the model's own parameters, by name (the stale weights of
+        bounded staleness), so gradients are taken with respect to them."""
+        if params is None:
+            logits = self.forward(batch, compute_dtype, halo)
+        else:
+            logits = torch.func.functional_call(self, params, (batch, compute_dtype, halo))
         return masked_softmax_xent(logits, batch.onehot, batch.train_mask,
                                    batch.denom)
 

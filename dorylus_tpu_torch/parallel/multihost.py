@@ -206,6 +206,13 @@ def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
     return torch.stack(parts).to(t.device)
 
 
+def barrier(device: str | torch.device) -> None:
+    """Every rank waits here until all have arrived (a one-element
+    all-reduce, read back on the host); nothing without a group."""
+    if initialized():
+        float(all_reduce_sum(torch.zeros(1, device=device)))
+
+
 # ---- local launch ----
 
 

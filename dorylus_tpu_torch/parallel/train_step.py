@@ -35,14 +35,20 @@ the graph axis, for GCN and GAT, on both halo wire formats:
 With an overlap plan the models get the ghost rows alone from the exchange
 and the local rows' work does not depend on it. (`HaloRecvFn` still waits
 for the exchange before it returns, so nothing runs beside it yet.)
-Tensor parallelism, bounded staleness, checkpoints and profiling raise
-NotImplementedError naming their ROADMAP.md item.
+
+The epoch loop is the single-device engine's (`run_loop`), with its
+bounded staleness, checkpoints and resume (JAX `parallel/train_step.py`
+`:104-200`, `:495-516`): a stale epoch runs its forward and backward, the
+halo exchanges and their reverse included, on every rank at the window's
+oldest copy, and its gradients go into the one flat all-reduce; rank 0
+writes a checkpoint and every rank waits for it at a barrier before the
+next epoch; every rank loads on resume. Tensor parallelism and profiling
+raise NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
@@ -50,10 +56,11 @@ import torch
 
 from dorylus_tpu_torch.common.config import LayerConfig, TrainConfig, resolve_kernel
 from dorylus_tpu_torch.common.logging import log
-from dorylus_tpu_torch.common.metrics import EpochRecord, RunReport
-from dorylus_tpu_torch.engine.convergence import ConvergeMonitor
-from dorylus_tpu_torch.engine.engine import (_DTYPES, _max_agg_width, eval_flags,
-                                             resolve_device, resolve_reuse_budget)
+from dorylus_tpu_torch.common.metrics import RunReport
+from dorylus_tpu_torch.engine.checkpoint import save_checkpoint
+from dorylus_tpu_torch.engine.engine import (_DTYPES, _max_agg_width, check_staleness,
+                                             checkpoint_due, resolve_device,
+                                             resolve_reuse_budget, resume, run_loop)
 from dorylus_tpu_torch.graph.graph import Graph
 from dorylus_tpu_torch.graph.partition import (Shard, ShardMeta, partition_graph,
                                                shard_edges)
@@ -65,7 +72,7 @@ from dorylus_tpu_torch.ops.degree_sharded import ShardedDegreeSpMM
 from dorylus_tpu_torch.ops.hyb_sharded import ShardedHybSpMM
 from dorylus_tpu_torch.ops.reuse_sharded import ShardedReuseSpMM, exchange_rank1_factor
 from dorylus_tpu_torch.ops.spmm import EdgeSpMM
-from dorylus_tpu_torch.optim.adam import adam_init, adam_update, decay_lr, sgd_update
+from dorylus_tpu_torch.optim.adam import adam_init, adam_update, sgd_update
 from dorylus_tpu_torch.parallel import multihost
 from dorylus_tpu_torch.parallel.halo import HaloPlan, make_halo_fn
 
@@ -78,10 +85,6 @@ def _unsupported(cfg: TrainConfig) -> Optional[str]:
         (cfg.kernel not in ("hyb", "xla", "degree"), f"kernel={cfg.kernel!r}"),
         (cfg.feat_shards > 1,
          "feat_shards > 1: tensor parallelism is queue 1 item 13"),
-        (bool(cfg.staleness), f"staleness={cfg.staleness}: bounded staleness "
-                              "is still to port (queue 1 item 3)"),
-        (bool(cfg.checkpoint_dir) or cfg.resume,
-         "checkpoint_dir/resume: checkpoint interop is queue 1 item 7"),
         (cfg.param_dtype != "float32", f"param_dtype={cfg.param_dtype!r}"),
         (cfg.compute_dtype not in _DTYPES or cfg.agg_dtype not in _DTYPES,
          f"compute_dtype={cfg.compute_dtype!r} / agg_dtype={cfg.agg_dtype!r}"),
@@ -168,6 +171,7 @@ class ShardedEngine:
         if problem is not None:
             raise NotImplementedError(f"dorylus_tpu_torch ShardedEngine: {problem} "
                                       "(see ROADMAP.md)")
+        check_staleness(cfg)
         if cfg.reuse == "auto":
             log("reuse auto -> off (the payoff gate's constants are TPU-fitted)")
             cfg = dataclasses.replace(cfg, reuse="off")
@@ -250,6 +254,7 @@ class ShardedEngine:
         self.params = self.model.init_params(seed=cfg.seed)
         self.opt_state = adam_init(self.params) if cfg.adam else None
         self.report = RunReport()
+        resume(self)  # every rank loads
         ghosts = 0 if self.halo_plan is None else int(self.halo_plan.recv_cnt.sum())
         log("dorylus_tpu_torch sharded engine, rank %d/%d on %s (%s): %s, %d local "
             "vertices, %d edges, %d ghosts, max_h %d, kernel %s, overlap %s, halo %s, "
@@ -265,11 +270,15 @@ class ShardedEngine:
             c, loss, cnt = multihost.all_reduce_sum(stats).tolist()
         return c, loss, cnt
 
-    def _train_epoch(self, lr: float) -> torch.Tensor:
+    def _train_epoch(self, lr: float, stale: Optional[dict] = None) -> torch.Tensor:
+        """One update on every rank; the gradients are taken at `stale`
+        (the staleness window's oldest copy) when given, else at the
+        current params."""
         cfg = self.cfg
-        loss = self.model.loss(self.batch, self.compute_dtype, self.halo)
+        at = self.params if stale is None else stale
+        loss = self.model.loss(self.batch, self.compute_dtype, self.halo, params=stale)
         names = list(self.params)
-        grads = torch.autograd.grad(loss, [self.params[k] for k in names])
+        grads = torch.autograd.grad(loss, [at[k] for k in names])
         # One buffer, one all-reduce: the weight gradients and the loss.
         flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)])
         multihost.all_reduce_sum(flat)
@@ -284,44 +293,19 @@ class ShardedEngine:
             self.params = sgd_update(self.params, grads, lr)
         return pieces[-1][0]
 
+    def _maybe_checkpoint(self, epoch: int) -> None:
+        """Rank 0 writes; every rank waits for the file before the next
+        epoch, so none can resume from a half-written one."""
+        if not checkpoint_due(self.cfg, epoch):
+            return
+        if self.rank == 0:
+            save_checkpoint(self.cfg.checkpoint_dir, epoch + 1, self.params,
+                            self.opt_state)
+        multihost.barrier(self.device)
+
     def run(self, epochs: Optional[int] = None) -> RunReport:
-        cfg = self.cfg
-        epochs = epochs if epochs is not None else cfg.epochs
-        monitor = ConvergeMonitor(cfg.target_accuracy, cfg.switch_threshold)
-        self.report.notes["kernel"] = self.kernel_selected
-        self.report.notes["device"] = str(self.device)
         self.report.notes["shards"] = self.n
-        t_run = time.perf_counter()
-        flags = eval_flags(0, epochs, epochs, cfg)
-        for epoch in range(epochs):
-            t0 = time.perf_counter()
-            lr = (decay_lr(cfg.learning_rate, epoch, cfg.lr_decay_every,
-                           cfg.lr_decay_factor)
-                  if cfg.lr_decay_every else cfg.learning_rate)
-            loss = self._train_epoch(lr)
-            acc = None
-            if flags[epoch]:
-                c, vloss, cnt = self._stats(self.batch.val_mask)
-                acc, vloss = c / max(1.0, cnt), vloss / max(1.0, cnt)
-            loss_f = float(loss)  # waits for the device
-            dt_ms = 1e3 * (time.perf_counter() - t0)
-            if acc is not None and self.rank == 0:
-                log("Epoch %d: %.2f ms, train loss %.4f, val acc %.4f, "
-                    "val loss %.4f", epoch, dt_ms, loss_f, acc, vloss)
-            self.report.add_epoch(EpochRecord(epoch, dt_ms, loss=loss_f,
-                                              accuracy=acc))
-            monitor.update(acc)
-            if monitor.done:  # the same accuracy on every rank: all stop
-                log("Target accuracy %.3f reached at epoch %d — stopping.",
-                    cfg.target_accuracy, epoch)
-                break
-        self.report.notes["converge_state"] = monitor.state.name
-        self.report.total_time_s = time.perf_counter() - t_run
-        c, _, cnt = self._stats(self.batch.val_mask)
-        self.report.final_accuracy = c / max(1.0, cnt)
-        c, _, cnt = self._stats(self.batch.test_mask)
-        self.report.test_accuracy = c / max(1.0, cnt)
-        return self.report
+        return run_loop(self, epochs if epochs is not None else self.cfg.epochs)
 
     def profile(self, iters: int = 5) -> dict:
         raise NotImplementedError("ShardedEngine.profile: stage profiling is "
@@ -348,3 +332,11 @@ class ShardedEngine:
             e = np.exp(out - out.max(axis=1, keepdims=True))
             out = e / e.sum(axis=1, keepdims=True)
         return out
+
+    def dump_predictions(self, path: str, softmax: bool = False) -> None:
+        """Per-vertex final-layer outputs in global vertex order, one line
+        per vertex (JAX `ShardedEngine.dump_predictions`). Every rank takes
+        part in the gather; rank 0 writes."""
+        out = self.predict(softmax=softmax)
+        if self.rank == 0:
+            np.savetxt(path, out, fmt="%.6f")

@@ -10,6 +10,10 @@ every comparison is exact).
                        community_core_edges, build_graph (bench.py's)
     graph/reorder.py   degree_order, bfs_order, apply_order
     graph/reuse.py     mine_reuse
+    graph/dataio.py    the bsnap readers and writers (bytes and arrays),
+                       load_dataset on the vendored datasets,
+                       prepare_from_text, the text edge parsers, the parts
+                       files, the int32-range and endpoint checks
     graph/partition.py partition_graph (range and hash, for_gat both ways),
                        every Shard field, build_recv_plan, the shard files
     models/init.py     the reference initializers
@@ -18,6 +22,8 @@ every comparison is exact).
 """
 
 import dataclasses
+import struct
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -27,6 +33,7 @@ from dorylus_tpu import native as jnative
 from dorylus_tpu.common import config as jconfig
 from dorylus_tpu.common import metrics as jmetrics
 from dorylus_tpu.engine import convergence as jconv
+from dorylus_tpu.graph import dataio as jdataio
 from dorylus_tpu.graph import graph as jgraph
 from dorylus_tpu.graph import partition as jpart
 from dorylus_tpu.graph import reorder as jreorder
@@ -37,6 +44,7 @@ from dorylus_tpu_torch import native as tnative
 from dorylus_tpu_torch.common import config as tconfig
 from dorylus_tpu_torch.common import metrics as tmetrics
 from dorylus_tpu_torch.engine import convergence as tconv
+from dorylus_tpu_torch.graph import dataio as tdataio
 from dorylus_tpu_torch.graph import graph as tgraph
 from dorylus_tpu_torch.graph import partition as tpart
 from dorylus_tpu_torch.graph import reorder as treorder
@@ -303,3 +311,125 @@ def test_native_bindings():
         same(jnative.sort_by_dst(dst, 300), tnative.sort_by_dst(dst, 300), "sort_by_dst")
         same(list(jnative.gcn_norms(src, dst, 300)), list(tnative.gcn_norms(src, dst, 300)),
              "gcn_norms")
+
+
+# ---- graph/dataio ----
+
+DATA = Path(__file__).parent / "data"
+
+
+@pytest.mark.parametrize("name", ["digits", "golden"])
+@pytest.mark.parametrize("undirected", [True, False])
+def test_load_dataset(name, undirected):
+    same(to_port(jdataio.load_dataset(DATA / name, undirected=undirected)),
+         tdataio.load_dataset(DATA / name, undirected=undirected), "load_dataset")
+
+
+@pytest.mark.parametrize("name", ["digits", "golden"])
+def test_bsnap_readers(name):
+    d = DATA / name
+    same(list(jdataio.read_graph_bsnap(d / "graph.bsnap")),
+         list(tdataio.read_graph_bsnap(d / "graph.bsnap")), "read_graph_bsnap")
+    same(jdataio.read_features_bsnap(d / "features.bsnap"),
+         tdataio.read_features_bsnap(d / "features.bsnap"), "read_features_bsnap")
+    same(list(jdataio.read_labels_bsnap(d / "labels.bsnap")),
+         list(tdataio.read_labels_bsnap(d / "labels.bsnap")), "read_labels_bsnap")
+
+
+def test_save_dataset_writes_the_same_bytes(tmp_path):
+    g = tgraph.synthetic_graph(150, 5, 6, 3, seed=4)
+    jdataio.save_dataset(tmp_path / "j", jgraph.synthetic_graph(150, 5, 6, 3, seed=4))
+    tdataio.save_dataset(tmp_path / "t", g)
+    for f in ("graph.bsnap", "features.bsnap", "labels.bsnap"):
+        assert (tmp_path / "j" / f).read_bytes() == (tmp_path / "t" / f).read_bytes(), f
+    same(to_port(jdataio.load_dataset(tmp_path / "t")), tdataio.load_dataset(tmp_path / "j"),
+         "cross load")
+
+
+def test_parts_files_and_features_text(tmp_path):
+    parts = np.random.default_rng(3).integers(0, 4, 97).astype(np.int32)
+    jdataio.write_parts_file(tmp_path / "j.parts", parts)
+    tdataio.write_parts_file(tmp_path / "t.parts", parts)
+    assert (tmp_path / "j.parts").read_bytes() == (tmp_path / "t.parts").read_bytes()
+    same(jdataio.read_parts_file(tmp_path / "t.parts"), tdataio.read_parts_file(tmp_path / "j.parts"),
+         "read_parts_file")
+    src = DATA / "golden" / "features.bsnap"
+    jdataio.features_to_text(src, tmp_path / "j.txt")
+    tdataio.features_to_text(src, tmp_path / "t.txt")
+    assert (tmp_path / "j.txt").read_bytes() == (tmp_path / "t.txt").read_bytes()
+
+
+_EDGE_TEXT = """# comment line
+% another comment
+0 1
+1 2 extra_col 99
+3 3
+5\t7
+   8 9
+bogus line
+12
+1 2.5
+-1 2
+3000000000 5
+12x 5
+12 5x
+2147483647 1
+2147483648 1
+13 14"""
+
+
+@pytest.mark.parametrize("parser", ["read_text_edges", "_read_text_edges_py"])
+def test_text_edge_parsers(tmp_path, parser):
+    p = tmp_path / "edges.txt"
+    p.write_text(_EDGE_TEXT)
+    got = list(getattr(tdataio, parser)(p))
+    same(list(getattr(jdataio, parser)(p)), got, parser)
+    assert list(zip(got[0].tolist(), got[1].tolist()))[:2] == [(0, 1), (1, 2)]
+
+
+@pytest.mark.parametrize("undirected", [True, False])
+def test_prepare_from_text(tmp_path, undirected):
+    rng = np.random.default_rng(8)
+    edges = rng.integers(0, 60, (300, 2))
+    np.savetxt(tmp_path / "e.txt", edges, fmt="%d")
+    np.savetxt(tmp_path / "f.txt", rng.normal(size=(60, 5)), fmt="%.6f")
+    np.savetxt(tmp_path / "l.txt", rng.integers(0, 4, 60), fmt="%d")
+    args = [tmp_path / "e.txt", tmp_path / "f.txt", tmp_path / "l.txt"]
+    gj = jdataio.prepare_from_text(*args, tmp_path / "j", feature_dim=5, label_kinds=4,
+                                   undirected=undirected)
+    gt = tdataio.prepare_from_text(*args, tmp_path / "t", feature_dim=5, label_kinds=4,
+                                   undirected=undirected)
+    same(to_port(gj), gt, "prepare_from_text")
+    for f in ("graph.bsnap", "features.bsnap", "labels.bsnap"):
+        assert (tmp_path / "j" / f).read_bytes() == (tmp_path / "t" / f).read_bytes(), f
+
+
+@pytest.mark.parametrize("case", ["vertex_range", "endpoint", "no_edges", "coverage"])
+def test_dataio_refusals(tmp_path, case):
+    """The checks of the reference's fix 2549ce5: vertex counts past the
+    int32 range and endpoints past num_vertices refuse to load; a text
+    edge list with no edge, or features and labels that do not cover the
+    vertices, refuse to prepare. Both packages raise ValueError alike."""
+    if case in ("vertex_range", "endpoint"):
+        num_v = 2**31 if case == "vertex_range" else 10
+        path = tmp_path / "g.bsnap"
+        with open(path, "wb") as f:
+            f.write(struct.pack("<iIQ", 4, num_v, 2))
+            f.write(np.array([[0, 1], [3, 10]], "<u4").tobytes())
+        def call(m):
+            return m.read_graph_bsnap(path)
+    else:
+        (tmp_path / "e.txt").write_text("# nothing\n3 3\n" if case == "no_edges" else "0 5\n")
+        (tmp_path / "f.txt").write_text("1 2\n3 4\n")
+        (tmp_path / "l.txt").write_text("0\n1\n")
+
+        def call(m):
+            return m.prepare_from_text(tmp_path / "e.txt", tmp_path / "f.txt",
+                                       tmp_path / "l.txt", tmp_path / "out",
+                                       feature_dim=2, label_kinds=2)
+    msgs = []
+    for m in (jdataio, tdataio):
+        with pytest.raises(ValueError) as err:
+            call(m)
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1]

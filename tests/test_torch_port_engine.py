@@ -152,9 +152,9 @@ def test_engine_early_stop_and_predict():
     {"num_shards": 2},
     {"param_dtype": "bfloat16"},
     {"compute_dtype": "float16"},
-    {"staleness": 2},
-    {"checkpoint_dir": "ckpts"},
-    {"resume": True},
+    {"model": "sage"},
+    {"kernel": "pallas"},
+    {"agg_dtype": "float16"},
     {"feat_shards": 2},
 ], ids=lambda d: next(iter(d)) + "=" + str(next(iter(d.values()))))
 def test_engine_raises_outside_the_slice(overrides):
@@ -239,6 +239,31 @@ for graph, cfgs, plans in (
         assert res[0][i]["plan"] == plans[i // 2], (kw, res[0][i]["plan"])
         if kw.get("reuse") == "pairs":
             assert res[0][i]["pairs"][0] > 0
+# the command line on the CPU: prepare-data, train with staleness and
+# checkpoints, resume, infer, partition (graph/dataio.py, engine/checkpoint.py)
+import tempfile
+from pathlib import Path
+from dorylus_tpu_torch.cli import main
+from dorylus_tpu_torch.graph.dataio import save_dataset
+d = Path(tempfile.mkdtemp())
+save_dataset(d / "ds", g)
+np.savetxt(d / "e.txt", np.c_[g.src, g.dst], fmt="%d")
+np.savetxt(d / "f.txt", g.features, fmt="%.6f")
+np.savetxt(d / "l.txt", g.labels, fmt="%d")
+assert main(["prepare-data", "--edges", str(d / "e.txt"), "--features", str(d / "f.txt"),
+             "--labels", str(d / "l.txt"), "--out", str(d / "prep"), "--feature-dim", "12",
+             "--classes", "3"]) == 0
+(d / "l.config").write_text("12 6 3")
+common = ["--data-dir", str(d / "ds"), "--config", str(d / "l.config"), "--device", "cpu"]
+for extra in ([], ["--resume"]):
+    assert main(["train", *common, "--epochs", "2", "--staleness", "1", "--model", "gat",
+                 "--checkpoint-dir", str(d / "ck"), "--checkpoint-every", "2", *extra]) == 0
+assert main(["infer", *common, "--model", "gat", "--checkpoint-dir", str(d / "ck"),
+             "--out", str(d / "p.txt")]) == 0
+assert np.loadtxt(d / "p.txt").shape == (200, 3)
+assert main(["partition", "--graph", str(d / "ds" / "graph.bsnap"), "--n", "2"]) == 0
+import shutil
+shutil.rmtree(d)
 assert not any(m.split(".")[0] in ("jax", "dorylus_tpu", "bench")
                for m, v in sys.modules.items() if v is not None)
 print("OK", len(names))

@@ -280,11 +280,11 @@ def test_halo_exchanges_run_at_the_layer_output_widths():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(kernel="degree", feat_shards=2), "queue 1 item 13"),
-    (dict(kernel="hyb", reuse="pairs", staleness=2), "queue 1 item 3"),
+    (dict(kernel="hyb", reuse="pairs", feat_shards=2), "queue 1 item 13"),
     (dict(kernel="hyb", feat_shards=2), "queue 1 item 13"),
-    (dict(kernel="hyb", staleness=1), "queue 1 item 3"),
-    (dict(kernel="hyb", checkpoint_dir="/tmp/x"), "queue 1 item 7"),
-    (dict(kernel="hyb", resume=True), "queue 1 item 7"),
+    (dict(model="sage"), "model="),
+    (dict(kernel="pallas"), "kernel="),
+    (dict(kernel="hyb", compute_dtype="float16"), "compute_dtype"),
     (dict(kernel="hyb", halo="exact"), "halo="),
     (dict(kernel="hyb", param_dtype="bfloat16"), "param_dtype"),
 ])
@@ -307,7 +307,9 @@ def test_sharded_profile_is_refused():
 def _op_makers():
     """Each entry point that places its tensors on a device: the engines and
     every op constructor, on a 120-vertex graph and rank 0 of its 2-way
-    partition. make(device=...) builds it; no argument means the card."""
+    partition, and the command line's train. make(device=...) builds it; no
+    argument means the card."""
+    from dorylus_tpu_torch import cli
     from dorylus_tpu_torch.ops.degree_sharded import ShardedDegreeSpMM
     from dorylus_tpu_torch.ops.degree_spmm import DegreeSpMM
     from dorylus_tpu_torch.ops.hyb_spmm import HybSpMM
@@ -333,11 +335,16 @@ def _op_makers():
         "ShardedDegreeSpMM": lambda **kw: ShardedDegreeSpMM(shard, 2, **kw),
         "ShardedReuseSpMM": lambda **kw: ShardedReuseSpMM(shard, 2, **kw),
         "HaloPlan": lambda **kw: HaloPlan(shard, 2, "ragged", counts=counts, **kw),
+        # the command line's train: the engine it builds from its flags
+        "cli": lambda **kw: cli.build_engine(cli.parse_args(
+            ["train", "--synth-vertices", "120", "--synth-degree", "4", "--kernel", "hyb",
+             "--reuse", "off"]
+            + [a for k, v in kw.items() for a in (f"--{k}", v)])),
     }
 
 
 _ENTRY_POINTS = ["Engine", "ShardedEngine", "HybSpMM", "DegreeSpMM", "ReuseSpMM", "EdgeSpMM",
-                 "ShardedHybSpMM", "ShardedDegreeSpMM", "ShardedReuseSpMM", "HaloPlan"]
+                 "ShardedHybSpMM", "ShardedDegreeSpMM", "ShardedReuseSpMM", "HaloPlan", "cli"]
 
 
 @pytest.mark.parametrize("make", _ENTRY_POINTS)
