@@ -9,9 +9,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
      each, started together; report which pair miner the host has;
   3. K1 (hybrid-ELL static mode) vs its plain PyTorch version on the card,
      forward and dh, at the Reddit shape (V=232,965, avg in-degree 50,
-     degree-ascending renumbering: graph.build_graph, then reorder) for F=128 and
-     F=41 in f32 and bf16, then on a small power-law graph with hub chunk
-     rows and the `inv` output layout; times of both at the Reddit shape;
+     degree-ascending renumbering: graph.build_graph, then reorder) for F=128,
+     F=41 and F=64 (tensor parallelism's width, phase 9) in f32 and bf16,
+     then on a small power-law graph with hub chunk rows and the `inv` output
+     layout; times of both at the Reddit shape;
   3b. K2 (mask mode) the same way: apply_unit and apply_dst forward, dh and
      d_dst;
   3c. the edgewise kernels vs their plain versions at the Reddit shape
@@ -52,7 +53,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      sorted segment-sum) vs plain at that shard's send lists on both
      wires; times of kernel, plain and the one PyTorch call, and for K9's
      pack and placement and K10 the kernel-only ms and the host's µs to
-     enqueue a pass. One process, no collective;
+     enqueue a pass; then K9 and K10 the same way at F=64 (f32 and bf16,
+     exact wire) on rank 0's plan of the 2-way partition, phase 9's graph
+     shards. One process, no collective;
   3h. (beside 3g) the sharded degree op on the same shard: the degree
      pass over rank 0's combined, interior and boundary plans (K1 static,
      K2 dst, K7 dynamic with dval; forward, dh or dghosts, d_dst, dval;
@@ -75,7 +78,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      `bincount`, `index_select`), timed on those inputs;
   4. main path, GCN: Engine.run() of the Reddit-config GCN (602-128-41,
      kernel="hyb", bf16 gather tables) for 3 epochs; losses finite and
-     falling, K1 launches > 0; the train step's ms, also with staleness 1;
+     falling, K1 launches > 0; the run's notes: "hbm" peak bytes > 0 and at
+     most the card's memory, "cost" GPU-seconds > 0; the train step's ms,
+     also with staleness 1;
      then a torch.profiler table of 10 train steps (device time by kernel,
      the device's idle share), as for 4b;
   4b. main path, GAT: the Reddit-config GAT (kernel="hyb", bf16 gather,
@@ -108,13 +113,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
      dval (two forwards, two fused passes a step); losses finite and
      falling, and equal to the static-value path's to rtol 1e-4 (both round
      each weight and product to bf16);
-  5. a planted 2,000-vertex graph, GCN on hyb, 10 epochs on the card and on
+  5. a planted 2,000-vertex graph, GCN on hyb, 5 epochs on the card and on
      the CPU (f32 aggregation): loss trajectories agree to atol 1e-3;
   5b. the same graph for GAT on hyb and for the default config (kernel
      "auto" -> xla) of GCN and GAT: relative agreement, rtol 1e-5 (GAT's
      losses are O(100) at init);
   5c. card vs CPU for GCN and GAT on kernel="degree" (the planted graph,
-     10 epochs) and on reuse="pairs" (the 4,000-vertex community graph,
+     5 epochs) and on reuse="pairs" (the 4,000-vertex community graph,
      passes=2, 3 epochs): relative agreement, rtol 1e-5;
   6. the sharded engine at full width: 4 ranks on the card over gloo (one
      process per shard, rank = shard id; the parent partitions once and
@@ -123,7 +128,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      gather tables, 3 epochs each: losses finite, GCN's falling, K8, K9,
      K10 and K1/K2 launches > 0 on every rank; per-rank edges, ghosts,
      max_h, wire bytes per exchange, warm epoch, train step and exchange
-     ms, kernel time and idle share. Then both in f32 against 4c's
+     ms, kernel time and idle share; rank 0 prints the GCN run's
+     ShardedEngine.profile(iters=5), taken before its trace. Then both in f32
+     against 4c's
      single-device hyb f32 losses (rtol 1e-4), and GCN with overlap off
      (the combined plan) against the fused plan (rtol 1e-5);
   6d. (in phase 6's launch) the same on kernel="degree" with the (interior,
@@ -138,7 +145,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
      reuse="pairs" against reuse="off", bf16, 3 epochs (rtol 1e-2); K6 and
      K2 launches > 0 on every rank, overlap turned off by the rewrite;
   6b. small graphs, 4 ranks on the card against 4 ranks on the CPU: the
-     planted 2,000-vertex graph, GCN (10 epochs) and GAT (3) on hyb (with
+     planted 2,000-vertex graph, GCN (5 epochs) and GAT (3) on hyb (with
      predict() in global order against the single-device engine's) and on
      the degree pair, and the 4,000-vertex community graph with
      reuse="pairs": rtol 1e-5;
@@ -158,6 +165,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
      dh fused with K4 and K5 launched, the 3 losses those of the starting
      params; (d) --shards 4 over gloo on the card, S=1, 3 epochs, one
      checkpoint: losses within 1e-3 of (a)'s; each sub-phase's seconds;
+  8. (run first, right after the Reddit-shaped graph is built: before any
+     torch.profiler session in the process) Engine.profile(iters=20) on the
+     Reddit-config GCN and GAT (hyb, bf16 gather): each layer's aggregate
+     brackets run once with the counts at 0 launch K1 (GCN) or K2 (GAT) 3
+     times (forward; the backward's forward and dh) and nothing else; the brackets are
+     JAX's, finite and > 0; each printed, the aggregate brackets beside
+     phase 3's K1/K2 pass at the same width;
+  9. (in phase 6's launch, before its traced runs) tensor parallelism on the
+     one card: 4 gloo ranks as 2 graph x 2 feat shards (rank r on shard
+     r // 2 of the 2-way partition) at the Reddit config, GCN on hyb with
+     f32 gather and GAT on hyb with bf16 gather, 3 epochs each: GCN's losses
+     within rtol 1e-4 of 4c's single-device hyb f32 losses, GAT's finite
+     and falling; each rank's K1/K2, K9 and K10 launches by table width (all
+     of GCN's at 64; GAT's output layer at 41); the step ms, host-bound
+     (gloo on one card), GAT's step traced for the device's idle share;
+     rank 0 prints ShardedEngine.profile(iters=5);
 K1, K2, K7 and K8 (and the degree passes on K1/K7) are one launch a pass
 over every part of their plan (the gather core, csrc/gather_pass.cuh); their
 timed rows carry the pass ms (CUDA events: the table's cast, the
@@ -165,7 +188,8 @@ zero-filled output and the launch) and, apart, the kernel's own device ms
 and the rest's (torch.profiler, `*_kernel_ms` / `*_other_ms`).
 Each main path runs with every launch count set to 0 just before it and
 read just after (in each rank, for the sharded engine). Then one JSON line
-with the kernels' numbers (K1-K10 (K5, K9 and K10 also with their kernel-only
+with the kernels' numbers (K1-K10, K1/K2/K9/K10 also at F=64 with phase 9's
+launches at that width (K5, K9 and K10 also with their kernel-only
 ms and the host's µs to enqueue a pass), K3's dh alone and fused with K4's value
 gradient, K7's dh alone and fused with its value gradient, the fused plan's
 backward, the degree, reuse, sharded-degree and sharded-reuse passes, which
@@ -216,6 +240,12 @@ F32_FLOPS = 67e12
 # the rate the probes P1 and P2 use.
 SMEM_BYTES_PER_CLOCK = 128
 RANKS = 4
+T_START = time.perf_counter()
+
+
+def stamp(label: str) -> None:
+    """The seconds since the script started, before a phase."""
+    print(f"[{time.perf_counter() - T_START:.1f} s] {label}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -1000,6 +1030,13 @@ def main_path(g, layers, cfg, label: str, kernel: str) -> tuple[dict, dict]:
     losses = [e.loss for e in rep.epochs]
     check(losses[-1] < losses[0], f"{label}: training loss did not fall")
     check(counts[kernel] > 0, f"{label}: the main path launched no {kernel}")
+    # the run's cost and memory notes (engine/profiling.py)
+    hbm, cost = rep.notes.get("hbm"), rep.notes.get("cost")
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(hbm is not None and 0 < hbm["peak_bytes_in_use"] <= total
+          and cost is not None and cost["chip_seconds"] > 0,
+          f"{label}: notes hbm {hbm} / cost {cost} (card memory {total} bytes)")
+    print(f"{label} notes: hbm {json.dumps(hbm)}, cost {json.dumps(cost)}", flush=True)
     logits = eng.predict()
     check(logits.shape == (g.num_vertices, layers.dims[-1])
           and bool(np.isfinite(logits).all()),
@@ -1027,6 +1064,58 @@ def main_path(g, layers, cfg, label: str, kernel: str) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     return counts, {"warm_epoch_ms": warm_epoch_ms, "step_ms": step_ms,
                     "s1_step_ms": s1_step_ms, "launches_per_step": per_step}
+
+
+def stage_phase(g, layers) -> dict:
+    """Phase 8: Engine.profile(iters=20) on the Reddit-config GCN and GAT
+    (kernel="hyb", bf16 gather tables), before any torch.profiler session
+    in this process (a session slows every later launch on the host):
+    first each layer's aggregate brackets once with the launch counts set
+    to 0, which must launch the model's kernel (K1 for GCN, K2 for GAT) 3
+    times (the forward; the backward bracket's forward and dh) and nothing
+    else; then the profile, whose
+    brackets must be JAX's, finite and > 0. Returns {model: {bracket: ms}}
+    and the brackets' widths."""
+    from dorylus_tpu_torch.common.config import TrainConfig
+    from dorylus_tpu_torch.engine import profiling
+    from dorylus_tpu_torch.engine.engine import Engine
+
+    out = {}
+    for model, kernel, lr in (("gcn", "K1", 0.01), ("gat", "K2", 0.005)):
+        cfg = TrainConfig(epochs=1, eval_every=0, model=model, kernel="hyb",
+                          agg_dtype="bfloat16", learning_rate=lr, reuse="off")
+        t0 = time.perf_counter()
+        eng = Engine(g, layers, cfg, device="cuda")
+        widths = []
+        for l, (f, fwd, bwd) in enumerate(profiling.agg_brackets(eng.model, eng.batch)):
+            reset_counts()
+            fwd()
+            bwd()
+            torch.cuda.synchronize()
+            got = {k: n for k, n in launch_counts().items() if n}
+            check(got == {kernel: 3}, f"phase 8 {model} aggregate_l{l} (F={f}): launches "
+                                      f"{got}, want {kernel} 3 times (the forward bracket; "
+                                      "the backward's forward and dh)")
+            widths.append(f)
+        reset_counts()
+        times = eng.profile(iters=20)
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in launch_counts().items() if n}
+        want = {f"{s}_l{l}_ms" for l in range(layers.num_layers)
+                for s in ("aggregate", "dense")}
+        want |= {f"aggregate_l{l}_bwd_ms" for l in range(layers.num_layers)}
+        want |= {"forward_ms", "loss_and_grad_ms"}
+        check(set(times) == want, f"phase 8 {model}: brackets {sorted(times)}")
+        check(all(np.isfinite(v) and v > 0 for v in times.values()),
+              f"phase 8 {model}: a bracket is not finite and > 0: {times}")
+        check(counts.get(kernel, 0) > 0, f"phase 8 {model}: the profile launched no {kernel}")
+        print(f"phase 8 {model} Engine.profile(iters=20) ms, widths {widths} "
+              f"({time.perf_counter() - t0:.1f} s with the engine): " + json.dumps(times)
+              + f", launches {json.dumps(counts)}", flush=True)
+        out[model] = {"stages_ms": times, "widths": widths}
+        del eng
+        torch.cuda.empty_cache()
+    return out
 
 
 def profile_steps(eng, cfg, label: str, steps: int = 10) -> None:
@@ -1259,13 +1348,61 @@ def compare_halo(name: str, plan, f: int, dtype: str, seed: int, timed: bool) ->
     return res
 
 
+def width_counter():
+    """Launch counts of K1, K2, K9 and K10 by the width of the table each
+    launch reads (its leading dimension), by wrapping their launchers in
+    this process until the returned function is called, which restores them
+    and returns {kernel: {width: launches}}."""
+    from dorylus_tpu_torch.ops import hyb_spmm
+    from dorylus_tpu_torch.parallel import halo
+
+    seen: dict = {}
+
+    def note(kernel, width):
+        seen.setdefault(kernel, {}).setdefault(str(width), 0)
+        seen[kernel][str(width)] += 1
+
+    launch_pass, row_gather, segsum = (hyb_spmm._launch_pass, halo._launch_row_gather,
+                                       halo._launch_segsum)
+
+    def pass_(tb, plan, out, unit=False):
+        n = launch_pass(tb, plan, out, unit)
+        for _ in range(n):
+            note("K2" if unit else "K1", tb.shape[1])
+        return n
+
+    def gather_(x, idx, out):
+        launched = row_gather(x, idx, out)
+        if launched:
+            note("K9", x.shape[1])
+        return launched
+
+    def segsum_(g, order, row_ptr, out):
+        launched = segsum(g, order, row_ptr, out)
+        if launched:
+            note("K10", g.shape[1])
+        return launched
+
+    hyb_spmm._launch_pass, halo._launch_row_gather, halo._launch_segsum = (
+        pass_, gather_, segsum_)
+
+    def restore():
+        hyb_spmm._launch_pass, halo._launch_row_gather, halo._launch_segsum = (
+            launch_pass, row_gather, segsum)
+        return seen
+
+    return restore
+
+
 def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list) -> list:
-    """One rank of phases 6-6f (started by multihost.spawn_local):
-    for each run, a ShardedEngine on this rank's shard file, trained with
-    this process's launch counts set to 0 just before and read just after;
-    where the run is timed, also the train step's ms and launches and the
-    halo exchange's ms at each layer width; where it is profiled, a
-    profile of the step."""
+    """One rank of phases 6-6f and 9 (started by multihost.spawn_local):
+    for each run, a ShardedEngine on this rank's shard file (shard rank //
+    feat_shards), trained with this process's launch counts set to 0 just
+    before and read just after (with "widths", also by table width); where
+    the run is timed, also the train step's ms and launches and the halo
+    exchange's ms at each layer's aggregation width; with "stages", the
+    engine's stage profile (before any trace in the run); where it is
+    profiled, a profile of the step."""
     from dorylus_tpu_torch.common.config import LayerConfig, TrainConfig
     from dorylus_tpu_torch.graph.partition import load_shard
     from dorylus_tpu_torch.parallel import multihost
@@ -1281,8 +1418,8 @@ def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list) -> l
 
     out = []
     for run in runs:
-        shard, meta = load_shard(f"{shard_dir}/{run['shards']}_{rank}.npz")
         cfg = TrainConfig(**run["cfg"])
+        shard, meta = load_shard(f"{shard_dir}/{run['shards']}_{rank // cfg.feat_shards}.npz")
         if cfg.model == "gat":
             # a GAT partition differs from the GCN one in its edge values
             # alone: 1 on every real edge (the edgewise path's edge mask)
@@ -1291,9 +1428,11 @@ def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list) -> l
         t0 = time.perf_counter()
         eng = ShardedEngine((shard, meta), LayerConfig(run["dims"]), cfg, device=device)
         build_s = time.perf_counter() - t0
+        restore = width_counter() if run.get("widths") else None
         rep = eng.run()
         sync()
         row = {"label": run["label"], "rank": rank, "backend": multihost.backend_name(),
+               "mesh": list(eng.mesh[:4]),
                "device": str(eng.device), "launches": launch_counts(),
                "losses": [e.loss for e in rep.epochs],
                "epoch_ms": [e.time_ms for e in rep.epochs], "val_acc": rep.final_accuracy,
@@ -1308,6 +1447,8 @@ def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list) -> l
                        mixed_edges=split.mixed_edges)
         elif split is not None:
             row.update(interior_edges=split[0].num_edges, boundary_edges=split[1].num_edges)
+        if restore is not None:
+            row["launches_by_width"] = restore()
         if hasattr(op, "plan_fwd"):  # the sharded reuse op
             st = op.plan_fwd.stats
             row.update(miner=op.miner, mine_s=list(op.mine_seconds),
@@ -1324,7 +1465,7 @@ def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list) -> l
             row["step_ms"] = 1e3 * (time.perf_counter() - t0) / 3
             row["exchange_ms"] = {}
             elt = torch.empty((), dtype=eng.compute_dtype).element_size()
-            for f in run["dims"][1:]:
+            for f in [eng.model.agg_width(l) for l in range(len(run["dims"]) - 1)]:
                 h = torch.zeros((meta.vp, f), dtype=eng.compute_dtype, device=device)
                 eng.halo(h)
                 sync()
@@ -1334,8 +1475,10 @@ def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list) -> l
                 sync()
                 row["exchange_ms"][str(f)] = 1e3 * (time.perf_counter() - t0) / 3
                 row.setdefault("wire_bytes", {})[str(f)] = row["wire_rows"] * f * elt
-            if run.get("profile"):
-                row["profile"] = profile_rank(eng, lr)
+        if run.get("stages"):
+            row["stages_ms"] = eng.profile(iters=5)
+        if run.get("profile"):
+            row["profile"] = profile_rank(eng, lr)
         if run.get("predict"):
             row["predict"] = eng.predict()
         del eng
@@ -1377,10 +1520,65 @@ def rel_gap(a, b) -> float:
     return float(np.max(np.abs(a - b) / np.abs(b)))
 
 
-def sharded_phases(sg, sgc, layers, hyb_f32_losses, kernel_sources) -> dict:
-    """Phases 6, 6b-6f. sg: the Reddit-shaped graph's 4-way partition; sgc:
-    the community graph's; hyb_f32_losses: {model: 3 single-device hyb f32
-    losses} from phase 4c. Returns what the kernels line needs."""
+def tp_phase(by_label: dict, hyb_f32_losses: dict) -> dict:
+    """Phase 9's checks and numbers, from its runs in phase 6's launch: 4
+    ranks on the one card over gloo, 2 graph x 2 feat shards at the Reddit
+    config. GCN (hyb, f32 gather) within rtol 1e-4 of phase 4c's
+    single-device hyb f32 losses; GAT (hyb, bf16 gather) finite and
+    falling; K1/K2 launched at F = 64 on every rank and K9/K10 at 64 (GAT's
+    output layer at 41); the step's ms, host-bound (gloo on one card); rank
+    0's stage profile under TP. Returns the launches at F = 64 and the
+    timings."""
+    gcn, gat = by_label["gcn f32 tp 2x2"], by_label["gat bf16 tp 2x2"]
+    for label, rows in (("gcn f32 tp 2x2", gcn), ("gat bf16 tp 2x2", gat)):
+        check([r["mesh"] for r in rows] == [[2, 2, r // 2, r % 2] for r in range(RANKS)],
+              f"{label}: mesh {[r['mesh'] for r in rows]}")
+        for r in rows:
+            check((r["kernel"], r["overlap"], r["wire"]) == ("hyb", False, "ragged"),
+                  f"{label}: ran {r['kernel']}, overlap {r['overlap']}, wire {r['wire']}")
+    gap = rel_gap(gcn[0]["losses"], hyb_f32_losses["gcn"][: len(gcn[0]["losses"])])
+    print(f"phase 9 gcn f32 tp 2x2 vs the single-device hyb f32 engine: max relative loss "
+          f"gap {gap:.3e}", flush=True)
+    check(gap <= 1e-4, f"phase 9: TP and one-device losses differ by {gap:.3e} > 1e-4")
+    lg = gat[0]["losses"]
+    check(all(np.isfinite(lg)) and lg[-1] < lg[0], f"phase 9 gat: losses {lg}")
+    launches = {"K1_tp": 0, "K2_tp": 0, "K9_tp": 0, "K10_tp": 0}
+    for label, rows, slot in (("gcn", gcn, "K1"), ("gat", gat, "K2")):
+        for r in rows:
+            w = r["launches_by_width"]
+            check(w.get(slot, {}).get("64", 0) > 0 and w.get("K9", {}).get("64", 0) > 0
+                  and w.get("K10", {}).get("64", 0) > 0,
+                  f"phase 9 {label} rank {r['rank']}: launches by width {w}")
+            check(label == "gat" or set(w[slot]) == {"64"},
+                  f"phase 9 gcn rank {r['rank']}: K1 at widths {w[slot]}, want 64 only")
+            for k in (slot, "K9", "K10"):
+                launches[f"{k}_tp"] += w[k].get("64", 0)
+            print(f"phase 9 {label} rank {r['rank']}: launches by table width "
+                  f"{json.dumps(w)}, step {r['step_ms']:.1f} ms (host-bound: gloo on one "
+                  f"card), exchange ms {json.dumps(r['exchange_ms'])}", flush=True)
+    stages = gcn[0]["stages_ms"]
+    check(all(np.isfinite(v) and v > 0 for v in stages.values()),
+          f"phase 9 stages {stages}")
+    print("phase 9 gcn f32 tp 2x2 ShardedEngine.profile(iters=5) ms (the max over ranks): "
+          + json.dumps(stages), flush=True)
+    timings = {"note": "host-bound: 4 ranks on one card over gloo",
+               "gcn_f32_step_ms": [r["step_ms"] for r in gcn],
+               "gat_bf16_step_ms": [r["step_ms"] for r in gat],
+               "gcn_losses": gcn[0]["losses"], "gat_losses": lg,
+               "exchange_ms": [r["exchange_ms"] for r in gcn], "stages_ms": stages,
+               "gat_idle_share": [r["profile"]["idle_share"] for r in gat],
+               "gat_kernel_ms_per_step": [r["profile"]["kernel_ms_per_step"] for r in gat],
+               "gat_copy_ms_per_step": [r["profile"]["copy_ms_per_step"] for r in gat]}
+    print("phase 9 gat bf16 tp 2x2 profile of the step: " + json.dumps(
+        {k: v for k, v in timings.items() if k.startswith("gat_")}), flush=True)
+    return {"launches": launches, "timings": timings}
+
+
+def sharded_phases(sg, sg2, sgc, layers, hyb_f32_losses, kernel_sources) -> dict:
+    """Phases 6, 6b-6f and 9. sg: the Reddit-shaped graph's 4-way partition;
+    sg2: its 2-way partition (phase 9's graph shards); sgc: the community
+    graph's; hyb_f32_losses: {model: 3 single-device hyb f32 losses} from
+    phase 4c. Returns what the kernels line needs."""
     from dorylus_tpu_torch.common.config import TrainConfig
     from dorylus_tpu_torch.engine.engine import Engine
     from dorylus_tpu_torch.graph.graph import synthetic_graph
@@ -1396,7 +1594,7 @@ def sharded_phases(sg, sgc, layers, hyb_f32_losses, kernel_sources) -> dict:
         gp = synthetic_graph(2000, 8, REDDIT["feat"], REDDIT["classes"], seed=8888)
         gs = community_graph(4000, 20, REDDIT["feat"], REDDIT["classes"], comm=40, core=30,
                              p_core=0.85, seed=0)
-        for name, part in (("reddit", sg), ("community", sgc),
+        for name, part in (("reddit", sg), ("reddit2", sg2), ("community", sgc),
                            ("planted", partition_graph(gp, RANKS)),
                            ("smallcomm", partition_graph(gs, RANKS))):
             for s in part.shards:
@@ -1404,10 +1602,12 @@ def sharded_phases(sg, sgc, layers, hyb_f32_losses, kernel_sources) -> dict:
         print(f"shard files: {time.perf_counter() - t0:.1f} s", flush=True)
         dims = list(layers.dims)
 
-        def run(label, shards, timed=False, profile=False, predict=False, **cfg):
+        def run(label, shards, timed=False, profile=False, predict=False, stages=False,
+                widths=False, **cfg):
             cfg = dict(dict(epochs=3, eval_every=1, kernel="hyb", reuse="off"), **cfg)
             return {"label": label, "shards": shards, "dims": dims, "cfg": cfg,
-                    "timed": timed or profile, "profile": profile, "predict": predict}
+                    "timed": timed or profile, "profile": profile, "predict": predict,
+                    "stages": stages, "widths": widths}
 
         def launch(phase, runs, device="cuda:0", timeout_s=900):
             t0 = time.perf_counter()
@@ -1474,11 +1674,20 @@ def sharded_phases(sg, sgc, layers, hyb_f32_losses, kernel_sources) -> dict:
                          epochs=2, **kw)]
         runs += [run("gat f32 fused", "reddit", epochs=2, **gat),
                  run("gat f32 degree pair", "reddit", kernel="degree", epochs=2, **gat)]
+        # 9. tensor parallelism: 2 graph shards x 2 feat shards, rank r on
+        # shard r // 2, every aggregation and exchange at F/2 = 64 (GAT's
+        # output layer at 41: it does not divide); timed and stage-profiled
+        # before any run of the launch traces; GAT's step traced last
+        tp = dict(feat_shards=2, num_shards=2)
+        runs += [run("gcn f32 tp 2x2", "reddit2", timed=True, stages=True, widths=True, **tp),
+                 run("gat bf16 tp 2x2", "reddit2", profile=True, widths=True, **tp, **bf16,
+                     **gat)]
         for model, kw in models:
-            runs += [run(f"{model} bf16 fused", "reddit", profile=True, **bf16, **kw),
+            runs += [run(f"{model} bf16 fused", "reddit", profile=True,
+                         stages=model == "gcn", **bf16, **kw),
                      run(f"{model} bf16 degree pair", "reddit", profile=True, kernel="degree",
                          **bf16, **kw)]
-        by_label = launch("6, 6d, 6f", runs)
+        by_label = launch("6, 6d, 6f, 9", runs)
         launches = {}
         timings = {}
         for model, _ in models:
@@ -1530,6 +1739,12 @@ def sharded_phases(sg, sgc, layers, hyb_f32_losses, kernel_sources) -> dict:
                   by_label["gcn f32 degree combined"][0]["losses"], 1e-5)
         timings["gcn f32 degree pair"] = timing(by_label["gcn f32 degree pair"])
         timings["gcn f32 degree combined"] = timing(by_label["gcn f32 degree combined"])
+        # 6: rank 0's stage profile of the fused plan
+        print("phase 6 gcn bf16 fused ShardedEngine.profile(iters=5) ms (the max over "
+              "ranks): " + json.dumps(by_label["gcn bf16 fused"][0]["stages_ms"]), flush=True)
+        tp_out = tp_phase(by_label, hyb_f32_losses)
+        launches.update(tp_out["launches"])
+        timings["tp 2x2"] = tp_out["timings"]
 
         # 6e. pair reuse on the community graph's shards
         runs = [run(f"{model} bf16 reuse={reuse}", "community", timed=True, reuse=reuse,
@@ -1557,9 +1772,9 @@ def sharded_phases(sg, sgc, layers, hyb_f32_losses, kernel_sources) -> dict:
             timings[f"{model} community off"] = timing(off)
 
         # 6b. card vs CPU on the small graphs, and predict() in global order
-        runs = [run("planted gcn", "planted", predict=True, epochs=10),
+        runs = [run("planted gcn", "planted", predict=True, epochs=5),
                 run("planted gat", "planted", predict=True, **gat),
-                run("planted gcn degree pair", "planted", kernel="degree", epochs=10),
+                run("planted gcn degree pair", "planted", kernel="degree", epochs=5),
                 run("planted gat degree pair", "planted", kernel="degree", **gat),
                 run("smallcomm gcn pairs", "smallcomm", reuse="pairs", reuse_passes=2),
                 run("smallcomm gat pairs", "smallcomm", reuse="pairs", reuse_passes=2, **gat)]
@@ -1820,7 +2035,12 @@ def main() -> None:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     layers = LayerConfig([REDDIT["feat"], 128, REDDIT["classes"]])
 
+    # 8. the stage profiler, before any torch.profiler session in this process
+    stamp("phase 8")
+    stages = stage_phase(g, layers)
+
     # 3g. K8, K9, K10 vs plain on rank 0's shard of the 4-way partition
+    stamp("phase 3g, 3h")
     t0 = time.perf_counter()
     sg = partition_graph(g, RANKS)
     print(f"{RANKS}-way range partition: vp {sg.vp}, max_h {sg.max_h}, edges per shard "
@@ -1927,7 +2147,21 @@ def main() -> None:
                                                  timed=True))
         del plan0
     torch.cuda.empty_cache()
+    # K9 and K10 at F = 64 (phase 9's exchange width: 128 split 2 ways) on
+    # rank 0's plan of the 2-way partition (phase 9's graph shards)
+    t0 = time.perf_counter()
+    sg2 = partition_graph(g, 2)
+    print(f"2-way range partition: vp {sg2.vp}, max_h {sg2.max_h}, edges per shard "
+          f"{[s.num_edges for s in sg2.shards]} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    cnt2 = np.stack([halo.ghost_counts(s, 2, sg2.vp, sg2.max_h) for s in sg2.shards], axis=1)
+    plan2_0 = halo.HaloPlan(sg2.shards[0], 2, "ragged", "cuda", counts=(cnt2[0], cnt2[:, 0]))
+    for dtype in ("float32", "bfloat16"):
+        halo_results.append(compare_halo("reddit2_shard0", plan2_0, 64, dtype, seed=64,
+                                         timed=True))
+    del plan2_0
+    torch.cuda.empty_cache()
 
+    stamp("phase 3, 3b, 3d")
     csr = csr_pattern(g.src, g.dst, v)
     csr["norm"] = torch.tensor(g.edge_norm, device="cuda")
     csr["ones"] = torch.ones_like(csr["norm"])
@@ -1955,6 +2189,9 @@ def main() -> None:
             results.append(compare("reddit", op, f, seed=f, timed=timed, csr=csr))
             results.append(compare_mask("reddit", op, f, seed=f + 2, timed=timed, csr=csr))
             results.append(compare_dyn("reddit", op, f, seed=f + 4, timed=timed, csr=csr))
+        # F = 64: the width tensor parallelism aggregates at (phase 9)
+        results.append(compare("reddit", op, 64, seed=64, timed=True, csr=csr))
+        results.append(compare_mask("reddit", op, 64, seed=66, timed=True, csr=csr))
         del op
         torch.cuda.empty_cache()
     src, dst, val = powerlaw_edges(20_000, seed=7)
@@ -1971,6 +2208,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 3c. K3, K4, K5 vs plain
+    stamp("phase 3c")
     t0 = time.perf_counter()
     eop = EdgeSpMM(g.src, g.dst, v, v, device="cuda")
     print(f"edge CSR op: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1999,6 +2237,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 3e. the degree pass on K1 / K2 / K7 vs the plain degree pass
+    stamp("phase 3e")
     degree_results = []
     for gd in (torch.bfloat16, None):
         t0 = time.perf_counter()
@@ -2022,6 +2261,7 @@ def main() -> None:
         del dop
 
     # 3f. K6 on the mined Reddit-scale community levels; the reuse pass
+    stamp("phase 3f")
     t0 = time.perf_counter()
     cg = community_graph(REDDIT["v"], REDDIT["deg"], REDDIT["feat"], REDDIT["classes"],
                          **COMMUNITY)
@@ -2066,6 +2306,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 3i. the sharded reuse op on rank 0's shard of the community graph
+    stamp("phase 3i")
     t0 = time.perf_counter()
     sgc = partition_graph(cg, RANKS)
     cshard = sgc.shards[0]
@@ -2109,6 +2350,7 @@ def main() -> None:
     del srop, shop, tb
     torch.cuda.empty_cache()
 
+    stamp("phase 3j")
     # 3j. the primitive probes: a fast first check, then the probe's main
     # path with its launch counts set to 0 just before. `measure` holds each
     # timed launch (100,000 ops a stream, the card's grid, both P3 tables)
@@ -2165,6 +2407,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 4. main path, GCN
+    stamp("phase 4, 4b")
     gcn_counts, gcn_times = main_path(
         g, layers, TrainConfig(epochs=3, eval_every=1, kernel="hyb",
                                agg_dtype="bfloat16", reuse="off"),
@@ -2177,6 +2420,7 @@ def main() -> None:
         "reddit-config GAT", "K2")
 
     # 4c. the edgewise path at full size, against hyb with f32 aggregation
+    stamp("phase 4c")
     edge_counts = {}
     edge_times = {}
     edge_steps = {}
@@ -2212,6 +2456,7 @@ def main() -> None:
               flush=True)
         check(gap <= 1e-4, f"{model}: xla and hyb losses differ by {gap:.3e} > 1e-4")
 
+    stamp("phase 4g")
     # 4g. the edgewise path past 400k vertices: kernel="auto" resolves to
     # xla under 8M edges, and the engine takes JAX's dst-blocked branch
     t0 = time.perf_counter()
@@ -2237,6 +2482,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 4d. main path, kernel="degree"
+    stamp("phase 4d")
     degree_counts = 0
     degree_times = {}
     for model, lr in (("gcn", 0.01), ("gat", 0.005)):
@@ -2267,6 +2513,7 @@ def main() -> None:
         check(gap <= 1e-4, f"{model}: degree and hyb losses differ by {gap:.3e} > 1e-4")
 
     # 4e. main path, reuse="pairs" on the Reddit-scale community graph
+    stamp("phase 4e")
     reuse_counts = {"K6": 0, "K2": 0}
     reuse_times = {}
     for model, lr in (("gcn", 0.01), ("gat", 0.005)):
@@ -2300,6 +2547,7 @@ def main() -> None:
         check(gap <= 1e-2, f"community {model}: reuse and off differ by {gap:.3e} > 1e-2")
         reuse_times[model] = {k: r for k, (_, r) in runs.items()}
 
+    stamp("phase 4f")
     # 4f. main path, dynamic values: GCN on ops without static values, then
     # the same with the edge values requiring a gradient (a model that learns
     # its edge weights): its backward takes K7's fused dh + dval pass
@@ -2349,12 +2597,13 @@ def main() -> None:
     del batch, learned
 
     # 5, 5b, 5c. card vs CPU on small graphs
+    stamp("phase 5, 5b, 5c")
     gp = synthetic_graph(2000, 8, REDDIT["feat"], REDDIT["classes"], seed=8888)
-    cfg = TrainConfig(epochs=10, eval_every=1, kernel="hyb", reuse="off")
+    cfg = TrainConfig(epochs=5, eval_every=1, kernel="hyb", reuse="off")
     gpu_l = [e.loss for e in Engine(gp, layers, cfg, device="cuda").run().epochs]
     cpu_l = [e.loss for e in Engine(gp, layers, cfg, device="cpu").run().epochs]
     gap = float(np.max(np.abs(np.array(gpu_l) - np.array(cpu_l))))
-    print(f"planted graph card vs CPU: max loss gap {gap:.3e} over 10 epochs "
+    print(f"planted graph card vs CPU: max loss gap {gap:.3e} over 5 epochs "
           f"(gpu {gpu_l[0]:.5f} -> {gpu_l[-1]:.5f})", flush=True)
     check(gap <= 1e-3, f"card and CPU trajectories differ by {gap:.3e} > 1e-3")
     gs = community_graph(4000, 20, REDDIT["feat"], REDDIT["classes"], comm=40, core=30,
@@ -2370,7 +2619,7 @@ def main() -> None:
         # errors 100x below f32 rounding decide which a run takes. The card,
         # the JAX package on the CPU and a float64 run take one, the port on
         # the CPU the other, with reuse and without it (PERF.md §7).
-        cfg = TrainConfig(epochs=3 if graph is gs else 10, eval_every=1, model=model,
+        cfg = TrainConfig(epochs=3 if graph is gs else 5, eval_every=1, model=model,
                           kernel=kernel, reuse=reuse, reuse_passes=2,
                           learning_rate=0.005 if model == "gat" else 0.01)
         rgap = planted_pair(graph, layers, cfg, f"{model} {kernel} reuse={reuse}")
@@ -2378,10 +2627,12 @@ def main() -> None:
                             f"{rgap:.3e} relative > 1e-5")
 
     # 6, 6b, 6c. the sharded engine: 4 ranks on the card
+    stamp("phase 6, 6d, 6f, 9, 6e, 6b, 6c")
     torch.cuda.empty_cache()
-    sharded = sharded_phases(sg, sgc, layers, hyb_f32_losses, sources)
+    sharded = sharded_phases(sg, sg2, sgc, layers, hyb_f32_losses, sources)
 
     # 7. the command line: checkpoints, resume, staleness, infer, --shards
+    stamp("phase 7")
     del g, cg
     torch.cuda.empty_cache()
     cli_times = cli_phases(card)
@@ -2406,6 +2657,22 @@ def main() -> None:
     # the pair's two halves run the same pass), its reuse pass (6e).
     ks = pick(sharded_degree_results, case="reddit_shard0_combined", dtype="bfloat16", F=128)
     ksr = pick(sharded_reuse_results, dtype="bfloat16", F=128)
+    # Phase 9's widths: GCN under TP gathers f32 tables at F = 64 (K1), GAT
+    # bf16 ones (K2, its first layer); the exchange runs in f32 at 64.
+    k1t = pick(results, kernel="K1", case="reddit", dtype="float32", F=64)
+    k2t = pick(results, kernel="K2", case="reddit", dtype="bfloat16", F=64)
+    kht = pick(halo_results, case="reddit2_shard0", dtype="float32", F=64)
+    # phase 8's brackets beside phase 3's passes at the same width and dtype
+    # (GAT's bracket is K2's pass and the row scale)
+    beside = {}
+    for model, slot in (("gcn", "K1"), ("gat", "K2")):
+        for l, f in enumerate(stages[model]["widths"]):
+            row = pick(results, kernel=slot, case="reddit", dtype="bfloat16", F=f)
+            beside[f"{model} aggregate_l{l} F={f}"] = {
+                "bracket_ms": stages[model]["stages_ms"][f"aggregate_l{l}_ms"],
+                f"{slot}_pass_ms": row["fwd_ms"]}
+    print("phase 8 aggregate brackets beside phase 3's passes: " + json.dumps(beside),
+          flush=True)
 
     def lib(r):
         ms = r.get("library_ms")
@@ -2455,6 +2722,16 @@ def main() -> None:
                sharded["launches"]["K9"], kh["K9_ms"], kh["K9_plain_ms"], kh["K9"]),
         "K10": ("halo_segsum", "halo.cu", "dorylus_tpu/parallel/halo.py:132",
                 sharded["launches"]["K10"], kh["K10_ms"], kh["K10_plain_ms"], kh["K10"]),
+        # the same kernels at tensor parallelism's width (phase 9's launches)
+        "K1 F=64": ("hyb_static_pass_f64_tp", "hyb_spmm.cu", "dorylus_tpu/ops/hyb_spmm.py:392",
+                    sharded["launches"]["K1_tp"], k1t["fwd_ms"], k1t["fwd_plain_ms"], k1t),
+        "K2 F=64": ("hyb_mask_pass_f64_tp", "hyb_spmm.cu", "dorylus_tpu/ops/hyb_spmm.py:508",
+                    sharded["launches"]["K2_tp"], k2t["fwd_ms"], k2t["fwd_plain_ms"], k2t),
+        "K9 F=64": ("halo_row_gather_f64_tp", "halo.cu", "dorylus_tpu/parallel/halo.py:118",
+                    sharded["launches"]["K9_tp"], kht["K9_ms"], kht["K9_plain_ms"], kht["K9"]),
+        "K10 F=64": ("halo_segsum_f64_tp", "halo.cu", "dorylus_tpu/parallel/halo.py:132",
+                     sharded["launches"]["K10_tp"], kht["K10_ms"], kht["K10_plain_ms"],
+                     kht["K10"]),
         "degree": ("degree_pass", "hyb_spmm.cu", "dorylus_tpu/ops/degree_spmm.py:132",
                    degree_counts, kd["static_fwd_ms"], kd["static_fwd_plain_ms"], kd),
         "reuse": ("reuse_unit_pass", "hyb_spmm.cu", "dorylus_tpu/ops/reuse_spmm.py:47",
@@ -2486,9 +2763,13 @@ def main() -> None:
     # host's microseconds to enqueue one pass; K6: its launches' device ms
     for k in kernels:
         for name, row, key in (("segment_sum", ke, "K5_vec"), ("halo_row_gather", kh, "K9"),
-                               ("halo_segsum", kh, "K10")):
+                               ("halo_segsum", kh, "K10"), ("halo_row_gather_f64_tp", kht, "K9"),
+                               ("halo_segsum_f64_tp", kht, "K10")):
             if k["name"] == name:
                 k.update(kernel_ms=row[f"{key}_kernel_ms"], host_us=row[f"{key}_host_us"])
+        for name, row in (("hyb_static_pass_f64_tp", k1t), ("hyb_mask_pass_f64_tp", k2t)):
+            if k["name"] == name:
+                k["kernel_ms"] = row["fwd_kernel_ms"]
         if k["name"] == "pair_build":
             k["kernel_ms"] = k6["kernel_ms"]
         if k["name"] == "fused_bwd_pass":
@@ -2529,8 +2810,10 @@ def main() -> None:
                                    "sharded_4_ranks": sharded["timings"],
                                    "sharded_reuse_shard0": sharded_reuse_info,
                                    "degree_pair_vs_combined_shard0": pair_vs_combined,
-                                   "cli_seconds": cli_times}),
+                                   "cli_seconds": cli_times,
+                                   "stages_1_device": stages}),
           flush=True)
+    stamp("done")
     print(f"nvidia-smi: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

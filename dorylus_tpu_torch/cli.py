@@ -17,15 +17,18 @@ for it runs here unchanged. Where the port differs:
   * `--compile-cache`, `--epochs-per-call` and `--edge-chunk` tune the JAX
     package's compiled epoch groups and XLA's message tensors; they are
     accepted and ignored, with one log line each.
-  * What is not ported exits non-zero naming its ROADMAP.md item:
-    `--profile` (queue 1 item 11), `--feat-shards` > 1 (item 13) and the
+  * What is not ported exits non-zero naming its ROADMAP.md item: the
     `bench` subcommand (item 5).
-  * `--shards n` starts n ranks on this host (parallel/multihost.py
-    `spawn_local`): one card each over NCCL when there are n cards, all on
-    the one card over gloo when there are fewer, gloo on the CPU under
-    `--device cpu`. The parent partitions the graph once and hands each
-    rank its shard file; rank 0 writes `--output`, and its summary is
-    printed.
+  * `--shards n --feat-shards m` starts n * m ranks on this host
+    (parallel/multihost.py `spawn_local`): one card each over NCCL when
+    there are n * m cards, all on the one card over gloo when there are
+    fewer, gloo on the CPU under `--device cpu`. The parent partitions the
+    graph n ways once and hands rank r the file of shard r // m (m > 1 is
+    tensor parallelism, `--feat-shards m` alone one shard on m ranks, as
+    the JAX package routes it); rank 0 writes `--output`, and its summary
+    is printed.
+  * `--profile` times the stages after training (engine/profiling.py) and
+    logs each bracket; the report's stage_times hold them.
 
 Exit codes: 0 done, 2 a refusal or a missing card (one line on stderr).
 """
@@ -62,8 +65,8 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--target-acc", type=float, default=None)
     p.add_argument("--eval-every", type=int, default=1)
     p.add_argument("--feat-shards", type=int, default=1,
-                   help="tensor parallelism (not ported: values > 1 exit, "
-                        "ROADMAP queue 1 item 13)")
+                   help="tensor parallelism: feature-column shards per "
+                        "vertex shard, one process each")
     p.add_argument("--shards", type=int, default=1,
                    help="vertex shards, one process each (1 = one device)")
     p.add_argument("--partition", default="range",
@@ -132,8 +135,9 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--output", default=None, help="report file (output_<node>)")
     p.add_argument("--profile", action="store_true",
-                   help="per-stage timing (not ported: exits, ROADMAP "
-                        "queue 1 item 11)")
+                   help="per-stage timing after training (halo / aggregate "
+                        "/ dense / forward / loss+grad), logged and in the "
+                        "report's stage_times")
     _add_device_args(p)
     # synthetic graph knobs
     p.add_argument("--synth-vertices", type=int, default=10000)
@@ -168,15 +172,9 @@ def _device(args) -> str:
     return args.device
 
 
-def _refuse_unported(args) -> None:
+def _log_ignored(args) -> None:
     from dorylus_tpu_torch.common.logging import log
 
-    if args.profile:
-        raise CliError("--profile: stage profiling is not ported yet "
-                       "(ROADMAP.md queue 1 item 11)")
-    if args.feat_shards > 1:
-        raise CliError(f"--feat-shards {args.feat_shards}: tensor parallelism is "
-                       "not ported yet (ROADMAP.md queue 1 item 13)")
     for flag, given in (("--compile-cache", args.compile_cache is not None),
                         ("--epochs-per-call", args.epochs_per_call != 0),
                         ("--edge-chunk", args.edge_chunk != 0)):
@@ -277,10 +275,18 @@ def _engine_sources() -> list:
             hyb_sharded._CSRC, halo._CSRC]
 
 
+def _log_stages(times: dict) -> None:
+    from dorylus_tpu_torch.common.logging import log
+
+    for k, v in times.items():
+        log("stage %-18s %8.2f ms", k, v)
+
+
 def _train_rank(rank: int, world: int, device, shard_dir: str, dims: list, cfg,
-                output: Optional[str]) -> dict:
-    """One rank of `train --shards n`: its shard file, the sharded engine,
-    the run. Rank 0 writes the report file."""
+                output: Optional[str], profile: bool = False) -> dict:
+    """One rank of `train --shards n --feat-shards m`: the file of shard
+    rank // m, the sharded engine, the run, the stage profile when asked
+    (every rank times; rank 0 logs). Rank 0 writes the report file."""
     import torch
 
     from dorylus_tpu_torch.common.config import LayerConfig
@@ -289,13 +295,16 @@ def _train_rank(rank: int, world: int, device, shard_dir: str, dims: list, cfg,
 
     if torch.device(device).type == "cpu":
         torch.set_num_threads(max(1, torch.get_num_threads() // world))
-    shard, meta = load_shard(Path(shard_dir) / f"shard_{rank}.npz")
+    shard, meta = load_shard(Path(shard_dir) / f"shard_{rank // max(1, cfg.feat_shards)}.npz")
     eng = ShardedEngine((shard, meta), LayerConfig(list(dims)), cfg, device=device)
     report = eng.run()
+    times = eng.profile() if profile else None
+    if rank == 0 and times:
+        _log_stages(times)
     if rank == 0 and output:
         report.write(output)
     return {"summary": report.summary(), "kernel": report.notes.get("kernel"),
-            "losses": [e.loss for e in report.epochs]}
+            "losses": [e.loss for e in report.epochs], "stages": times}
 
 
 def _train_sharded(args, g, layers, cfg, parts, device: str) -> dict:
@@ -305,10 +314,10 @@ def _train_sharded(args, g, layers, cfg, parts, device: str) -> dict:
     from dorylus_tpu_torch.graph.partition import ShardMeta, partition_graph, save_shard
     from dorylus_tpu_torch.parallel.multihost import spawn_local
 
-    n = args.shards
+    n, world = args.shards, args.shards * max(1, args.feat_shards)
     if torch.device(device).type == "cpu":
         backend, rank_device = "gloo", "cpu"
-    elif device == "cuda" and torch.cuda.device_count() >= n:
+    elif device == "cuda" and torch.cuda.device_count() >= world:
         backend, rank_device = "nccl", "cuda:{rank}"
     else:
         backend, rank_device = "gloo", "cuda:0" if device == "cuda" else device
@@ -324,8 +333,10 @@ def _train_sharded(args, g, layers, cfg, parts, device: str) -> dict:
         for s in sharded.shards:
             save_shard(Path(shard_dir) / f"shard_{s.shard_id}.npz", s, meta)
         del sharded
-        log("%d ranks over %s on %s", n, backend, rank_device)
-        res = spawn_local(n, _train_rank, (shard_dir, layers.dims, cfg, args.output),
+        log("%d ranks (%d shards x %d feat shards) over %s on %s", world, n,
+            args.feat_shards, backend, rank_device)
+        res = spawn_local(world, _train_rank,
+                          (shard_dir, layers.dims, cfg, args.output, args.profile),
                           backend=backend, device=rank_device, timeout_s=_RANK_TIMEOUT_S)
     finally:
         shutil.rmtree(shard_dir, ignore_errors=True)
@@ -334,11 +345,17 @@ def _train_sharded(args, g, layers, cfg, parts, device: str) -> dict:
 
 def cmd_train(args) -> int:
     from dorylus_tpu_torch.common.logging import log
+    from dorylus_tpu_torch.models.base import check_divisible
 
-    _refuse_unported(args)
+    _log_ignored(args)
     device = _device(args)
     g, layers, parts = load_graph(args)
-    if args.shards > 1:
+    try:  # the engine's refusal, here before any rank starts
+        for d in layers.dims[:-1]:
+            check_divisible(d, max(1, args.feat_shards), "layer")
+    except ValueError as e:
+        raise CliError(f"--feat-shards {args.feat_shards}: {e}") from None
+    if args.shards > 1 or args.feat_shards > 1:
         res = _train_sharded(args, g, layers, make_config(args), parts, device)
         log("aggregation kernel: %s", res["kernel"])
         print(res["summary"])
@@ -346,6 +363,8 @@ def cmd_train(args) -> int:
         eng = build_engine(args, g, layers)
         report = eng.run()
         log("aggregation kernel: %s", report.notes.get("kernel"))
+        if args.profile:
+            _log_stages(eng.profile())
         print(report.summary())
         if args.output:
             report.write(args.output)

@@ -161,8 +161,8 @@ def _unsupported(cfg: TrainConfig, kernel: str) -> Optional[str]:
         (cfg.model not in ("gcn", "gat"), f"model={cfg.model!r}"),
         (kernel not in ("hyb", "xla", "degree"), f"kernel={kernel!r}"),
         (cfg.num_shards > 1 or cfg.feat_shards > 1,
-         "num_shards/feat_shards > 1: the sharded engine is queue 1 items "
-         "12-13"),
+         "num_shards/feat_shards > 1: run the sharded engine, "
+         "parallel.ShardedEngine (JAX's Engine ignores both)"),
         (cfg.param_dtype != "float32", f"param_dtype={cfg.param_dtype!r}"),
         (cfg.compute_dtype not in _DTYPES or cfg.agg_dtype not in _DTYPES,
          f"compute_dtype={cfg.compute_dtype!r} / agg_dtype={cfg.agg_dtype!r}"),
@@ -235,8 +235,12 @@ def run_loop(eng, epochs: int) -> RunReport:
     """The epoch loop of both engines (JAX `run_group_loop`, one epoch an
     iteration). The engine supplies `_train_epoch(lr, stale)` (the update;
     returns the loss), `_stats(mask)` ((correct, loss, count) over every
-    shard), `_maybe_checkpoint(epoch)`, `rank` (0 logs) and the
-    report."""
+    shard), `_maybe_checkpoint(epoch)`, `rank` (0 logs), `world` (the
+    ranks: the cost note's GPU count, JAX's mesh.size) and the report.
+    The report's notes gain JAX's "cost" (GPU-seconds and an estimate at
+    an assumed price, engine/profiling.py) and, on the card, "hbm"."""
+    from dorylus_tpu_torch.engine.profiling import report_cost, report_memory
+
     cfg = eng.cfg
     speak = eng.rank == 0
     monitor = ConvergeMonitor(cfg.target_accuracy, cfg.switch_threshold)
@@ -280,6 +284,10 @@ def run_loop(eng, epochs: int) -> RunReport:
             break
     eng.report.notes["converge_state"] = monitor.state.name
     eng.report.total_time_s = time.perf_counter() - t_run
+    eng.report.notes["cost"] = report_cost(eng.report.total_time_s, n_gpus=eng.world)
+    mem = report_memory(eng.device)
+    if mem:
+        eng.report.notes["hbm"] = mem
     c, _, n = eng._stats(eng.batch.val_mask)
     eng.report.final_accuracy = c / max(1.0, n)
     c, _, n = eng._stats(eng.batch.test_mask)
@@ -372,6 +380,7 @@ class Engine:
         # the rank-1 factor; GAT: dst-functional): ship COO stubs (the JAX
         # rule); the edgewise path reads the COO arrays.
         stubbed = spmm_op is not None and (gat or spmm_op.has_static_vals)
+        self._edge_arrays_stubbed = stubbed
         self.batch = build_batch(graph, self.device, for_gat=gat,
                                  edge_arrays=not stubbed)
         if gat:
@@ -390,6 +399,7 @@ class Engine:
             graph.num_edges, self.kernel_selected, cfg.agg_dtype)
 
     rank = 0  # the one shard: it logs
+    world = 1
 
     def _stats(self, mask: torch.Tensor) -> tuple[float, float, float]:
         """(correct, loss, count) over the masked rows."""
@@ -424,6 +434,20 @@ class Engine:
         second run() starts again at start_epoch while Adam's step carries
         on, as JAX's does."""
         return run_loop(self, epochs if epochs is not None else self.cfg.epochs)
+
+    def profile(self, iters: int = 5) -> dict:
+        """Per-stage times in ms (engine/profiling.py `profile_stages`; JAX
+        `Engine.profile`); they also land in report.stage_times. When the
+        training batch ships stub edge arrays, the brackets run on a full
+        batch, as JAX's do."""
+        from dorylus_tpu_torch.engine.profiling import profile_stages, stage_times
+
+        batch = self.batch
+        if self._edge_arrays_stubbed:
+            batch = build_batch(self.graph, self.device, for_gat=self.cfg.model == "gat")
+        times = profile_stages(self.model, self.params, batch, iters=iters)
+        self.report.stage_times = stage_times(times, iters)
+        return times
 
     def output(self, path: Optional[str] = None) -> str:
         """Write/return the final report (JAX `Engine.output`; analog of

@@ -38,6 +38,23 @@ class GraphBatch(NamedTuple):
     val_bnd: Optional[torch.Tensor] = None
 
 
+class FeatAxis(NamedTuple):
+    """A model's place on the mesh's feat axis (tensor parallelism,
+    parallel/mesh.py): m column slices, this rank's slice, and the process
+    group of the m ranks that hold the same vertex shard."""
+
+    size: int
+    index: int
+    group: object
+
+
+def check_divisible(width: int, m: int, what: str) -> None:
+    """Tensor parallelism slices a width into m equal column blocks, as JAX
+    asserts; a width that does not divide raises (nothing is padded)."""
+    if width % m:
+        raise ValueError(f"{what} width {width} not divisible by feat_shards={m}")
+
+
 Params = Dict[str, torch.Tensor]
 # The sharded engine's exchange (parallel/halo.py make_halo_fn): h -> the
 # feature table (local rows, then ghosts), or the ghost rows only on the

@@ -31,6 +31,14 @@ two CSR SpMMs with att over `dst_int` and `dst_bnd`. Autograd sums the two
 contributions to d(att). Otherwise `halo(z)` returns the feature table and
 the combined op or the edgewise op gathers from it.
 
+Tensor parallelism (`tp`, a FeatAxis of m > 1; JAX `_forward_tp`): z is
+the feat group's sum of this rank's slice of h times its W row block; the
+attention matvec runs block-wise on column-masked z, so each rank's d(a)
+covers its own rows and the engine's world sum assembles it; the
+aggregation takes this rank's F/m slice of z where the layer width divides
+m (the halo at F/m over the graph group), else the whole z on every rank
+(the output layer at 41 with m = 2, and the edgewise path).
+
 Not ported: the `past_agg_cliff` regime branch (`models/gat.py:245-264`,
 aggregate h at its input width and transform after). It models a TPU
 gather cliff (ROADMAP.md "Not to port") and fires in JAX only with a bf16
@@ -45,8 +53,10 @@ import torch
 
 from dorylus_tpu_torch.common.config import LayerConfig
 from dorylus_tpu_torch.models import init as winit
-from dorylus_tpu_torch.models.base import (GNN, GraphBatch, HaloFn, Params,
-                                           check_edge_split, check_split, split_of)
+from dorylus_tpu_torch.models.base import (GNN, FeatAxis, GraphBatch, HaloFn, Params,
+                                           check_divisible, check_edge_split, check_split,
+                                           split_of)
+from dorylus_tpu_torch.models.gcn import _complete_grad_feat, _psum_feat, place_block
 from dorylus_tpu_torch.ops.activations import leaky_relu
 from dorylus_tpu_torch.ops.spmm import (EdgeSpMM, spmm_dst_blocked,
                                         spmm_edgewise, take_sorted)
@@ -62,11 +72,12 @@ class GAT(GNN):
     spmm_split: the sharded engine's overlap op, the fused plan or an
     (interior, boundary) pair (in place of spmm_op); edge_split: the
     (interior, boundary) EdgeSpMM pair of the edgewise split (in place of
-    edge_op)."""
+    edge_op). tp: the feat axis (tensor parallelism) when it has more than
+    one slice, else None."""
 
     def __init__(self, layers: LayerConfig, spmm_op=None,
                  edge_op: EdgeSpMM | None = None, blk_rows: int = 0,
-                 spmm_split=None, edge_split=None):
+                 spmm_split=None, edge_split=None, tp: FeatAxis | None = None):
         super().__init__()
         if spmm_op is None and edge_op is None and spmm_split is None and edge_split is None:
             raise ValueError("GAT needs an aggregation op (spmm_op or "
@@ -79,6 +90,9 @@ class GAT(GNN):
         self.edge_op = edge_op
         self.edge_split = edge_split
         self.blk_rows = blk_rows
+        self.tp = tp if tp is not None and tp.size > 1 else None
+        if self.tp is not None and (spmm_split is not None or edge_split is not None):
+            raise ValueError("tensor parallelism runs the combined plan: no overlap split")
         device = (spmm_op or edge_op or split_of(spmm_split, edge_split)).device
         dims = layers.dims
         for l in range(layers.num_layers):
@@ -134,10 +148,65 @@ class GAT(GNN):
         return (spmm_edgewise(z, batch.src_int, batch.dst_int, att_i, v, op=eop_i)
                 + spmm_edgewise(ghosts, batch.src_bnd, batch.dst_bnd, att_b, v, op=eop_b))
 
+    def _forward_tp(self, batch: GraphBatch, compute_dtype: torch.dtype,
+                    halo: HaloFn | None) -> torch.Tensor:
+        """The tensor-parallel forward (JAX `_forward_tp`). One
+        `_complete_grad_feat` fork of z serves both of its per-rank
+        consumers (the masked matvec and the slice), so its backward is one
+        sum over the feat group a layer."""
+        m, fi, grp = self.tp
+        h = batch.x.to(compute_dtype)
+        edge_mask = batch.edge_val.to(compute_dtype)
+        for l in range(self.layers.num_layers):
+            w = getattr(self, f"w{l}").to(compute_dtype)
+            a = getattr(self, f"a{l}").to(compute_dtype)
+            check_divisible(h.shape[1], m, f"layer {l} input")
+            blk = h.shape[1] // m
+            h = _complete_grad_feat(h, grp)
+            hs = h[:, fi * blk:(fi + 1) * blk]
+            ws = w[fi * blk:(fi + 1) * blk]
+            z = _psum_feat(torch.matmul(hs.float(), ws.float()), grp).to(compute_dtype)
+            fo = z.shape[1]
+            # column mask of this rank's block (a width that does not divide
+            # m, the output layer, takes uneven blocks)
+            cmask = torch.zeros(fo, dtype=z.dtype, device=z.device)
+            cmask[fi * fo // m:(fi + 1) * fo // m] = 1
+            zc = _complete_grad_feat(z, grp)
+            za = _psum_feat(torch.matmul((zc * cmask).float(), a.float()), grp)[:, 0]
+            att = leaky_relu(za)
+            if fo % m == 0 and self.spmm_op is not None:
+                blk_o = fo // m
+                zs = zc[:, fi * blk_o:(fi + 1) * blk_o].contiguous()
+                att_s = _complete_grad_feat(att, grp)  # the partial aggregations read it
+                table = halo(zs) if halo is not None else zs
+                agg_s = self.spmm_op.apply_dst(table, att_s)
+                agg = _psum_feat(place_block(agg_s.to(z.dtype), fi, m), grp)
+            else:
+                # the whole z on every feat rank: no cotangent to complete
+                table = halo(z) if halo is not None else z
+                if self.spmm_op is not None:
+                    agg = self.spmm_op.apply_dst(table, att).to(z.dtype)
+                else:
+                    v = z.shape[0]
+                    av = leaky_relu(take_sorted(za, batch.dst, v, op=self.edge_op)) * edge_mask
+                    agg = spmm_edgewise(table, batch.src, batch.dst, av, v, op=self.edge_op)
+            h = z + agg
+        return h
+
+    def agg_width(self, l: int) -> int:
+        """The width layer l aggregates (and exchanges) at: its output width;
+        under tensor parallelism the slice of it where it divides m and the
+        op takes slices."""
+        fo = self.layers.dims[l + 1]
+        m = 1 if self.tp is None else self.tp.size
+        return fo // m if fo % m == 0 and self.spmm_op is not None else fo
+
     def forward(self, batch: GraphBatch,
                 compute_dtype: torch.dtype = torch.float32,
                 halo: HaloFn | None = None) -> torch.Tensor:
         """Logits (V, C); on a shard, (vp, C) with `halo` the exchange."""
+        if self.tp is not None:
+            return self._forward_tp(batch, compute_dtype, halo)
         num_layers = self.layers.num_layers
         h = batch.x.to(compute_dtype)
         # The batch's edge values are GAT's {0,1} edge mask.

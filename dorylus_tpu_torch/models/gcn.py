@@ -36,19 +36,88 @@ rows the same way and add two passes (JAX `_aggregate_split`): the
 (interior, boundary) op pair (`spmm_split` a 2-tuple, the degree kernel's
 overlap plan: interior over x, boundary over the ghosts) and the edgewise
 split (`edge_split`, two EdgeSpMM over the batch's `src_int ... val_bnd`).
-The interior pass reads no ghost row. Tensor parallelism is still to port.
+The interior pass reads no ghost row.
+
+Tensor parallelism (`tp`, a FeatAxis of m > 1; JAX `_forward_tp`): each
+rank of a feat group aggregates an F/m column slice of the table, the halo
+exchanging those columns over the graph group, and the layer matmul's
+partial products are summed over the feat group (`_psum_feat`), so z and
+the loss are the same on every feat rank. The weight gradients are summed
+over the world by the engine, which assembles each rank's W row block.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from dorylus_tpu_torch.common.config import LayerConfig
 from dorylus_tpu_torch.models import init as winit
-from dorylus_tpu_torch.models.base import (GNN, GraphBatch, HaloFn, Params,
-                                           check_edge_split, check_split, split_of)
+from dorylus_tpu_torch.models.base import (GNN, FeatAxis, GraphBatch, HaloFn, Params,
+                                           check_divisible, check_edge_split, check_split,
+                                           split_of)
 from dorylus_tpu_torch.ops.spmm import (EdgeSpMM, aggregate, spmm_dst_blocked,
                                         spmm_edgewise)
+
+
+# The tensor-parallel autograd idioms (JAX models/gcn.py:56-106). A sum over
+# the feat group whose output cotangent is the same on every feat rank must
+# not be summed again in the backward (that over-counts gradients m-fold,
+# which Adam's scale invariance hides from a loss trajectory):
+#
+#   * _complete_grad_feat: identity forward; the backward sums the cotangent
+#     over the feat group. Wrap a feat-replicated value at each fork that
+#     per-rank slices consume: its true cotangent is the sum of the ranks'
+#     partial cotangents.
+#   * _psum_feat: sum over the feat group forward; identity backward. Use it
+#     to assemble partial products whose output cotangent is replicated (the
+#     layer matmul z, the attention matvec za, the aggregation's blocks):
+#     each rank's partial receives d(out), not m * d(out).
+#
+# The sums run in f32 (a bf16 cotangent is cast up and back).
+
+
+def _feat_sum(t: torch.Tensor, group) -> torch.Tensor:
+    from dorylus_tpu_torch.parallel import multihost  # the package imports the models
+
+    out = t.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
+    return multihost.all_reduce_sum(out, group).to(t.dtype)
+
+
+class _CompleteGradFeat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return _feat_sum(g, ctx.group), None
+
+
+class _PsumFeat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        return _feat_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g, None
+
+
+def _complete_grad_feat(x: torch.Tensor, group) -> torch.Tensor:
+    return _CompleteGradFeat.apply(x, group)
+
+
+def _psum_feat(x: torch.Tensor, group) -> torch.Tensor:
+    return _PsumFeat.apply(x, group)
+
+
+def place_block(block: torch.Tensor, index: int, m: int) -> torch.Tensor:
+    """block (V, F/m) at column block `index` of a (V, F) zero table (JAX's
+    dynamic_update_slice into zeros): its backward slices the block out."""
+    w = block.shape[1]
+    return F.pad(block, (index * w, (m - 1 - index) * w))
 
 
 class GCN(GNN):
@@ -60,11 +129,13 @@ class GCN(GNN):
     dst-blocked branch (same sum, same op). spmm_split: the sharded
     engine's overlap op, the fused plan or an (interior, boundary) pair
     (in place of spmm_op); edge_split: the (interior, boundary) EdgeSpMM
-    pair of the edgewise split (in place of edge_op)."""
+    pair of the edgewise split (in place of edge_op). tp: the feat axis
+    (tensor parallelism) when it has more than one slice, else None."""
 
     def __init__(self, layers: LayerConfig, spmm_op=None,
                  optimize_order: bool = True, edge_op: EdgeSpMM | None = None,
-                 blk_rows: int = 0, spmm_split=None, edge_split=None):
+                 blk_rows: int = 0, spmm_split=None, edge_split=None,
+                 tp: FeatAxis | None = None):
         super().__init__()
         if spmm_op is None and edge_op is None and spmm_split is None and edge_split is None:
             raise ValueError("GCN needs an aggregation op (spmm_op or "
@@ -78,6 +149,9 @@ class GCN(GNN):
         self.edge_split = edge_split
         self.optimize_order = optimize_order
         self.blk_rows = blk_rows
+        self.tp = tp if tp is not None and tp.size > 1 else None
+        if self.tp is not None and (spmm_split is not None or edge_split is not None):
+            raise ValueError("tensor parallelism runs the combined plan: no overlap split")
         device = (spmm_op or edge_op or split_of(spmm_split, edge_split)).device
         dims = layers.dims
         for l in range(layers.num_layers):
@@ -138,10 +212,52 @@ class GCN(GNN):
                               h.shape[0], op=eop_b)
         return out_i + out_b
 
+    def _forward_tp(self, batch: GraphBatch, compute_dtype: torch.dtype,
+                    halo: HaloFn | None) -> torch.Tensor:
+        """The tensor-parallel forward (JAX `_forward_tp`): per layer, this
+        rank's column slice of h and the matching W row block; transform
+        first when the layer shrinks and its output width divides m (the
+        slice of hW is aggregated, the blocks psum-assembled), else aggregate
+        the slice first; z is summed over the feat group. The slices are
+        made contiguous: the gather kernels and K9's pack read whole rows."""
+        m, fi, grp = self.tp
+        num_layers = self.layers.num_layers
+        h = batch.x.to(compute_dtype)
+        for l, w in enumerate(self.params().values()):
+            w = w.to(compute_dtype)
+            check_divisible(h.shape[1], m, f"layer {l} input")
+            blk = h.shape[1] // m
+            h = _complete_grad_feat(h, grp)
+            hs = h[:, fi * blk:(fi + 1) * blk].contiguous()
+            ws = w[fi * blk:(fi + 1) * blk]
+            if self.optimize_order and w.shape[0] > w.shape[1] and w.shape[1] % m == 0:
+                hw = _psum_feat(torch.matmul(hs.float(), ws.float()), grp)
+                blk_o = hw.shape[1] // m
+                hws = _complete_grad_feat(hw, grp)[:, fi * blk_o:(fi + 1) * blk_o].contiguous()
+                agg_s = self._aggregate(hws, batch, halo)
+                z = _psum_feat(place_block(agg_s.to(hw.dtype), fi, m), grp)
+            else:
+                ah = self._aggregate(hs, batch, halo)
+                z = _psum_feat(torch.matmul(ah.float(), ws.float()), grp)
+            h = torch.tanh(z).to(compute_dtype) if l < num_layers - 1 else z
+        return h
+
+    def agg_width(self, l: int) -> int:
+        """The width layer l aggregates (and exchanges) at: its output width
+        when it transforms first, else its input width; under tensor
+        parallelism the slice of it."""
+        fin, fout = self.layers.dims[l], self.layers.dims[l + 1]
+        m = 1 if self.tp is None else self.tp.size
+        if self.optimize_order and fin > fout and fout % m == 0:
+            return fout // m
+        return fin // m
+
     def forward(self, batch: GraphBatch,
                 compute_dtype: torch.dtype = torch.float32,
                 halo: HaloFn | None = None) -> torch.Tensor:
         """Logits (V, C); on a shard, (vp, C) with `halo` the exchange."""
+        if self.tp is not None:
+            return self._forward_tp(batch, compute_dtype, halo)
         num_layers = self.layers.num_layers
         h = batch.x.to(compute_dtype)
         for l, w in enumerate(self.params().values()):

@@ -4,7 +4,8 @@ dorylus_tpu/parallel/halo.py).
 Each rank owns one vertex shard. Per layer it
 
   1. packs the rows each peer needs from it:  buf = h[send rows]     (K9)
-  2. exchanges them: `all_to_all_single` over the process group
+  2. exchanges them: `all_to_all_single` over the graph shards' group (the
+     world, or under tensor parallelism its graph group, parallel/mesh.py)
   3. holds the received rows in the padded ghost layout (n * max_h, F),
      owner q's block at offset q * max_h, which is what the edge source
      indices of graph/partition.py address (vp + q * max_h + rank).
@@ -314,12 +315,16 @@ class HaloPlan:
     counts (every rank must then build its plan at the same point).
 
     device: None means the card and raises without one; the CPU only when
-    the caller passes device="cpu"."""
+    the caller passes device="cpu". group: the process group of the n graph
+    shards (parallel/mesh.py; None: the world), over which every exchange
+    of this plan runs; under tensor parallelism each feat index exchanges
+    its F/m columns within its own graph group."""
 
     def __init__(self, shard: Shard, n: int, wire: str = "ragged",
                  device: str | torch.device | None = None,
-                 counts: Optional[tuple[np.ndarray, np.ndarray]] = None):
+                 counts: Optional[tuple[np.ndarray, np.ndarray]] = None, group=None):
         device = resolve_device(device)
+        self.group = group
         if wire not in ("padded", "ragged"):
             raise ValueError(f"halo wire {wire!r}: \"padded\" or \"ragged\"")
         send_idx = np.asarray(shard.send_idx)
@@ -333,7 +338,8 @@ class HaloPlan:
         if counts is None:
             recv_cnt = ghost_counts(shard, n, vp, mh)
             sent = multihost.all_to_all_rows(
-                torch.tensor(recv_cnt, device=self.device)[:, None], [1] * n, [1] * n)
+                torch.tensor(recv_cnt, device=self.device)[:, None], [1] * n, [1] * n,
+                group=group)
             send_cnt = sent[:, 0].cpu().numpy()
         else:
             send_cnt, recv_cnt = (np.asarray(c, np.int64) for c in counts)
@@ -391,7 +397,8 @@ class HaloRecvFn(torch.autograd.Function):
     def forward(ctx, h: torch.Tensor, plan: HaloPlan) -> torch.Tensor:
         ctx.plan, ctx.h_dtype = plan, h.dtype
         buf = row_gather(h, plan.pack)
-        recv = multihost.all_to_all_rows(buf, plan.in_splits, plan.out_splits)
+        recv = multihost.all_to_all_rows(buf, plan.in_splits, plan.out_splits,
+                                         group=plan.group)
         return recv if plan.place is None else row_gather(recv, plan.place)
 
     @staticmethod
@@ -402,14 +409,16 @@ class HaloRecvFn(torch.autograd.Function):
         # (the split lists swap roles), then the sorted segment-sum adds
         # up, per local row, what its receivers returned.
         gsend = g if plan.unplace is None else row_gather(g, plan.unplace)
-        back = multihost.all_to_all_rows(gsend, plan.out_splits, plan.in_splits)
+        back = multihost.all_to_all_rows(gsend, plan.out_splits, plan.in_splits,
+                                         group=plan.group)
         dh = segsum_gather(back, plan.order, plan.rows, plan.row_ptr, plan.vp)
         return dh.to(ctx.h_dtype), None
 
 
 def halo_recv(h: torch.Tensor, plan: HaloPlan) -> torch.Tensor:
     """Ghost rows only: (n * max_h, F) in h's dtype. Used by the overlap
-    path, whose pure buckets need no ghost row."""
+    path, whose pure buckets need no ghost row. h may be a column slice
+    (tensor parallelism): K9 packs from a contiguous copy of it."""
     return HaloRecvFn.apply(h, plan)
 
 

@@ -18,11 +18,16 @@ starts n ranks on this host with a file:// rendezvous in a temp directory
 fails: a failing rank fails the run, and the others are stopped rather
 than left waiting in a collective.
 
-The collectives (`all_to_all_rows`, `all_reduce_sum`, `all_gather_rows`)
-are thin wrappers with one transport rule, chosen by backend name: NCCL
-takes device buffers as they are; gloo takes CPU buffers, so under gloo a
-CUDA tensor is staged through a pinned host buffer, explicitly, here. With
-no process group (one shard) they are the identity.
+The collectives (`all_to_all_rows`, `all_reduce_sum`, `all_gather_rows`,
+`barrier`) are thin wrappers with one transport rule, chosen by backend
+name: NCCL takes device buffers as they are; gloo takes CPU buffers, so
+under gloo a CUDA tensor is staged through a pinned host buffer,
+explicitly, here. Each takes an optional process `group` (the graph or the
+feat group of parallel/mesh.py; None is the world). With no process group
+(one shard), or over a group of one rank, they are the identity. A gloo
+collective returns only when it is done and every staged result is copied
+out of its host buffer before the call returns, so one buffer per tag
+serves every group: no result aliases a buffer another call reuses.
 """
 
 from __future__ import annotations
@@ -55,8 +60,9 @@ def rank() -> int:
     return dist.get_rank() if initialized() else 0
 
 
-def world_size() -> int:
-    return dist.get_world_size() if initialized() else 1
+def world_size(group=None) -> int:
+    """The ranks of `group` (None: the world); 1 without a process group."""
+    return dist.get_world_size(group) if initialized() else 1
 
 
 def backend_name() -> str:
@@ -150,10 +156,10 @@ def _as_bytes(t: torch.Tensor) -> torch.Tensor:
 
 
 def all_to_all_rows(inp: torch.Tensor, in_splits: list[int],
-                    out_splits: list[int]) -> torch.Tensor:
-    """Rows [sum(in_splits[:p]), ...) of `inp` go to rank p; returns the
-    (sum(out_splits), F) rows received, grouped by sender. Every rank of
-    the group must call it, a rank with nothing to send included."""
+                    out_splits: list[int], group=None) -> torch.Tensor:
+    """Rows [sum(in_splits[:p]), ...) of `inp` go to rank p of `group`;
+    returns the (sum(out_splits), F) rows received, grouped by sender. Every
+    rank of the group must call it, a rank with nothing to send included."""
     n_out = sum(out_splits)
     out = torch.empty((n_out,) + tuple(inp.shape[1:]), dtype=inp.dtype,
                       device=inp.device)
@@ -165,36 +171,37 @@ def all_to_all_rows(inp: torch.Tensor, in_splits: list[int],
         h_out = _host("a2a_out", out.shape, out.dtype)
         h_in.copy_(inp)  # device -> pinned host, waits for the stream
         dist.all_to_all_single(_as_bytes(h_out), _as_bytes(h_in),
-                               out_splits, in_splits)
+                               out_splits, in_splits, group=group)
         out.copy_(h_out)
     elif backend_name() == "gloo":
         dist.all_to_all_single(_as_bytes(out), _as_bytes(inp), out_splits,
-                               in_splits)
+                               in_splits, group=group)
     else:
-        dist.all_to_all_single(out, inp, out_splits, in_splits)
+        dist.all_to_all_single(out, inp, out_splits, in_splits, group=group)
     return out
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """Sum `t` over the ranks, in place; the identity without a group."""
-    if not initialized():
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum `t` over the ranks of `group` (None: the world), in place; the
+    identity without a process group or over a group of one rank."""
+    if world_size(group) == 1:
         return t
     if _staged(t):
         h = _host("reduce", t.shape, t.dtype)
         h.copy_(t)
-        dist.all_reduce(h, op=dist.ReduceOp.SUM)
+        dist.all_reduce(h, op=dist.ReduceOp.SUM, group=group)
         t.copy_(h)
     else:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
 
-def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's `t` (equal shapes) stacked on a new leading axis, on
-    every rank."""
-    if not initialized():
+def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's `t` (equal shapes) stacked on a new leading axis in the
+    order of the ranks of `group` (None: the world), on every rank."""
+    n = world_size(group)
+    if n == 1:
         return t[None]
-    n = world_size()
     t = t.contiguous()
     staged = _staged(t)
     src = t
@@ -202,15 +209,16 @@ def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
         src = _host("gather_in", t.shape, t.dtype)
         src.copy_(t)
     parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src)
+    dist.all_gather(parts, src, group=group)
     return torch.stack(parts).to(t.device)
 
 
-def barrier(device: str | torch.device) -> None:
-    """Every rank waits here until all have arrived (a one-element
-    all-reduce, read back on the host); nothing without a group."""
-    if initialized():
-        float(all_reduce_sum(torch.zeros(1, device=device)))
+def barrier(device: str | torch.device, group=None) -> None:
+    """Every rank of `group` (None: the world) waits here until all have
+    arrived (a one-element all-reduce, read back on the host); nothing
+    without a process group."""
+    if world_size(group) > 1:
+        float(all_reduce_sum(torch.zeros(1, device=device), group))
 
 
 # ---- local launch ----

@@ -42,8 +42,27 @@ bounded staleness, checkpoints and resume (JAX `parallel/train_step.py`
 halo exchanges and their reverse included, on every rank at the window's
 oldest copy, and its gradients go into the one flat all-reduce; rank 0
 writes a checkpoint and every rank waits for it at a barrier before the
-next epoch; every rank loads on resume. Tensor parallelism and profiling
-raise NotImplementedError naming their ROADMAP.md item.
+next epoch; every rank loads on resume.
+
+Tensor parallelism (cfg.feat_shards = m > 1; JAX's mesh of (n, m) with a
+'feat' axis): the world of n * m ranks is a mesh (parallel/mesh.py), rank r
+on graph shard r // m at feat index r % m. Each rank of a feat group holds
+the same shard and aggregates an F/m column slice (models/gcn.py,
+models/gat.py `_forward_tp`); the halo exchange runs over the graph group
+at F/m. Every input and hidden width must divide m (JAX's refusal; nothing
+is padded), and the overlap plans are off (the combined plan, as in JAX).
+The reductions, each over its own group:
+
+    weight gradients        the world (both axes: the feat ranks' W row
+                            blocks assemble, the graph ranks' sums add)
+    the loss                the graph group: the feat ranks hold the same
+                            loss, so in the one flat buffer only feat index
+                            0 adds it
+    evaluation sums         the graph group
+    predict                 a gather over the graph group (each shard once)
+
+`profile` times the stages on the engine's plan (engine/profiling.py
+`profile_stages_sharded`).
 """
 
 from __future__ import annotations
@@ -64,7 +83,7 @@ from dorylus_tpu_torch.engine.engine import (_DTYPES, _max_agg_width, check_stal
 from dorylus_tpu_torch.graph.graph import Graph
 from dorylus_tpu_torch.graph.partition import (Shard, ShardMeta, partition_graph,
                                                shard_edges)
-from dorylus_tpu_torch.models.base import GraphBatch
+from dorylus_tpu_torch.models.base import FeatAxis, GraphBatch, check_divisible
 from dorylus_tpu_torch.models.gat import GAT
 from dorylus_tpu_torch.models.gcn import GCN
 from dorylus_tpu_torch.ops.activations import accuracy_and_loss, row_softmax
@@ -75,6 +94,7 @@ from dorylus_tpu_torch.ops.spmm import EdgeSpMM
 from dorylus_tpu_torch.optim.adam import adam_init, adam_update, sgd_update
 from dorylus_tpu_torch.parallel import multihost
 from dorylus_tpu_torch.parallel.halo import HaloPlan, make_halo_fn
+from dorylus_tpu_torch.parallel.mesh import make_mesh
 
 
 def _unsupported(cfg: TrainConfig) -> Optional[str]:
@@ -83,8 +103,6 @@ def _unsupported(cfg: TrainConfig) -> Optional[str]:
     checks = [
         (cfg.model not in ("gcn", "gat"), f"model={cfg.model!r}"),
         (cfg.kernel not in ("hyb", "xla", "degree"), f"kernel={cfg.kernel!r}"),
-        (cfg.feat_shards > 1,
-         "feat_shards > 1: tensor parallelism is queue 1 item 13"),
         (cfg.param_dtype != "float32", f"param_dtype={cfg.param_dtype!r}"),
         (cfg.compute_dtype not in _DTYPES or cfg.agg_dtype not in _DTYPES,
          f"compute_dtype={cfg.compute_dtype!r} / agg_dtype={cfg.agg_dtype!r}"),
@@ -134,7 +152,8 @@ class ShardedEngine:
 
     graph: the whole `Graph` (every rank partitions it the same way and
     keeps its own shard), or this rank's `(Shard, ShardMeta)` as
-    `load_shard` returns it (the parent of a local launch partitions once).
+    `load_shard` returns it (the parent of a local launch partitions once;
+    under tensor parallelism rank r holds shard r // feat_shards).
     device: None means the card, and raises when there is none; the CPU
     only when the caller passes "cpu"."""
 
@@ -142,14 +161,20 @@ class ShardedEngine:
                  cfg: TrainConfig, device: str | torch.device | None = None,
                  partition_method: str = "range",
                  parts: Optional[np.ndarray] = None):
-        n, me = multihost.world_size(), multihost.rank()
-        self.n, self.rank = n, me
+        m = max(1, cfg.feat_shards)
+        if m > 1:
+            for d in layers.dims[:-1]:
+                check_divisible(d, m, "layer")
+        # every rank makes the groups, in the same order
+        self.mesh = make_mesh(cfg.num_shards if m > 1 and cfg.num_shards > 1 else None, m)
+        n, me = self.mesh.n_shards, self.mesh.graph_index
+        self.n, self.rank, self.world = n, multihost.rank(), multihost.world_size()
         gat = cfg.model == "gat"
         if isinstance(graph, tuple):
             shard, meta = graph
             if meta.n_shards != n or shard.shard_id != me:
                 raise ValueError(f"shard {shard.shard_id} of {meta.n_shards} handed "
-                                 f"to rank {me} of {n}")
+                                 f"to rank {self.rank}, graph shard {me} of {n}")
         else:
             sharded = partition_graph(graph, n, method=partition_method,
                                       parts=parts, for_gat=gat)
@@ -161,6 +186,13 @@ class ShardedEngine:
         if kernel != cfg.kernel:
             log("kernel auto -> %s (%d edges/shard)", kernel, meta.ep)
             cfg = dataclasses.replace(cfg, kernel=kernel)
+        if m > 1:
+            # The column slices run the combined plan (the slice already
+            # narrows the exchange, which is what overlap mostly buys).
+            if cfg.overlap:
+                cfg = dataclasses.replace(cfg, overlap=False)
+            if self.rank == 0:
+                log("tensor parallelism: %d feat shards x %d graph shards", m, n)
         if isinstance(cfg.overlap, str):
             # overlap="auto" as JAX resolves it off a TPU: hyb and degree
             # take an overlap plan, the edgewise path the combined one.
@@ -180,8 +212,9 @@ class ShardedEngine:
             log("pair reuse requires kernel=hyb (have %s) — off", kernel)
         table_rows = meta.vp + n * meta.max_h
         if reuse_on:
-            # Budget against the per-shard GATHER table (local + ghost rows).
-            width = _max_agg_width(layers, cfg, table_rows)
+            # Budget against the per-shard GATHER table (local + ghost rows),
+            # at the column slice a feat rank gathers.
+            width = max(1, _max_agg_width(layers, cfg, table_rows) // m)
             reuse_cap, reuse_on = resolve_reuse_budget(cfg, table_rows, width)
         if reuse_on and cfg.overlap and n > 1:
             # A pair may combine an interior and a ghost row: reuse runs the
@@ -201,7 +234,8 @@ class ShardedEngine:
             # JAX: exact where the platform can; torch.distributed takes
             # per-pair split sizes on every backend.
             wire = "ragged" if cfg.halo == "auto" else cfg.halo
-            self.halo_plan = HaloPlan(shard, n, wire, self.device)
+            self.halo_plan = HaloPlan(shard, n, wire, self.device,
+                                      group=self.mesh.graph_group)
         self.halo = make_halo_fn(self.halo_plan, overlap, n > 1)
         spmm_op = spmm_split = edge_op = edge_split = None
         gather_dtype = torch.bfloat16 if cfg.agg_dtype == "bfloat16" else None
@@ -246,7 +280,9 @@ class ShardedEngine:
         self.batch = shard_batch(shard, meta.denom, self.device,
                                  edge_arrays=edge_op is not None, split=split)
         model_kw = dict(spmm_op=spmm_op, edge_op=edge_op, spmm_split=spmm_split,
-                        edge_split=edge_split)
+                        edge_split=edge_split,
+                        tp=FeatAxis(m, self.mesh.feat_index, self.mesh.feat_group)
+                        if m > 1 else None)
         if gat:
             self.model = GAT(layers, **model_kw)
         else:
@@ -256,18 +292,20 @@ class ShardedEngine:
         self.report = RunReport()
         resume(self)  # every rank loads
         ghosts = 0 if self.halo_plan is None else int(self.halo_plan.recv_cnt.sum())
-        log("dorylus_tpu_torch sharded engine, rank %d/%d on %s (%s): %s, %d local "
-            "vertices, %d edges, %d ghosts, max_h %d, kernel %s, overlap %s, halo %s, "
-            "agg %s", me, n, self.device, multihost.backend_name(), cfg.model,
+        log("dorylus_tpu_torch sharded engine, rank %d/%d (shard %d/%d, feat %d/%d) on %s "
+            "(%s): %s, %d local vertices, %d edges, %d ghosts, max_h %d, kernel %s, "
+            "overlap %s, halo %s, agg %s", self.rank, self.world, me, n,
+            self.mesh.feat_index, m, self.device, multihost.backend_name(), cfg.model,
             shard.num_local, shard.num_edges, ghosts, meta.max_h, kernel, overlap,
             "none" if self.halo_plan is None else self.halo_plan.wire, cfg.agg_dtype)
 
     def _stats(self, mask: torch.Tensor) -> tuple[float, float, float]:
-        """(correct, loss, count) over the masked rows of every shard."""
+        """(correct, loss, count) over the masked rows of every shard (each
+        shard once: summed over the graph group)."""
         with torch.no_grad():
             probs = row_softmax(self.model.forward(self.batch, halo=self.halo))
             stats = torch.stack(accuracy_and_loss(probs, self.batch.onehot, mask))
-            c, loss, cnt = multihost.all_reduce_sum(stats).tolist()
+            c, loss, cnt = multihost.all_reduce_sum(stats, self.mesh.graph_group).tolist()
         return c, loss, cnt
 
     def _train_epoch(self, lr: float, stale: Optional[dict] = None) -> torch.Tensor:
@@ -279,8 +317,13 @@ class ShardedEngine:
         loss = self.model.loss(self.batch, self.compute_dtype, self.halo, params=stale)
         names = list(self.params)
         grads = torch.autograd.grad(loss, [at[k] for k in names])
-        # One buffer, one all-reduce: the weight gradients and the loss.
-        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)])
+        # One buffer, one all-reduce over the world: the weight gradients and
+        # the loss, which feat index 0 alone adds (the feat ranks hold the
+        # same loss: summed over the graph group only).
+        loss = loss.detach().reshape(1)
+        if self.mesh.feat_index:
+            loss = torch.zeros_like(loss)
+        flat = torch.cat([g.reshape(-1) for g in grads] + [loss])
         multihost.all_reduce_sum(flat)
         sizes = [g.numel() for g in grads]
         pieces = torch.split(flat, sizes + [1])
@@ -305,11 +348,20 @@ class ShardedEngine:
 
     def run(self, epochs: Optional[int] = None) -> RunReport:
         self.report.notes["shards"] = self.n
+        if self.mesh.feat_shards > 1:
+            self.report.notes["feat_shards"] = self.mesh.feat_shards
         return run_loop(self, epochs if epochs is not None else self.cfg.epochs)
 
     def profile(self, iters: int = 5) -> dict:
-        raise NotImplementedError("ShardedEngine.profile: stage profiling is "
-                                  "still to port (ROADMAP.md queue 1 item 11)")
+        """Per-stage times in ms (engine/profiling.py
+        `profile_stages_sharded`; JAX `ShardedEngine.profile`), the same on
+        every rank; they also land in report.stage_times. Every rank must
+        call it."""
+        from dorylus_tpu_torch.engine.profiling import profile_stages_sharded, stage_times
+
+        times = profile_stages_sharded(self, iters=iters)
+        self.report.stage_times = stage_times(times, iters)
+        return times
 
     def output(self, path: Optional[str] = None) -> str:
         if path:
@@ -318,13 +370,14 @@ class ShardedEngine:
 
     def predict(self, softmax: bool = False) -> np.ndarray:
         """Per-vertex final-layer outputs (V, C) in GLOBAL vertex order,
-        on every rank (each shard's rows gathered and placed through its
-        global_ids)."""
+        on every rank (each shard's rows gathered over the graph group and
+        placed through its global_ids)."""
+        grp = self.mesh.graph_group
         with torch.no_grad():
             local = self.model.forward(self.batch, halo=self.halo).float()
-        stacked = multihost.all_gather_rows(local).cpu().numpy()  # (n, vp, C)
+        stacked = multihost.all_gather_rows(local, grp).cpu().numpy()  # (n, vp, C)
         gids = multihost.all_gather_rows(
-            torch.tensor(self.shard.global_ids, device=self.device)).cpu().numpy()
+            torch.tensor(self.shard.global_ids, device=self.device), grp).cpu().numpy()
         out = np.zeros((self.meta.num_vertices, stacked.shape[-1]), np.float32)
         live = gids >= 0
         out[gids[live]] = stacked[live]

@@ -219,6 +219,9 @@ for graph, model, kernel, reuse in runs:
         assert eng.model.spmm_op.plan_fwd.num_pairs > 0
     rep = eng.run()
     assert len(rep.epochs) == 2 and all(e.loss == e.loss for e in rep.epochs)
+    assert rep.notes["cost"]["chip_seconds"] >= 0
+# stage profiling (engine/profiling.py) on the last engine
+assert all(v > 0 for v in eng.profile(iters=1).values())
 # the sharded engine, two ranks over gloo: each rank is a fresh interpreter
 # and reports whether it loaded jax or the JAX package
 sys.path.insert(0, "tests")
@@ -239,6 +242,17 @@ for graph, cfgs, plans in (
         assert res[0][i]["plan"] == plans[i // 2], (kw, res[0][i]["plan"])
         if kw.get("reuse") == "pairs":
             assert res[0][i]["pairs"][0] > 0
+# tensor parallelism (parallel/mesh.py): 2 graph x 2 feat shards, 4 ranks, with
+# the sharded profile
+runs = [(dict(model=model, kernel="hyb", feat_shards=2), 2, {"profile": True})
+        for model in ("gcn", "gat")]
+res = spawn_local(4, _torch_ranks.engines_rank, (g, [12, 6, 3], runs), backend="gloo",
+                  device="cpu", timeout_s=120)
+for i in range(2):
+    assert all(len(r[i]["losses"]) == 2 and not r[i]["foreign_modules"] for r in res), res
+    assert [r[i]["mesh"] for r in res] == [(2, 2, 0, 0), (2, 2, 0, 1), (2, 2, 1, 0),
+                                           (2, 2, 1, 1)]
+    assert res[0][i]["losses"] == res[3][i]["losses"] and "halo_l0_ms" in res[0][i]["profile"]
 # the command line on the CPU: prepare-data, train with staleness and
 # checkpoints, resume, infer, partition (graph/dataio.py, engine/checkpoint.py)
 import tempfile

@@ -278,28 +278,36 @@ def test_halo_exchanges_run_at_the_layer_output_widths():
     assert widths == [8, 5]
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(kernel="degree", feat_shards=2), "queue 1 item 13"),
-    (dict(kernel="hyb", reuse="pairs", feat_shards=2), "queue 1 item 13"),
-    (dict(kernel="hyb", feat_shards=2), "queue 1 item 13"),
-    (dict(model="sage"), "model="),
-    (dict(kernel="pallas"), "kernel="),
-    (dict(kernel="hyb", compute_dtype="float16"), "compute_dtype"),
-    (dict(kernel="hyb", halo="exact"), "halo="),
-    (dict(kernel="hyb", param_dtype="bfloat16"), "param_dtype"),
+@pytest.mark.parametrize("kw,exc,match", [
+    # tensor parallelism, refused until it was ported: now the mesh's n x m
+    # world check (one process is no 1 x 2 mesh) and JAX's "divisible" refusal
+    (dict(kernel="degree", feat_shards=2), ValueError, "feat axis"),
+    (dict(kernel="hyb", reuse="pairs", feat_shards=2), ValueError, "feat axis"),
+    (dict(kernel="hyb", feat_shards=3), ValueError, "divisible"),
+    (dict(model="sage"), NotImplementedError, "model="),
+    (dict(kernel="pallas"), NotImplementedError, "kernel="),
+    (dict(kernel="hyb", compute_dtype="float16"), NotImplementedError, "compute_dtype"),
+    (dict(kernel="hyb", halo="exact"), NotImplementedError, "halo="),
+    (dict(kernel="hyb", param_dtype="bfloat16"), NotImplementedError, "param_dtype"),
 ])
-def test_sharded_engine_refusals(kw, match):
+def test_sharded_engine_refusals(kw, exc, match):
     g = synthetic_graph(120, 4, 16, 5, seed=1)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         ShardedEngine(g, LayerConfig(DIMS), TrainConfig(**kw), device="cpu")
 
 
 def test_sharded_profile_is_refused():
+    """Once refused (stage profiling was not ported): profile() on one shard
+    now returns JAX's brackets for the same config (no halo line with one
+    graph shard), each > 0, and fills stage_times. A feature width that
+    does not match the layer config is still refused."""
     g = synthetic_graph(120, 4, 16, 5, seed=1)
-    eng = ShardedEngine(g, LayerConfig(DIMS), TrainConfig(kernel="hyb", reuse="off"),
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        eng.profile()
+    cfg = TrainConfig(kernel="hyb", reuse="off", epochs=1)
+    eng = ShardedEngine(g, LayerConfig(DIMS), cfg, device="cpu")
+    times = eng.profile(iters=1)
+    want = JShardedEngine(g, LayerConfig(DIMS), cfg, mesh=make_mesh(1)).profile(iters=1)
+    assert set(times) == set(want) == set(eng.report.stage_times)
+    assert all(v > 0 for v in times.values())
     with pytest.raises(ValueError, match="feature dim"):
         ShardedEngine(g, LayerConfig([12, 8, 5]), TrainConfig(kernel="hyb"), device="cpu")
 

@@ -171,7 +171,8 @@ def test_halo_recv_through_the_walk_matches_jax(shards, wire, f, monkeypatch):
     for p, pl in enumerate(plans):
         calls = []
 
-        def a2a(inp, in_splits, out_splits, p=p, calls=calls):
+        def a2a(inp, in_splits, out_splits, group=None, p=p, calls=calls):
+            assert group is None  # the world: no mesh
             calls.append(in_splits)
             if len(calls) == 1:  # the forward: owner q's rows for p
                 assert all(torch.equal(a, b) for a, b in zip(blocks(inp, in_splits), sent[p]))
