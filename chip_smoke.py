@@ -125,16 +125,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
      process per shard, rank = shard id; the parent partitions once and
      hands each rank its shard file), Reddit-config GCN then GAT on
      kernel="hyb" with the fused-overlap plan, the exact wire and bf16
-     gather tables, 3 epochs each: losses finite, GCN's falling, K8, K9,
+     gather tables, 2 epochs each: losses finite, GCN's falling, K8, K9,
      K10 and K1/K2 launches > 0 on every rank; per-rank edges, ghosts,
      max_h, wire bytes per exchange, warm epoch, train step and exchange
      ms, kernel time and idle share; rank 0 prints the GCN run's
-     ShardedEngine.profile(iters=5), taken before its trace. Then both in f32
+     ShardedEngine.profile(iters=3), taken before its trace. Then both in f32
      against 4c's
      single-device hyb f32 losses (rtol 1e-4), and GCN with overlap off
      (the combined plan) against the fused plan (rtol 1e-5);
   6d. (in phase 6's launch) the same on kernel="degree" with the (interior,
-     boundary) plan pair, bf16, 3 epochs: degree, K9 and K10 launches > 0 on
+     boundary) plan pair, bf16, 2 epochs: degree, K9 and K10 launches > 0 on
      every rank; in f32 against 4c's hyb losses (rtol 1e-4) and against
      the combined degree plan (overlap=False, rtol 1e-5), both timed;
   6f. (in phase 6's launch) kernel="xla" with overlap=True in f32, GCN and
@@ -142,10 +142,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
      step of K3's forward and of its dh (fused with K4's value gradient for
      GAT) double, K5 > 0 for GAT;
   6e. 4 ranks on the community graph's shards: GCN and GAT on hyb with
-     reuse="pairs" against reuse="off", bf16, 3 epochs (rtol 1e-2); K6 and
+     reuse="pairs" against reuse="off", bf16, 2 epochs (rtol 1e-2); K6 and
      K2 launches > 0 on every rank, overlap turned off by the rewrite;
-  6b. small graphs, 4 ranks on the card against 4 ranks on the CPU: the
-     planted 2,000-vertex graph, GCN (5 epochs) and GAT (3) on hyb (with
+  6b. (the card's runs in 6e's launch) small graphs, 4 ranks on the card
+     against 4 ranks on the CPU: the
+     planted 2,000-vertex graph, GCN (3 epochs) and GAT (2) on hyb (with
      predict() in global order against the single-device engine's) and on
      the degree pair, and the 4,000-vertex community graph with
      reuse="pairs": rtol 1e-5;
@@ -175,21 +176,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
   9. (in phase 6's launch, before its traced runs) tensor parallelism on the
      one card: 4 gloo ranks as 2 graph x 2 feat shards (rank r on shard
      r // 2 of the 2-way partition) at the Reddit config, GCN on hyb with
-     f32 gather and GAT on hyb with bf16 gather, 3 epochs each: GCN's losses
+     f32 gather and GAT on hyb with bf16 gather, 2 epochs each: GCN's losses
      within rtol 1e-4 of 4c's single-device hyb f32 losses, GAT's finite
      and falling; each rank's K1/K2, K9 and K10 launches by table width (all
      of GCN's at 64; GAT's output layer at 41); the step ms, host-bound
      (gloo on one card), GAT's step traced for the device's idle share;
-     rank 0 prints ShardedEngine.profile(iters=5);
+     rank 0 prints ShardedEngine.profile(iters=3);
+ 10. (after 3, 3b, 3d) the Amazon config at its JAX run script's SCALE 0.12
+     (benchmarks/run-amazon-gcn: synthetic_graph(1_131_610, 12, 300, 25,
+     seed=8888), 27.2M edges, 300-64-25, degree-ascending, hyb, bf16 gather)
+     through tools/reference_configs.py and `cli.main`, one graph for both
+     runs (made by the command line's loader in a process of its own,
+     started before phase 8, so its host seconds pass beside phases 8-3): first K1 at F=64 and F=25 and K2 at F=64 on its plan against
+     their plain versions (tables past the card's 50 MB L2), timed as in
+     phase 3, with the bound and the time if every gathered row came from
+     device memory; then amazon-gcn and amazon-gat, 3 epochs each: losses
+     finite (GCN's falling), kernel "auto" -> hyb, K1 / K2 launches by table
+     width (64 and 32, 25 padded; 2 each a step), notes["hbm"]'s peak within
+     the card's memory, the train step's ms;
 K1, K2, K7 and K8 (and the degree passes on K1/K7) are one launch a pass
 over every part of their plan (the gather core, csrc/gather_pass.cuh); their
 timed rows carry the pass ms (CUDA events: the table's cast, the
 zero-filled output and the launch) and, apart, the kernel's own device ms
 and the rest's (torch.profiler, `*_kernel_ms` / `*_other_ms`).
 Each main path runs with every launch count set to 0 just before it and
-read just after (in each rank, for the sharded engine). Then one JSON line
+read just after (in each rank, for the sharded engine). The sharded ranks do
+not retry building native/libgraphcore.so where phase 2 found it does not
+build on this host. Then one JSON line
 with the kernels' numbers (K1-K10, K1/K2/K9/K10 also at F=64 with phase 9's
-launches at that width (K5, K9 and K10 also with their kernel-only
+launches at that width, K1 at F=64 and 25 and K2 at F=64 on phase 10's
+Amazon plan with its launches (K5, K9 and K10 also with their kernel-only
 ms and the host's µs to enqueue a pass), K3's dh alone and fused with K4's value
 gradient, K7's dh alone and fused with its value gradient, the fused plan's
 backward, the degree, reuse, sharded-degree and sharded-reuse passes, which
@@ -213,6 +229,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing
 import re
 import shutil
 import subprocess
@@ -1394,7 +1411,8 @@ def width_counter():
     return restore
 
 
-def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list) -> list:
+def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list,
+                 native_miner: bool = True) -> list:
     """One rank of phases 6-6f and 9 (started by multihost.spawn_local):
     for each run, a ShardedEngine on this rank's shard file (shard rank //
     feat_shards), trained with this process's launch counts set to 0 just
@@ -1402,11 +1420,17 @@ def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list) -> l
     the run is timed, also the train step's ms and launches and the halo
     exchange's ms at each layer's aggregation width; with "stages", the
     engine's stage profile (before any trace in the run); where it is
-    profiled, a profile of the step."""
+    profiled, a profile of the step. native_miner False: the parent found
+    that native/libgraphcore.so does not build on this host, so the rank
+    does not try again (each try costs seconds) and mines with numpy."""
+    from dorylus_tpu_torch import native
     from dorylus_tpu_torch.common.config import LayerConfig, TrainConfig
     from dorylus_tpu_torch.graph.partition import load_shard
     from dorylus_tpu_torch.parallel import multihost
     from dorylus_tpu_torch.parallel.train_step import ShardedEngine
+
+    if not native_miner:
+        native._tried = True
 
     on_card = torch.device(device).type == "cuda"
     if not on_card:
@@ -1459,10 +1483,10 @@ def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list) -> l
             row["launches_per_step"] = step_launches(lambda: eng._train_epoch(lr))
             sync()
             t0 = time.perf_counter()
-            for _ in range(3):
+            for _ in range(2):
                 eng._train_epoch(lr)
             sync()
-            row["step_ms"] = 1e3 * (time.perf_counter() - t0) / 3
+            row["step_ms"] = 1e3 * (time.perf_counter() - t0) / 2
             row["exchange_ms"] = {}
             elt = torch.empty((), dtype=eng.compute_dtype).element_size()
             for f in [eng.model.agg_width(l) for l in range(len(run["dims"]) - 1)]:
@@ -1470,13 +1494,13 @@ def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list) -> l
                 eng.halo(h)
                 sync()
                 t0 = time.perf_counter()
-                for _ in range(3):
+                for _ in range(2):
                     eng.halo(h)
                 sync()
-                row["exchange_ms"][str(f)] = 1e3 * (time.perf_counter() - t0) / 3
+                row["exchange_ms"][str(f)] = 1e3 * (time.perf_counter() - t0) / 2
                 row.setdefault("wire_bytes", {})[str(f)] = row["wire_rows"] * f * elt
         if run.get("stages"):
-            row["stages_ms"] = eng.profile(iters=5)
+            row["stages_ms"] = eng.profile(iters=3)
         if run.get("profile"):
             row["profile"] = profile_rank(eng, lr)
         if run.get("predict"):
@@ -1488,7 +1512,7 @@ def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list) -> l
     return out
 
 
-def profile_rank(eng, lr: float, steps: int = 3) -> dict:
+def profile_rank(eng, lr: float, steps: int = 2) -> dict:
     """torch.profiler over `steps` train steps of this rank: its kernels'
     device time per step, its staging copies' apart, and the share of the
     wall time in which neither ran on its behalf (the collective on the
@@ -1559,7 +1583,7 @@ def tp_phase(by_label: dict, hyb_f32_losses: dict) -> dict:
     stages = gcn[0]["stages_ms"]
     check(all(np.isfinite(v) and v > 0 for v in stages.values()),
           f"phase 9 stages {stages}")
-    print("phase 9 gcn f32 tp 2x2 ShardedEngine.profile(iters=5) ms (the max over ranks): "
+    print("phase 9 gcn f32 tp 2x2 ShardedEngine.profile(iters=3) ms (the max over ranks): "
           + json.dumps(stages), flush=True)
     timings = {"note": "host-bound: 4 ranks on one card over gloo",
                "gcn_f32_step_ms": [r["step_ms"] for r in gcn],
@@ -1579,6 +1603,7 @@ def sharded_phases(sg, sg2, sgc, layers, hyb_f32_losses, kernel_sources) -> dict
     sg2: its 2-way partition (phase 9's graph shards); sgc: the community
     graph's; hyb_f32_losses: {model: 3 single-device hyb f32 losses} from
     phase 4c. Returns what the kernels line needs."""
+    from dorylus_tpu_torch import native
     from dorylus_tpu_torch.common.config import TrainConfig
     from dorylus_tpu_torch.engine.engine import Engine
     from dorylus_tpu_torch.graph.graph import synthetic_graph
@@ -1586,8 +1611,10 @@ def sharded_phases(sg, sg2, sgc, layers, hyb_f32_losses, kernel_sources) -> dict
     from dorylus_tpu_torch.ops import cuda_build
     from dorylus_tpu_torch.parallel.multihost import spawn_local
 
-    # The ranks load the libraries the parent built: nothing compiles there.
+    # The ranks load the libraries the parent built: nothing compiles there
+    # (nor the native miner, where phase 2 found it does not build here).
     cuda_build.compile_sources(kernel_sources)
+    native_miner = native.has_mine_pairs()
     shard_dir = tempfile.mkdtemp(prefix="dorylus_smoke_shards_")
     try:
         t0 = time.perf_counter()
@@ -1604,15 +1631,15 @@ def sharded_phases(sg, sg2, sgc, layers, hyb_f32_losses, kernel_sources) -> dict
 
         def run(label, shards, timed=False, profile=False, predict=False, stages=False,
                 widths=False, **cfg):
-            cfg = dict(dict(epochs=3, eval_every=1, kernel="hyb", reuse="off"), **cfg)
+            cfg = dict(dict(epochs=2, eval_every=1, kernel="hyb", reuse="off"), **cfg)
             return {"label": label, "shards": shards, "dims": dims, "cfg": cfg,
                     "timed": timed or profile, "profile": profile, "predict": predict,
                     "stages": stages, "widths": widths}
 
         def launch(phase, runs, device="cuda:0", timeout_s=900):
             t0 = time.perf_counter()
-            res = spawn_local(RANKS, sharded_rank, (shard_dir, runs), backend="gloo",
-                              device=device, timeout_s=timeout_s)
+            res = spawn_local(RANKS, sharded_rank, (shard_dir, runs, native_miner),
+                              backend="gloo", device=device, timeout_s=timeout_s)
             print(f"phase {phase}: {RANKS} ranks on {device} over gloo, {len(runs)} runs in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
             by_label = {r["label"]: [res[k][i] for k in range(RANKS)]
@@ -1740,18 +1767,27 @@ def sharded_phases(sg, sg2, sgc, layers, hyb_f32_losses, kernel_sources) -> dict
         timings["gcn f32 degree pair"] = timing(by_label["gcn f32 degree pair"])
         timings["gcn f32 degree combined"] = timing(by_label["gcn f32 degree combined"])
         # 6: rank 0's stage profile of the fused plan
-        print("phase 6 gcn bf16 fused ShardedEngine.profile(iters=5) ms (the max over "
+        print("phase 6 gcn bf16 fused ShardedEngine.profile(iters=3) ms (the max over "
               "ranks): " + json.dumps(by_label["gcn bf16 fused"][0]["stages_ms"]), flush=True)
         tp_out = tp_phase(by_label, hyb_f32_losses)
         launches.update(tp_out["launches"])
         timings["tp 2x2"] = tp_out["timings"]
 
-        # 6e. pair reuse on the community graph's shards
+        # 6e. pair reuse on the community graph's shards; then, in the same
+        # launch, 6b's card runs (untimed, after 6e's traced GAT runs)
         runs = [run(f"{model} bf16 reuse={reuse}", "community", timed=True, reuse=reuse,
                     **bf16, **kw)
                 for model, kw in models for reuse in ("pairs", "off")]
         runs[-2]["profile"] = runs[-1]["profile"] = True  # the last two: GAT
-        by_c = launch("6e", runs)
+        # 6b. card vs CPU on the small graphs, and predict() in global order
+        small = [run("planted gcn", "planted", predict=True, epochs=3),
+                 run("planted gat", "planted", predict=True, **gat),
+                 run("planted gcn degree pair", "planted", kernel="degree", epochs=3),
+                 run("planted gat degree pair", "planted", kernel="degree", **gat),
+                 run("smallcomm gcn pairs", "smallcomm", reuse="pairs", reuse_passes=2),
+                 run("smallcomm gat pairs", "smallcomm", reuse="pairs", reuse_passes=2,
+                     **gat)]
+        by_c = launch("6e, 6b (card)", runs + small)
         for model, _ in models:
             pairs, off = (by_c[f"{model} bf16 reuse={r}"] for r in ("pairs", "off"))
             need(f"{model} reuse=pairs", pairs, ["K6", "K2", "K9", "K10"], "hyb", False)
@@ -1771,26 +1807,18 @@ def sharded_phases(sg, sg2, sgc, layers, hyb_f32_losses, kernel_sources) -> dict
                 row_cut=[r["row_cut"] for r in pairs])
             timings[f"{model} community off"] = timing(off)
 
-        # 6b. card vs CPU on the small graphs, and predict() in global order
-        runs = [run("planted gcn", "planted", predict=True, epochs=5),
-                run("planted gat", "planted", predict=True, **gat),
-                run("planted gcn degree pair", "planted", kernel="degree", epochs=5),
-                run("planted gat degree pair", "planted", kernel="degree", **gat),
-                run("smallcomm gcn pairs", "smallcomm", reuse="pairs", reuse_passes=2),
-                run("smallcomm gat pairs", "smallcomm", reuse="pairs", reuse_passes=2, **gat)]
-        on_card = launch("6b (card)", runs, timeout_s=300)
-        on_cpu = launch("6b (CPU)", runs, device="cpu", timeout_s=300)
-        for r in runs:
+        on_cpu = launch("6b (CPU)", small, device="cpu", timeout_s=300)
+        for r in small:
             label = r["label"]
             gap_check(f"4 ranks on the card vs 4 on the CPU, {label}",
-                      on_card[label][0]["losses"], on_cpu[label][0]["losses"], 1e-5)
+                      by_c[label][0]["losses"], on_cpu[label][0]["losses"], 1e-5)
             if not r["predict"]:
                 continue
             single = Engine(gp, layers, TrainConfig(**r["cfg"]), device="cuda")
             single.run()
             want = single.predict()
             for k in range(RANKS):
-                got = on_card[label][k]["predict"]
+                got = by_c[label][k]["predict"]
                 err = float(np.abs(got - want).max()) / float(np.abs(want).max())
                 check(got.shape == want.shape and err <= 1e-3,
                       f"{label}: rank {k}'s predict() is {err:.3e} off the single-device "
@@ -1820,6 +1848,57 @@ def sharded_phases(sg, sg2, sgc, layers, hyb_f32_losses, kernel_sources) -> dict
     return {"launches": launches, "timings": timings}
 
 
+def graph_key(args) -> tuple:
+    """The command line's flags that shape its graph."""
+    return (args.data_dir, args.dataset, args.config, args.synth_vertices, args.synth_degree,
+            args.reorder, args.parts_file)
+
+
+def memoised_loader(load_graph, graphs: dict):
+    """The command line's graph loader memoised in `graphs` on the flags
+    that shape the graph, so one graph serves every command of a phase (the
+    set-up seconds the runs report are those of its one build)."""
+    def load_graph_once(args):
+        key = graph_key(args)
+        if key not in graphs:
+            graphs[key] = load_graph(args)
+        return graphs[key]
+
+    return load_graph_once
+
+
+def amazon_graph_worker(path: str) -> None:
+    """Phase 10's graph in a process of its own, started before phase 8, so
+    that its host seconds pass beside the card's phases: the command line's
+    loader on amazon-gcn's flags (generation and the degree reorder), its
+    fields written to `path` (.npz) with the loader's seconds (the graph and
+    the reorder)."""
+    from dorylus_tpu_torch import cli
+    from dorylus_tpu_torch.tools import reference_configs
+
+    g, layers, _, seconds = cli.load_graph(cli.parse_args(reference_configs.argv("amazon-gcn")))
+    fields = {f.name: getattr(g, f.name) for f in dataclasses.fields(g)
+              if getattr(g, f.name) is not None}
+    np.savez(path, graph_s=seconds["graph"], reorder_s=seconds["reorder"],
+             layer_dims=np.asarray(layers.dims), **fields)
+
+
+def amazon_graph(proc, path: str):
+    """(graph, layers, the loader's seconds) from amazon_graph_worker's
+    file, once the process has ended."""
+    from dorylus_tpu_torch.common.config import LayerConfig
+    from dorylus_tpu_torch.graph.graph import Graph
+
+    proc.join(timeout=900)
+    check(proc.exitcode == 0, f"phase 10: the graph's process ended with {proc.exitcode}")
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    seconds = {k: float(arrays.pop(f"{k}_s")) for k in ("graph", "reorder")}
+    dims = arrays.pop("layer_dims").tolist()
+    g = Graph(**{k: (int(a) if a.ndim == 0 else a) for k, a in arrays.items()})
+    return g, LayerConfig(dims), seconds
+
+
 def cli_phases(card: str) -> dict:
     """Phase 7: the command line (dorylus_tpu_torch/cli.py) through
     `cli.main`, on the card it picks by default, at the Reddit config on
@@ -1833,14 +1912,7 @@ def cli_phases(card: str) -> dict:
 
     graphs = {}
     load_graph = cli.load_graph
-
-    def load_graph_once(args):
-        key = (args.data_dir, args.dataset, args.config, args.synth_vertices,
-               args.synth_degree, args.reorder, args.parts_file)
-        if key not in graphs:
-            graphs[key] = load_graph(args)
-        return graphs[key]
-
+    load_graph_once = memoised_loader(load_graph, graphs)
     work = tempfile.mkdtemp(prefix="dorylus_smoke_cli_")
     times = {}
 
@@ -1954,6 +2026,137 @@ def cli_phases(card: str) -> dict:
     return times
 
 
+def amazon_phase(graph: tuple) -> dict:
+    """Phase 10: the Amazon config at its JAX run script's SCALE (0.12: 1,131,610
+    vertices, about 27.2M edges, 300-64-25), through the reference-config
+    tool (dorylus_tpu_torch/tools/reference_configs.py) and `cli.main` on
+    the card, with the command line's graph loader memoised (one graph
+    serves both runs). First K1 bf16 at F=64 and F=25 and K2 bf16 at F=64
+    on the graph's plan against their plain versions (tables past the
+    card's L2), timed as phase 3 times them, with the bound and the time
+    if every gathered row came from device memory. The engine's op
+    constructor hands GCN's engine that plan, which it asks for with the
+    same arguments (bf16, the static norms); GAT's engine builds its own
+    plan without values. `cli.build_engine` is wrapped only to keep the
+    engine it builds, for the step's timing. Then amazon-gcn and amazon-gat
+    for 3 epochs each, the counts at 0 just before each run and read just
+    after: losses finite (GCN's falling), kernel "auto" picked hyb, K1
+    (GCN) or K2 (GAT) launched, by table width at 64 and 25 (32 as padded),
+    2 each a step, and the peak of notes["hbm"] within the card's memory.
+    `graph`: (graph, layers, the loader's seconds) from amazon_graph, the
+    loader's result on amazon-gcn's flags. Returns what the kernels line
+    needs."""
+    from dorylus_tpu_torch import cli
+    from dorylus_tpu_torch.engine import engine as engine_mod
+    from dorylus_tpu_torch.ops.hyb_spmm import HybSpMM
+    from dorylus_tpu_torch.tools import reference_configs
+
+    g, layers, seconds = graph
+    graph_s = seconds["graph"] + seconds["reorder"]
+    graphs = {graph_key(cli.parse_args(reference_configs.argv("amazon-gcn"))):
+              (g, layers, None, seconds)}
+    load_graph, build_engine, make_op = cli.load_graph, cli.build_engine, engine_mod.HybSpMM
+    load_graph_once = memoised_loader(load_graph, graphs)
+    v = g.num_vertices
+    print(f"phase 10 amazon graph (SCALE {reference_configs.CONFIGS['amazon-gcn'].scale}): "
+          f"V={v} E={g.num_edges} layers {layers.dims}, generated and reordered in "
+          f"{graph_s:.1f} s (in a process of its own, beside phases 8-3)", flush=True)
+    check(v == 1_131_610 and g.num_edges > 8_000_000 and list(layers.dims) == [300, 64, 25],
+          f"phase 10: the Amazon graph has V={v}, E={g.num_edges}, layers {layers.dims}")
+    t0 = time.perf_counter()
+    op = HybSpMM(g.src, g.dst, v, v, gather_dtype=torch.bfloat16, static_val=g.edge_norm,
+                 device="cuda")
+    plan_s = time.perf_counter() - t0
+    print(f"phase 10 plans (bf16, static norms): fwd {len(op.fwd['buckets'])} buckets, top "
+          f"{op.fwd['top'] is not None}, {live_slots(op.fwd)} live slots ({plan_s:.1f} s)",
+          flush=True)
+    csr = csr_pattern(g.src, g.dst, v)
+    csr["norm"] = torch.tensor(g.edge_norm, device="cuda")
+    csr["ones"] = torch.ones_like(csr["norm"])
+    results = [compare("amazon", op, 64, seed=640, timed=True, csr=csr),
+               compare("amazon", op, 25, seed=250, timed=True, csr=csr),
+               compare_mask("amazon", op, 64, seed=642, timed=True, csr=csr)]
+    del csr
+    torch.cuda.empty_cache()
+    live = live_slots(op.fwd)
+    for r in results:
+        # every gathered row from device memory: the padded table rows
+        # (16-byte multiples) once per live slot, the slots, the output
+        row_bytes = -(-r["F"] * 2 // 16) * 16
+        slot_bytes = 6 if r["kernel"] == "K1" else 4
+        r["rows_from_hbm_bytes"] = live * (row_bytes + slot_bytes) + v * r["F"] * 4
+        r["rows_from_hbm_ms"] = 1e3 * r["rows_from_hbm_bytes"] / HBM_BYTES_PER_S
+        print(f"phase 10 {r['kernel']} bf16 F={r['F']}: pass {r['fwd_ms']:.4f} ms, kernel "
+              f"{r['fwd_kernel_ms']:.4f}, plain {r['fwd_plain_ms']:.3f}, sparse.mm "
+              f"{r.get('library_ms')}; bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_bytes'] / 1e9:.3f} GB once), every row from device memory "
+              f"{r['rows_from_hbm_ms']:.4f} ms ({r['rows_from_hbm_bytes'] / 1e9:.3f} GB)",
+              flush=True)
+
+    def op_once(src, dst, num_in, num_out, **kw):
+        # the plan above where the engine asks for that very plan (GCN's);
+        # GAT's engine builds its own, without values
+        if (src is g.src and dst is g.dst and kw.get("gather_dtype") is torch.bfloat16
+                and kw.get("static_val") is g.edge_norm):
+            return op
+        return make_op(src, dst, num_in, num_out, **kw)
+
+    built = []
+
+    def build_engine_kept(args, graph=None, layers=None):
+        built.append(build_engine(args, graph, layers))
+        return built[-1]
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {"graph_s": graph_s, "plan_s": plan_s, "results": results, "launches": {},
+           "records": {}, "steps": {}}
+    cli.load_graph, cli.build_engine, engine_mod.HybSpMM = (load_graph_once,
+                                                             build_engine_kept, op_once)
+    try:
+        for name, slot in (("amazon-gcn", "K1"), ("amazon-gat", "K2")):
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            restore = width_counter()
+            rec = reference_configs.run(name, epochs=3)
+            torch.cuda.synchronize()
+            widths, counts = restore(), launch_counts()
+            print(f"phase 10 {name}: " + json.dumps(rec), flush=True)
+            losses = rec["losses"]
+            check(len(losses) == 3 and all(np.isfinite(losses))
+                  and (slot == "K2" or losses[-1] < losses[0]),
+                  f"phase 10 {name}: losses {losses}")
+            check(rec["kernel"] == "hyb" and counts[slot] > 0,
+                  f"phase 10 {name}: kernel {rec['kernel']}, launches {json.dumps(counts)}")
+            check(set(widths.get(slot, {})) == {"64", "32"},
+                  f"phase 10 {name}: {slot} launches by width {widths}")
+            check(0 < rec["hbm_peak_bytes"] <= total,
+                  f"phase 10 {name}: notes hbm peak {rec['hbm_peak_bytes']} of {total} bytes")
+            eng = built.pop()
+            lr = eng.cfg.learning_rate
+            step_ms = cuda_ms(lambda: eng._train_epoch(lr), 5)
+            restore = width_counter()
+            per_step = step_launches(lambda: eng._train_epoch(lr))
+            step_widths = restore()
+            print(f"phase 10 {name}: train step {step_ms:.3f} ms, launches per step "
+                  f"{json.dumps(per_step)}, by table width {json.dumps(step_widths)}",
+                  flush=True)
+            check(step_widths == {slot: {"64": 2, "32": 2}},
+                  f"phase 10 {name}: {slot} launches by width a step {step_widths}, want 2 at "
+                  "64 and 2 at 32 (25 padded)")
+            del eng
+            torch.cuda.empty_cache()
+            out["launches"][slot] = widths[slot]
+            out["records"][name] = rec
+            out["steps"][name] = {"step_ms": step_ms, "launches_per_step": per_step,
+                                  "widths_per_step": step_widths}
+    finally:
+        cli.load_graph, cli.build_engine, engine_mod.HybSpMM = (load_graph, build_engine,
+                                                                 make_op)
+    del op, g, graphs
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     # 1. the card
     if not torch.cuda.is_available():
@@ -2025,6 +2228,13 @@ def main() -> None:
     miner = "native" if native.has_mine_pairs() else "numpy"
     print(f"pair miner: {miner} ({time.perf_counter() - t0:.2f} s to load or build)",
           flush=True)
+
+    # 10's graph: generated and reordered in a process of its own meanwhile
+    graph_dir = tempfile.mkdtemp(prefix="dorylus_smoke_amazon_")
+    graph_path = f"{graph_dir}/graph.npz"
+    graph_proc = multiprocessing.get_context("spawn").Process(
+        target=amazon_graph_worker, args=(graph_path,), daemon=True)
+    graph_proc.start()
 
     # 3, 3b, 3d. K1, K2 and K7 vs plain
     t0 = time.perf_counter()
@@ -2206,6 +2416,14 @@ def main() -> None:
             results.append(compare_dyn("powerlaw_hubs", op, f, seed=f + 5, timed=False))
         del op
     torch.cuda.empty_cache()
+
+    # 10. the Amazon config past the L2, through the reference-config tool
+    # (here, while torch.profiler's kernel-only readings agree with the pass
+    # times: late in the script its sessions lose about half the device
+    # events of a call at this size)
+    stamp("phase 10")
+    amazon = amazon_phase(amazon_graph(graph_proc, graph_path))
+    shutil.rmtree(graph_dir, ignore_errors=True)
 
     # 3c. K3, K4, K5 vs plain
     stamp("phase 3c")
@@ -2662,6 +2880,9 @@ def main() -> None:
     k1t = pick(results, kernel="K1", case="reddit", dtype="float32", F=64)
     k2t = pick(results, kernel="K2", case="reddit", dtype="bfloat16", F=64)
     kht = pick(halo_results, case="reddit2_shard0", dtype="float32", F=64)
+    # Phase 10's widths on the Amazon plan: F = 64 and 25 (32 as padded)
+    ka64, ka25, km64 = (pick(amazon["results"], kernel=k, F=f)
+                        for k, f in (("K1", 64), ("K1", 25), ("K2", 64)))
     # phase 8's brackets beside phase 3's passes at the same width and dtype
     # (GAT's bracket is K2's pass and the row scale)
     beside = {}
@@ -2732,6 +2953,17 @@ def main() -> None:
         "K10 F=64": ("halo_segsum_f64_tp", "halo.cu", "dorylus_tpu/parallel/halo.py:132",
                      sharded["launches"]["K10_tp"], kht["K10_ms"], kht["K10_plain_ms"],
                      kht["K10"]),
+        # the same kernels on the Amazon plan, tables past the L2 (phase 10's
+        # launches at each width)
+        "K1 amazon F=64": ("hyb_static_pass_amazon_f64", "hyb_spmm.cu",
+                           "dorylus_tpu/ops/hyb_spmm.py:392", amazon["launches"]["K1"]["64"],
+                           ka64["fwd_ms"], ka64["fwd_plain_ms"], ka64),
+        "K1 amazon F=25": ("hyb_static_pass_amazon_f25", "hyb_spmm.cu",
+                           "dorylus_tpu/ops/hyb_spmm.py:392", amazon["launches"]["K1"]["32"],
+                           ka25["fwd_ms"], ka25["fwd_plain_ms"], ka25),
+        "K2 amazon F=64": ("hyb_mask_pass_amazon_f64", "hyb_spmm.cu",
+                           "dorylus_tpu/ops/hyb_spmm.py:508", amazon["launches"]["K2"]["64"],
+                           km64["fwd_ms"], km64["fwd_plain_ms"], km64),
         "degree": ("degree_pass", "hyb_spmm.cu", "dorylus_tpu/ops/degree_spmm.py:132",
                    degree_counts, kd["static_fwd_ms"], kd["static_fwd_plain_ms"], kd),
         "reuse": ("reuse_unit_pass", "hyb_spmm.cu", "dorylus_tpu/ops/reuse_spmm.py:47",
@@ -2767,7 +2999,10 @@ def main() -> None:
                                ("halo_segsum_f64_tp", kht, "K10")):
             if k["name"] == name:
                 k.update(kernel_ms=row[f"{key}_kernel_ms"], host_us=row[f"{key}_host_us"])
-        for name, row in (("hyb_static_pass_f64_tp", k1t), ("hyb_mask_pass_f64_tp", k2t)):
+        for name, row in (("hyb_static_pass_f64_tp", k1t), ("hyb_mask_pass_f64_tp", k2t),
+                          ("hyb_static_pass_amazon_f64", ka64),
+                          ("hyb_static_pass_amazon_f25", ka25),
+                          ("hyb_mask_pass_amazon_f64", km64)):
             if k["name"] == name:
                 k["kernel_ms"] = row["fwd_kernel_ms"]
         if k["name"] == "pair_build":
@@ -2811,6 +3046,8 @@ def main() -> None:
                                    "sharded_reuse_shard0": sharded_reuse_info,
                                    "degree_pair_vs_combined_shard0": pair_vs_combined,
                                    "cli_seconds": cli_times,
+                                   "amazon_0.12": {k: amazon[k] for k in ("graph_s", "plan_s",
+                                                                           "steps")},
                                    "stages_1_device": stages}),
           flush=True)
     stamp("done")

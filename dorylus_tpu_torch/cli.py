@@ -29,6 +29,10 @@ for it runs here unchanged. Where the port differs:
     is printed.
   * `--profile` times the stages after training (engine/profiling.py) and
     logs each bracket; the report's stage_times hold them.
+  * The report's notes gain "setup_s" (seconds: the graph loaded or
+    generated, its --reorder, and the engine's build: plans, batch,
+    params; with --shards, also the partition and rank 0's build) and
+    "graph" (vertices, edges, layer dims).
 
 Exit codes: 0 done, 2 a refusal or a missing card (one line on stderr).
 """
@@ -40,6 +44,7 @@ import json
 import shutil
 import sys
 import tempfile
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -219,12 +224,15 @@ def _layers(name: Optional[str], dataset: Optional[str] = None):
 
 
 def load_graph(args):
-    """(graph, layers, parts) for `train`, as the JAX package's cmd_train
-    builds them: the dataset directory or the synthetic graph (seed 8888),
-    the --reorder relabelling, and the parts file in the new ids."""
+    """(graph, layers, parts, seconds) for `train`, as the JAX package's
+    cmd_train builds them: the dataset directory or the synthetic graph
+    (seed 8888), the --reorder relabelling, and the parts file in the new
+    ids; seconds: {"graph": the load or generation (and the parts file),
+    "reorder": the relabelling}."""
     from dorylus_tpu_torch.common.config import LayerConfig
     from dorylus_tpu_torch.common.logging import log
 
+    t0 = time.perf_counter()
     layers = _layers(args.config, args.dataset)
     if args.data_dir:
         from dorylus_tpu_torch.graph.dataio import load_dataset
@@ -238,13 +246,17 @@ def load_graph(args):
         layers = LayerConfig([g.features.shape[1], 64, g.num_classes])
     log("dataset: %d vertices, %d edges, %d classes; layers %s; model %s",
         g.num_vertices, g.num_edges, g.num_classes, layers.dims, args.model)
+    seconds = {"graph": time.perf_counter() - t0, "reorder": 0.0}
     order = None
     if args.reorder != "none":
         from dorylus_tpu_torch.graph import reorder
+        t0 = time.perf_counter()
         order = (reorder.bfs_order(g) if args.reorder == "bfs"
                  else reorder.degree_order(g, ascending=args.reorder == "degree-asc"))
         g = reorder.apply_order(g, order)
-        log("reordered vertices (%s)", args.reorder)
+        seconds["reorder"] = time.perf_counter() - t0
+        log("reordered vertices (%s) in %.1f s", args.reorder, seconds["reorder"])
+    t0 = time.perf_counter()
     parts = None
     if args.parts_file:
         from dorylus_tpu_torch.graph.dataio import read_parts_file
@@ -253,7 +265,8 @@ def load_graph(args):
             # the parts file names ORIGINAL vertex ids; the partition
             # indexes them by the new ones
             parts = parts[order]
-    return g, layers, parts
+    seconds["graph"] += time.perf_counter() - t0
+    return g, layers, parts, seconds
 
 
 def build_engine(args, graph=None, layers=None):
@@ -262,7 +275,7 @@ def build_engine(args, graph=None, layers=None):
     from dorylus_tpu_torch.engine.engine import Engine
 
     if graph is None:
-        graph, layers, _ = load_graph(args)
+        graph, layers, _, _ = load_graph(args)
     return Engine(graph, layers, make_config(args), device=args.device)
 
 
@@ -283,10 +296,12 @@ def _log_stages(times: dict) -> None:
 
 
 def _train_rank(rank: int, world: int, device, shard_dir: str, dims: list, cfg,
-                output: Optional[str], profile: bool = False) -> dict:
+                output: Optional[str], profile: bool = False,
+                notes: Optional[dict] = None) -> dict:
     """One rank of `train --shards n --feat-shards m`: the file of shard
     rank // m, the sharded engine, the run, the stage profile when asked
-    (every rank times; rank 0 logs). Rank 0 writes the report file."""
+    (every rank times; rank 0 logs). Rank 0 writes the report file, its
+    notes with the parent's `notes` and this rank's engine build seconds."""
     import torch
 
     from dorylus_tpu_torch.common.config import LayerConfig
@@ -296,7 +311,12 @@ def _train_rank(rank: int, world: int, device, shard_dir: str, dims: list, cfg,
     if torch.device(device).type == "cpu":
         torch.set_num_threads(max(1, torch.get_num_threads() // world))
     shard, meta = load_shard(Path(shard_dir) / f"shard_{rank // max(1, cfg.feat_shards)}.npz")
+    t0 = time.perf_counter()
     eng = ShardedEngine((shard, meta), LayerConfig(list(dims)), cfg, device=device)
+    if notes:
+        eng.report.notes.update(notes)
+        eng.report.notes["setup_s"] = dict(notes["setup_s"],
+                                           engine=time.perf_counter() - t0)
     report = eng.run()
     times = eng.profile() if profile else None
     if rank == 0 and times:
@@ -307,7 +327,7 @@ def _train_rank(rank: int, world: int, device, shard_dir: str, dims: list, cfg,
             "losses": [e.loss for e in report.epochs], "stages": times}
 
 
-def _train_sharded(args, g, layers, cfg, parts, device: str) -> dict:
+def _train_sharded(args, g, layers, cfg, parts, device: str, notes: dict) -> dict:
     import torch
 
     from dorylus_tpu_torch.common.logging import log
@@ -325,8 +345,10 @@ def _train_sharded(args, g, layers, cfg, parts, device: str) -> dict:
         # Every rank would build the same libraries: build them once here.
         from dorylus_tpu_torch.ops import cuda_build
         cuda_build.compile_sources(_engine_sources())
+    t0 = time.perf_counter()
     sharded = partition_graph(g, n, method=args.partition, parts=parts,
                               for_gat=cfg.model == "gat")
+    notes["setup_s"]["partition"] = time.perf_counter() - t0
     meta = ShardMeta.of(sharded)
     shard_dir = tempfile.mkdtemp(prefix="dorylus_shards_")
     try:
@@ -336,7 +358,7 @@ def _train_sharded(args, g, layers, cfg, parts, device: str) -> dict:
         log("%d ranks (%d shards x %d feat shards) over %s on %s", world, n,
             args.feat_shards, backend, rank_device)
         res = spawn_local(world, _train_rank,
-                          (shard_dir, layers.dims, cfg, args.output, args.profile),
+                          (shard_dir, layers.dims, cfg, args.output, args.profile, notes),
                           backend=backend, device=rank_device, timeout_s=_RANK_TIMEOUT_S)
     finally:
         shutil.rmtree(shard_dir, ignore_errors=True)
@@ -349,18 +371,24 @@ def cmd_train(args) -> int:
 
     _log_ignored(args)
     device = _device(args)
-    g, layers, parts = load_graph(args)
+    g, layers, parts, seconds = load_graph(args)
+    notes = {"setup_s": dict(seconds),
+             "graph": {"vertices": int(g.num_vertices), "edges": int(g.num_edges),
+                       "layer_dims": list(layers.dims)}}
     try:  # the engine's refusal, here before any rank starts
         for d in layers.dims[:-1]:
             check_divisible(d, max(1, args.feat_shards), "layer")
     except ValueError as e:
         raise CliError(f"--feat-shards {args.feat_shards}: {e}") from None
     if args.shards > 1 or args.feat_shards > 1:
-        res = _train_sharded(args, g, layers, make_config(args), parts, device)
+        res = _train_sharded(args, g, layers, make_config(args), parts, device, notes)
         log("aggregation kernel: %s", res["kernel"])
         print(res["summary"])
     else:
+        t0 = time.perf_counter()
         eng = build_engine(args, g, layers)
+        notes["setup_s"]["engine"] = time.perf_counter() - t0
+        eng.report.notes.update(notes)
         report = eng.run()
         log("aggregation kernel: %s", report.notes.get("kernel"))
         if args.profile:

@@ -3,7 +3,8 @@ post-halo feature table (port of dorylus_tpu/ops/reuse_sharded.py,
 `kernel="hyb", reuse="pairs"` on the sharded engine).
 
 Each rank mines pairs over ITS OWN real edges. The sources index the table
-`halo_exchange` returns ([local h | ghost rows], vp + n * max_h rows), so a
+`halo_exchange` returns ([local h | ghost rows], vp + n * max_h rows; vp
+rows on one graph shard, which has no halo), so a
 pair row combines two rows this rank already holds after the exchange, a
 local and a ghost row included, and no other rank is asked for anything.
 That is also why reuse runs on the combined table only: a pair may span the
@@ -68,7 +69,9 @@ class ShardedReuseSpMM(ReuseSpMM):
     `f_in` of this shard: f = sqrt(self_val) of the local rows (0 on padding
     rows), then the owners' factors of the ghost rows, which a rank gets
     from `exchange_rank1_factor`. Its first vp entries scale the output.
-    None for GAT.
+    None for GAT. With n = 1 the table is the vp local rows and the factor
+    the local one: there is no halo (JAX's op keeps the ghost rows there
+    and its engine fails on the vp-row table the model hands it).
 
     device: None means the card and raises without one; the CPU only when
     the caller passes device="cpu"."""
@@ -80,7 +83,8 @@ class ShardedReuseSpMM(ReuseSpMM):
         device = resolve_device(device)
         src, dst, _ = shard_edges(shard, "combined")
         vp, max_h = int(shard.x.shape[0]), int(shard.send_idx.shape[1])
-        table = vp + n * max_h
+        # one graph shard exchanges nothing: its table is the vp local rows
+        table = vp + n * max_h if n > 1 else vp
         factors = None
         if rank1_factor is not None:
             f_in = np.asarray(rank1_factor, np.float32)

@@ -210,7 +210,9 @@ class ShardedEngine:
         reuse_on, reuse_cap = cfg.reuse == "pairs" and kernel == "hyb", 0
         if cfg.reuse == "pairs" and not reuse_on:
             log("pair reuse requires kernel=hyb (have %s) — off", kernel)
-        table_rows = meta.vp + n * meta.max_h
+        # The table the models aggregate over: local then ghost rows; one
+        # graph shard has no halo, so the model hands the vp local rows.
+        table_rows = meta.vp + n * meta.max_h if n > 1 else meta.vp
         if reuse_on:
             # Budget against the per-shard GATHER table (local + ghost rows),
             # at the column slice a feat rank gathers.
@@ -241,8 +243,9 @@ class ShardedEngine:
         gather_dtype = torch.bfloat16 if cfg.agg_dtype == "bfloat16" else None
         kw = dict(gather_dtype=gather_dtype, device=self.device)
         if reuse_on:
-            f_in = None if gat else exchange_rank1_factor(np.sqrt(shard.self_val),
-                                                          self.halo_plan)
+            f_local = np.sqrt(shard.self_val)
+            f_in = (None if gat else f_local if self.halo_plan is None
+                    else exchange_rank1_factor(f_local, self.halo_plan))
             spmm_op = ShardedReuseSpMM(shard, n, rank1_factor=f_in, passes=cfg.reuse_passes,
                                        max_pairs=reuse_cap, **kw)
             st = spmm_op.plan_fwd.stats

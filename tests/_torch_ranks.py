@@ -55,7 +55,8 @@ def engine_rank(rank, world, device, graph, dims, cfg_kw, epochs, opts):
         out["pairs"] = (op.plan_fwd.num_pairs, op.plan_bwd.num_pairs)
         if op.f_in is not None:
             out["f_in"], out["f_out"] = op.f_in.cpu().numpy(), op.f_out.cpu().numpy()
-            out["recv_cnt"] = np.asarray(eng.halo_plan.recv_cnt)
+            out["recv_cnt"] = (None if eng.halo_plan is None
+                               else np.asarray(eng.halo_plan.recv_cnt))
     if opts.get("predict"):
         out["predict"] = eng.predict()
     if opts.get("profile"):

@@ -19,6 +19,7 @@ every comparison is exact).
     models/init.py     the reference initializers
     engine/convergence.py  ConvergeMonitor
     native.py          the same library, the same answers
+    tools/scale_pipeline.py  gen_graph (the JAX package's tools/ copy)
 """
 
 import dataclasses
@@ -153,6 +154,23 @@ def test_graph_generators(make, args):
     for seed in (0, 42):
         same(to_port(getattr(jgraph, make)(*args, seed=seed)),
              getattr(tgraph, make)(*args, seed=seed), make)
+
+
+@pytest.mark.parametrize("edges,deg", [(20_000, 16), (50_000, 8)])
+def test_scale_pipeline_gen_graph(edges, deg):
+    """dorylus_tpu_torch/tools/scale_pipeline.py `gen_graph` against the
+    JAX package's tools/scale_pipeline.py one."""
+    import importlib.util
+
+    from dorylus_tpu_torch.tools import scale_pipeline as tscale
+
+    spec = importlib.util.spec_from_file_location(
+        "jax_scale_pipeline", Path(__file__).resolve().parent.parent / "tools" /
+        "scale_pipeline.py")
+    jscale = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jscale)
+    same(to_port(jscale.gen_graph(edges, deg, 8, 16)), tscale.gen_graph(edges, deg, 8, 16),
+         "gen_graph")
 
 
 def test_graph_methods():

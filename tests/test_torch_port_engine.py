@@ -276,6 +276,18 @@ assert main(["infer", *common, "--model", "gat", "--checkpoint-dir", str(d / "ck
              "--out", str(d / "p.txt")]) == 0
 assert np.loadtxt(d / "p.txt").shape == (200, 3)
 assert main(["partition", "--graph", str(d / "ds" / "graph.bsnap"), "--n", "2"]) == 0
+# the reference-scale tools and the entry points: each imported above; a
+# reference config's command line at a tiny scale, and the entry's forward
+from dorylus_tpu_torch import graft_entry
+from dorylus_tpu_torch.tools import reference_configs, scale_pipeline, validate_32way
+assert {"dorylus_tpu_torch.graft_entry", "dorylus_tpu_torch.tools.reference_configs",
+        "dorylus_tpu_torch.tools.scale_pipeline",
+        "dorylus_tpu_torch.tools.validate_32way"} <= set(names)
+rec = reference_configs.run("amazon-gat", scale=400 / 9430088, epochs=2, device="cpu")
+assert rec["vertices"] in (399, 400) and len(rec["losses"]) == 2
+assert all(l == l for l in rec["losses"])
+fn, (params, batch) = graft_entry.entry(device="cpu")
+assert fn(params, batch).shape == (4096, 41)
 import shutil
 shutil.rmtree(d)
 assert not any(m.split(".")[0] in ("jax", "dorylus_tpu", "bench")

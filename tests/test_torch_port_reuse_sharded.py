@@ -11,7 +11,12 @@
     against the JAX `ShardedEngine` with the same setting and the port's
     single-device `Engine` without reuse; the factor exchange at
     construction against JAX's host-assembled `f_in`; reuse="pairs" on
-    another kernel logged and off.
+    another kernel logged and off;
+  * reuse="pairs" on one graph shard (a 1 x 1 mesh, and 1 x 2 with tensor
+    parallelism on 2 gloo ranks): the table is the vp rows the model hands
+    the op and the factor the local one; against the port's `Engine` and
+    the JAX `Engine` with reuse="pairs" (JAX's `ShardedEngine` fails
+    there: its op keeps n * max_h ghost rows that no halo fills).
 
 Tolerances: ops in f32 1e-5 relative to max|ref|, bf16 gather tables <=
 2e-3 * max|ref|. Engines over 5 epochs: GCN loss atol 1e-4 (f32) / 1e-3
@@ -26,6 +31,7 @@ import torch
 
 import _torch_ranks as ranks
 from dorylus_tpu.common.config import LayerConfig, TrainConfig
+from dorylus_tpu.engine import Engine as JEngine
 from dorylus_tpu.graph.graph import Graph
 from dorylus_tpu.graph.partition import partition_graph
 from dorylus_tpu.ops.reuse_sharded import ShardedReuseSpMM as JShardedReuseSpMM
@@ -244,3 +250,51 @@ def test_reuse_engine_matches_jax_and_single_device(graph, n, model, lr, capfd):
                                           np.asarray(jeng.model.spmm_op.arrays["f_out"][r]))
             e = sg.shards[r].num_edges
             assert live[np.asarray(sg.shards[r].src[:e])].all()
+
+
+# ---- one graph shard ----
+
+
+@pytest.mark.parametrize("model,lr,narrow", [("gcn", 0.01, False), ("gcn", 0.01, True),
+                                             ("gat", 0.005, False)],
+                         ids=["gcn-f32", "gcn-bf16", "gat-f32"])
+def test_reuse_on_one_graph_shard(graph, model, lr, narrow):
+    """A 1 x 1 mesh (no process group): the rewrite over the vp local rows,
+    the local rank-1 factor (GCN) or none (GAT); the same losses as the
+    port's one-device Engine with reuse="pairs" (rtol 1e-5; bit for bit in
+    practice: the same edges mine the same pairs) and JAX's Engine's."""
+    kw = dict(model=model, kernel="hyb", reuse="pairs", learning_rate=lr, eval_every=1,
+              agg_dtype="bfloat16" if narrow else "float32")
+    out = ranks.engine_rank(0, 1, "cpu", graph, DIMS, kw, 5, {})
+    assert out["mesh"] == (1, 1, 0, 0) and out["wire"] is None
+    assert out["plan"] == "ShardedReuseSpMM" and out["pairs"][0] > 0
+    single = TEngine(graph, LayerConfig(DIMS), TrainConfig(epochs=5, **kw), device="cpu")
+    assert isinstance(single.model.spmm_op, ReuseSpMM)
+    assert out["pairs"] == (single.model.spmm_op.plan_fwd.num_pairs,
+                            single.model.spmm_op.plan_bwd.num_pairs)
+    np.testing.assert_allclose(out["losses"], [e.loss for e in single.run().epochs],
+                               rtol=1e-5, atol=0)
+    if model == "gcn":
+        np.testing.assert_array_equal(out["f_in"], out["f_out"])
+        v = graph.num_vertices
+        np.testing.assert_allclose(out["f_out"][:v] ** 2, graph.self_norm, rtol=1e-6)
+    jeng = JEngine(graph, LayerConfig(DIMS), TrainConfig(epochs=5, **kw))
+    loss_close(out["losses"], [e.loss for e in jeng.run().epochs], model, narrow)
+
+
+def test_reuse_on_one_graph_shard_tp(graph):
+    """A 1 x 2 mesh (one graph shard, two feat shards, 2 gloo ranks): GCN
+    with reuse="pairs" at half the width, against the one-device Engine
+    with reuse="pairs" (rtol 1e-5) and JAX's Engine (atol 1e-4)."""
+    kw = dict(model="gcn", kernel="hyb", reuse="pairs", eval_every=1, feat_shards=2)
+    res = spawn_local(2, ranks.engine_rank, (graph, DIMS, kw, 5, {}), backend="gloo",
+                      device="cpu", timeout_s=240)
+    assert [r["mesh"] for r in res] == [(1, 2, 0, 0), (1, 2, 0, 1)]
+    assert res[0]["losses"] == res[1]["losses"]
+    assert res[0]["plan"] == "ShardedReuseSpMM" and res[0]["pairs"][0] > 0
+    one = dict(kw, feat_shards=1)
+    single = TEngine(graph, LayerConfig(DIMS), TrainConfig(epochs=5, **one), device="cpu")
+    np.testing.assert_allclose(res[0]["losses"], [e.loss for e in single.run().epochs],
+                               rtol=1e-5, atol=0)
+    jeng = JEngine(graph, LayerConfig(DIMS), TrainConfig(epochs=5, **one))
+    loss_close(res[0]["losses"], [e.loss for e in jeng.run().epochs], "gcn", False)
