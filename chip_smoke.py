@@ -77,7 +77,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      one PyTorch call of P1's, P2's and P3's function (`embedding_bag`,
      `bincount`, `index_select`), timed on those inputs;
   4. main path, GCN: Engine.run() of the Reddit-config GCN (602-128-41,
-     kernel="hyb", bf16 gather tables) for 3 epochs; losses finite and
+     kernel="hyb", bf16 gather tables) for 3 epochs (the epoch's CUDA
+     graphs, one epoch a group, so that a record times one epoch); losses finite and
      falling, K1 launches > 0; the run's notes: "hbm" peak bytes > 0 and at
      most the card's memory, "cost" GPU-seconds > 0; the train step's ms,
      also with staleness 1;
@@ -182,6 +183,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
      of GCN's at 64; GAT's output layer at 41); the step ms, host-bound
      (gloo on one card), GAT's step traced for the device's idle share;
      rank 0 prints ShardedEngine.profile(iters=3);
+ 11. (right after phase 8, before any torch.profiler session) the epoch
+     groups' CUDA graphs (engine/graphs.py) on phase 3's Reddit graph: GCN
+     (K1) and GAT (K2) on hyb with bf16 gather tables, 8 epochs in one
+     group with eval every 3 epochs, the eager loop and then the graph path
+     from one init: losses, accuracies, params and launch counts bit for
+     bit, notes["hbm"]'s peak of each; the warm epoch of a group of 10 with
+     eval_every 0 and 1, replayed and eager in turns (CUDA events over the
+     group, and the host's wall time with the group's read);
+ 11b. (after phase 5) one traced group of 10 of phase 11's GCN, replayed
+     and eager: the device's idle share; then xla, degree in f32 (K7) and
+     reuse="pairs" (K6, K2) on phase 5's 4,000-vertex community graph, GCN
+     and GAT, 3 epochs at staleness 1: the graph path equal to the eager
+     loop bit for bit, the same launch counts;
  10. (after 3, 3b, 3d) the Amazon config at its JAX run script's SCALE 0.12
      (benchmarks/run-amazon-gcn: synthetic_graph(1_131_610, 12, 300, 25,
      seed=8888), 27.2M edges, 300-64-25, degree-ascending, hyb, bf16 gather)
@@ -193,7 +207,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      device memory; then amazon-gcn and amazon-gat, 3 epochs each: losses
      finite (GCN's falling), kernel "auto" -> hyb, K1 / K2 launches by table
      width (64 and 32, 25 padded; 2 each a step), notes["hbm"]'s peak within
-     the card's memory, the train step's ms;
+     the card's memory (and of 3 more epochs of the same engine, eager and
+     through the epoch's CUDA graphs), the train step's ms;
 K1, K2, K7 and K8 (and the degree passes on K1/K7) are one launch a pass
 over every part of their plan (the gather core, csrc/gather_pass.cuh); their
 timed rows carry the pass ms (CUDA events: the table's cast, the
@@ -1018,13 +1033,16 @@ def step_launches(step) -> dict:
 
 
 def train(g, layers, cfg, label: str):
-    """Engine.run() on the card with every launch count set to 0 just
-    before; returns (engine, report, launch counts read just after)."""
+    """Engine.run() on the card (the epoch's CUDA graphs, one epoch a group)
+    with every launch count set to 0 just before; returns (engine, report,
+    launch counts read just after)."""
     from dorylus_tpu_torch.engine.engine import Engine
 
     reset_counts()
     t0 = time.perf_counter()
-    eng = Engine(g, layers, cfg, device="cuda")
+    # one epoch a group, so that each record times one epoch (a replay
+    # after the first) and its host read; phase 11 times whole groups
+    eng = Engine(g, layers, dataclasses.replace(cfg, epochs_per_call=1), device="cuda")
     print(f"{label}: engine built in {time.perf_counter() - t0:.2f} s", flush=True)
     rep = eng.run()
     torch.cuda.synchronize()
@@ -1132,6 +1150,180 @@ def stage_phase(g, layers) -> dict:
         out[model] = {"stages_ms": times, "widths": widths}
         del eng
         torch.cuda.empty_cache()
+    return out
+
+
+def graph_pair(eng) -> list:
+    """Phase 11's comparison: the engine's run() through the eager loop,
+    then through the epoch's CUDA graphs from the same init (params and
+    Adam's state reset), each with the launch counts and the peak memory
+    reset just before. Returns [(report, launch counts, params)] for the
+    two, in that order."""
+    from dorylus_tpu_torch.common.metrics import RunReport
+    from dorylus_tpu_torch.optim.adam import adam_init
+
+    init = {k: p.detach().clone() for k, p in eng.params.items()}
+    out = []
+    for graphs in (False, True):
+        with torch.no_grad():
+            for k, p in eng.params.items():
+                p.copy_(init[k])
+        eng.opt_state = adam_init(eng.params)
+        eng.report = RunReport()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        rep = eng.run(graphs=graphs)
+        torch.cuda.synchronize()
+        out.append((rep, launch_counts(), {k: p.detach().clone() for k, p in eng.params.items()}))
+    return out
+
+
+def graph_equal(label: str, pair: list) -> None:
+    """The graph path equals the eager loop bit for bit: losses, evaluated
+    accuracies, the final accuracies, params; the same launch counts."""
+    (re_, ce, pe), (rg, cg, pg) = pair
+    same = ([e.loss for e in rg.epochs] == [e.loss for e in re_.epochs]
+            and [e.accuracy for e in rg.epochs] == [e.accuracy for e in re_.epochs]
+            and (rg.final_accuracy, rg.test_accuracy) == (re_.final_accuracy,
+                                                          re_.test_accuracy))
+    check(same, f"phase 11 {label}: graph losses {[e.loss for e in rg.epochs]} / accuracies "
+                f"{[e.accuracy for e in rg.epochs]}, eager {[e.loss for e in re_.epochs]} / "
+                f"{[e.accuracy for e in re_.epochs]}")
+    diff = {k: float((pg[k] - pe[k]).abs().max()) for k in pe if not torch.equal(pg[k], pe[k])}
+    check(not diff, f"phase 11 {label}: params differ from the eager loop's: {diff}")
+    check(cg == ce and sum(cg.values()) > 0,
+          f"phase 11 {label}: launches graph {json.dumps(cg)}, eager {json.dumps(ce)}")
+    print(f"phase 11 {label}: graph == eager bit for bit over {len(rg.epochs)} epochs "
+          f"(losses {json.dumps([e.loss for e in rg.epochs])}), launches "
+          f"{json.dumps({k: n for k, n in cg.items() if n})} on both", flush=True)
+
+
+def group_times(eng, lr: float, k: int = 10) -> dict:
+    """Warm epoch ms of a group of k, with eval_every 0 and 1, through the
+    run's graphs and eagerly, in turns (graph, eager, eager, graph): CUDA
+    events around the group's dispatch over k ("ms": the device's span,
+    idle gaps included), and the host's wall time of the group with its one
+    read over k ("wall_ms")."""
+    from dorylus_tpu_torch.engine.engine import eager_group
+
+    graphs = eng._graphs
+    out = {}
+    for every in (0, 1):
+        flags = np.full(k, bool(every))
+        runs = {"graph": lambda: graphs.run_group(eng, [lr] * k, flags, None),
+                "eager": lambda: eager_group(eng, [lr] * k, flags, None)}
+        got = {name: {"ms": [], "wall_ms": []} for name in runs}
+        for name in ("graph", "eager", "eager", "graph"):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            losses, stats = runs[name]()
+            end.record()
+            torch.cat([losses[:, None], stats], 1).tolist()
+            wall = 1e3 * (time.perf_counter() - t0) / k
+            got[name]["ms"].append(start.elapsed_time(end) / k)
+            got[name]["wall_ms"].append(wall)
+        out[f"eval_every={every}"] = got
+    return out
+
+
+def traced_group(eng, lr: float, label: str, k: int = 10) -> dict:
+    """torch.profiler over one group of k epochs without eval, replayed and
+    then eager: the kernels' device time over the host's wall time of the
+    group (its read included) and over the device's span of the group (CUDA
+    events around its dispatch); the device's idle share is 1 minus each,
+    or None where the trace shows no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dorylus_tpu_torch.engine.engine import eager_group
+
+    graphs = eng._graphs
+    flags = np.zeros(k, bool)
+    out = {}
+    for name, fn in (("graph", lambda: graphs.run_group(eng, [lr] * k, flags, None)),
+                     ("eager", lambda: eager_group(eng, [lr] * k, flags, None))):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            start.record()
+            losses, _ = fn()
+            end.record()
+            losses.tolist()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        span_ms = start.elapsed_time(end)
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in rows) / 1e3
+        seen = busy_ms > 0
+        out[name] = {"wall_ms_per_epoch": wall_ms / k, "span_ms_per_epoch": span_ms / k,
+                     "kernel_ms_per_epoch": busy_ms / k,
+                     "kernels_per_epoch": sum(e.count for e in rows) / k,
+                     "idle_share": (1 - busy_ms / wall_ms) if seen else None,
+                     "idle_share_of_span": (1 - busy_ms / span_ms) if seen else None}
+    print(f"phase 11 {label} traced group of {k}: " + json.dumps(out), flush=True)
+    return out
+
+
+def graph_phase(g, layers) -> dict:
+    """Phase 11 (right after phase 8, before any torch.profiler session):
+    on phase 3's Reddit graph, GCN (K1) and GAT (K2) on hyb with bf16 gather
+    tables, 8 epochs in one group with eval every 3 epochs: the eager loop,
+    then the graph path from the same init, equal bit for bit (losses,
+    accuracies, params, launch counts), notes["hbm"] of each; then warm
+    epoch ms of groups of 10 with eval_every 0 and 1, replayed and eager.
+    Returns the numbers and the GCN engine, kept for phase 11b's trace."""
+    from dorylus_tpu_torch.common.config import TrainConfig
+    from dorylus_tpu_torch.engine.engine import Engine
+
+    out, kept = {}, None
+    for model, lr in (("gcn", 0.01), ("gat", 0.005)):
+        label = f"reddit-config {model} hyb bf16"
+        cfg = TrainConfig(epochs=8, eval_every=3, model=model, kernel="hyb",
+                          agg_dtype="bfloat16", learning_rate=lr, reuse="off")
+        eng = Engine(g, layers, cfg, device="cuda")
+        pair = graph_pair(eng)
+        graph_equal(label, pair)
+        hbm = {"eager": pair[0][0].notes["hbm"]["peak_bytes_in_use"],
+               "graph": pair[1][0].notes["hbm"]["peak_bytes_in_use"]}
+        times = group_times(eng, lr)
+        print(f"phase 11 {label}: notes hbm peak bytes {json.dumps(hbm)}, warm epoch ms "
+              f"of a group of 10 {json.dumps(times)}", flush=True)
+        out[model] = {"hbm_peak_bytes": hbm, "group_of_10": times,
+                      "run_epoch_ms": {"eager": [e.time_ms for e in pair[0][0].epochs],
+                                       "graph": [e.time_ms for e in pair[1][0].epochs]}}
+        if model == "gcn":
+            kept = eng
+        else:
+            del eng
+            torch.cuda.empty_cache()
+    return out, kept
+
+
+def graph_phase_b(eng, gs, layers) -> dict:
+    """Phase 11b (after phase 5, where torch.profiler sessions have run):
+    one traced group of 10 of phase 11's GCN engine, replayed and eager,
+    for the device's idle share; then on phase 5's 4,000-vertex community
+    graph, 3 epochs at staleness 1 (eval every epoch): xla (K3/K4/K5),
+    degree in f32 (K7) and reuse="pairs" (K6, K2), GCN and GAT, the graph
+    path equal to the eager loop bit for bit."""
+    from dorylus_tpu_torch.common.config import TrainConfig
+    from dorylus_tpu_torch.engine.engine import Engine
+
+    out = {"trace": traced_group(eng, 0.01, "reddit-config gcn hyb bf16")}
+    for kernel, kw in (("xla", {}), ("degree", {}), ("hyb", {"reuse": "pairs", "reuse_passes": 2})):
+        for model, lr in (("gcn", 0.01), ("gat", 0.005)):
+            kw.setdefault("reuse", "off")
+            label = f"community {model} {kernel} f32 reuse={kw['reuse']} staleness 1"
+            cfg = TrainConfig(epochs=3, eval_every=1, model=model, kernel=kernel,
+                              learning_rate=lr, staleness=1, **kw)
+            graph_equal(label, graph_pair(Engine(gs, layers, cfg, device="cuda")))
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1369,15 +1561,18 @@ def width_counter():
     """Launch counts of K1, K2, K9 and K10 by the width of the table each
     launch reads (its leading dimension), by wrapping their launchers in
     this process until the returned function is called, which restores them
-    and returns {kernel: {width: launches}}."""
+    and returns {kernel: {width: launches}}. A CUDA graph replay adds what
+    its capture counted (engine/graphs.py LAUNCH_TALLIES)."""
+    from dorylus_tpu_torch.engine import graphs
     from dorylus_tpu_torch.ops import hyb_spmm
     from dorylus_tpu_torch.parallel import halo
 
-    seen: dict = {}
+    seen: dict = {}  # "kernel width": launches, listed where graph replays add theirs
+    graphs.LAUNCH_TALLIES.append(seen)
 
     def note(kernel, width):
-        seen.setdefault(kernel, {}).setdefault(str(width), 0)
-        seen[kernel][str(width)] += 1
+        key = f"{kernel} {width}"
+        seen[key] = seen.get(key, 0) + 1
 
     launch_pass, row_gather, segsum = (hyb_spmm._launch_pass, halo._launch_row_gather,
                                        halo._launch_segsum)
@@ -1406,7 +1601,12 @@ def width_counter():
     def restore():
         hyb_spmm._launch_pass, halo._launch_row_gather, halo._launch_segsum = (
             launch_pass, row_gather, segsum)
-        return seen
+        graphs.LAUNCH_TALLIES.remove(seen)
+        by_kernel: dict = {}
+        for key, n in seen.items():
+            kernel, width = key.split()
+            by_kernel.setdefault(kernel, {})[width] = n
+        return by_kernel
 
     return restore
 
@@ -2132,6 +2332,18 @@ def amazon_phase(graph: tuple) -> dict:
             check(0 < rec["hbm_peak_bytes"] <= total,
                   f"phase 10 {name}: notes hbm peak {rec['hbm_peak_bytes']} of {total} bytes")
             eng = built.pop()
+            # notes["hbm"]'s peak of 3 more epochs of the same engine, eager
+            # and through the epoch's CUDA graphs (the run above includes
+            # the engine's build)
+            hbm = {}
+            for graphs in (False, True):
+                eng._graphs = None
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                rep = eng.run(3, graphs=graphs)
+                hbm["graph" if graphs else "eager"] = rep.notes["hbm"]["peak_bytes_in_use"]
+            print(f"phase 10 {name}: notes hbm peak bytes of 3 epochs {json.dumps(hbm)}",
+                  flush=True)
             lr = eng.cfg.learning_rate
             step_ms = cuda_ms(lambda: eng._train_epoch(lr), 5)
             restore = width_counter()
@@ -2148,7 +2360,7 @@ def amazon_phase(graph: tuple) -> dict:
             out["launches"][slot] = widths[slot]
             out["records"][name] = rec
             out["steps"][name] = {"step_ms": step_ms, "launches_per_step": per_step,
-                                  "widths_per_step": step_widths}
+                                  "widths_per_step": step_widths, "hbm_peak_bytes": hbm}
     finally:
         cli.load_graph, cli.build_engine, engine_mod.HybSpMM = (load_graph, build_engine,
                                                                  make_op)
@@ -2248,6 +2460,11 @@ def main() -> None:
     # 8. the stage profiler, before any torch.profiler session in this process
     stamp("phase 8")
     stages = stage_phase(g, layers)
+
+    # 11. the epoch's CUDA graphs against the eager loop, and their warm
+    # epochs, also before any torch.profiler session
+    stamp("phase 11")
+    graph_res, graph_eng = graph_phase(g, layers)
 
     # 3g. K8, K9, K10 vs plain on rank 0's shard of the 4-way partition
     stamp("phase 3g, 3h")
@@ -2844,6 +3061,12 @@ def main() -> None:
         check(rgap <= 1e-5, f"{model} {kernel} reuse={reuse}: card and CPU differ by "
                             f"{rgap:.3e} relative > 1e-5")
 
+    # 11b. a traced replayed group; the graph path on the other kernels
+    stamp("phase 11b")
+    graph_res.update(graph_phase_b(graph_eng, gs, layers))
+    del graph_eng
+    torch.cuda.empty_cache()
+
     # 6, 6b, 6c. the sharded engine: 4 ranks on the card
     stamp("phase 6, 6d, 6f, 9, 6e, 6b, 6c")
     torch.cuda.empty_cache()
@@ -3036,6 +3259,7 @@ def main() -> None:
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on its main path")
     print("timings " + json.dumps({"gcn_hyb_bf16": gcn_times, "gat_hyb_bf16": gat_times,
+                                   "epoch_graphs": graph_res,
                                    "xla_f32": edge_times,
                                    "xla_dst_blocked_450k": blocked_times,
                                    "xla_f32_launches_per_step": edge_steps,

@@ -14,9 +14,11 @@ for it runs here unchanged. Where the port differs:
   * `--device` replaces `--platform`: the default is the card, and without
     one `train` and `infer` exit non-zero with one line; `--device cpu`
     runs on the CPU (`--platform cpu` is taken as `--device cpu`).
-  * `--compile-cache`, `--epochs-per-call` and `--edge-chunk` tune the JAX
-    package's compiled epoch groups and XLA's message tensors; they are
-    accepted and ignored, with one log line each.
+  * `--compile-cache` and `--edge-chunk` tune the JAX package's compiled
+    programs and XLA's message tensors; they are accepted and ignored, with
+    one log line each. `--epochs-per-call` sizes the epoch groups as in
+    JAX (on the card each group replays the epoch's CUDA graphs, k times a
+    host read).
   * What is not ported exits non-zero naming its ROADMAP.md item: the
     `bench` subcommand (item 5).
   * `--shards n --feat-shards m` starts n * m ranks on this host
@@ -88,8 +90,9 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                    help="accepted and ignored: the CSR kernels build no "
                         "(E, F) message tensor to chunk")
     p.add_argument("--epochs-per-call", type=int, default=0,
-                   help="accepted and ignored: the port runs one epoch a "
-                        "Python iteration")
+                   help="epochs per group: one host read a group, on the card "
+                        "the epoch's CUDA graphs replayed k times (0 = auto, "
+                        "up to 25; 1 = one epoch a group)")
     p.add_argument("--kernel", default="auto",
                    choices=["auto", "xla", "degree", "hyb"],
                    help="aggregation kernel (auto = hyb past 8M edges "
@@ -181,7 +184,6 @@ def _log_ignored(args) -> None:
     from dorylus_tpu_torch.common.logging import log
 
     for flag, given in (("--compile-cache", args.compile_cache is not None),
-                        ("--epochs-per-call", args.epochs_per_call != 0),
                         ("--edge-chunk", args.edge_chunk != 0)):
         if given:
             log("%s ignored: it tunes the JAX package's compiled programs "
@@ -196,7 +198,8 @@ def make_config(args):
         model=args.model, epochs=args.epochs, learning_rate=args.learning_rate,
         target_accuracy=args.target_acc, eval_every=args.eval_every,
         num_shards=args.shards, feat_shards=args.feat_shards,
-        kernel=args.kernel, reuse=args.reuse, reuse_passes=args.reuse_passes,
+        kernel=args.kernel, epochs_per_call=args.epochs_per_call, reuse=args.reuse,
+        reuse_passes=args.reuse_passes,
         reuse_max_pairs=args.reuse_max_pairs, halo=args.halo,
         overlap="off" if args.no_overlap else args.overlap,
         compute_dtype="bfloat16" if args.bf16 else "float32",

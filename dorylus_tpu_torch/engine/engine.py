@@ -1,17 +1,20 @@
 """The single-device training engine (port of dorylus_tpu/engine/engine.py
 `Engine` and `run_group_loop`).
 
-The JAX engine compiles groups of epochs into one `lax.scan` call; PyTorch
-runs eagerly, so here an epoch is a plain Python iteration (`run_loop`,
-which both engines share): loss, backward, Adam (or SGD) with the decay_lr
-schedule, then evaluation on the eval_every cadence with the f32 forward on
-the updated params, the per-epoch log line, checkpoints on the
-checkpoint_every cadence, and the converge state machine (the switch to
-synchronous training, the early stop). The final val/test accuracy,
-`predict`, `dump_predictions` and the RunReport are as in JAX. A JAX group
-ends at every eval epoch when a target accuracy is set and at every
-checkpoint epoch, so a monitor fed each epoch switches and stops at the
-epoch JAX's does.
+Epochs run in groups, as JAX's compiled `lax.scan` calls do (`run_loop`,
+which both engines share): `group_len` cuts the run at the last epoch, at
+an eval epoch when a target accuracy is set, at a checkpoint epoch and at
+`epochs_per_call` (0: AUTO_GROUP_CAP), and the engine's `_dispatch` runs a
+group's epochs, each one loss, backward, Adam (or SGD) with the decay_lr
+schedule, then, on the epochs `eval_flags` picks, evaluation with the f32
+forward on the updated params. The group's losses and stats stay on the
+device; the loop reads them once a group, logs each evaluated epoch, adds
+one record per epoch at the group's wall time over k, checkpoints at the
+group's last epoch and feeds the converge state machine (the switch to
+synchronous training, the early stop) the group's last accuracy. On the
+card `Engine` replays the epoch as CUDA graphs (engine/graphs.py); on the
+CPU, and in the sharded engine, the group runs eagerly. The final val/test
+accuracy, `predict`, `dump_predictions` and the RunReport are as in JAX.
 
 Bounded staleness (staleness = S > 0; the reference's async pipeline,
 pipeline.cpp:95-102, with weight stashing): `StaleWindow` holds S+1
@@ -145,6 +148,38 @@ def resolve_reuse_budget(cfg: TrainConfig, base_rows: int,
     return max(cap, 0), True
 
 
+# Auto group size (epochs_per_call=0), JAX's: it bounds how long a group
+# runs between progress lines. JAX's second auto cap, by edges
+# (AUTO_GROUP_EDGE_BUDGET), keeps a call under the remote TPU's watchdog
+# and is not ported.
+AUTO_GROUP_CAP = 25
+
+
+def group_len(epoch: int, end: int, cfg: TrainConfig) -> int:
+    """Epochs of the group that starts at `epoch` (JAX `group_len`): it ends
+    at the last epoch, at an eval epoch when target_accuracy must inspect
+    it, at a checkpoint epoch, and at epochs_per_call (0: AUTO_GROUP_CAP;
+    1: one epoch a group)."""
+    if epoch >= end:  # empty range: run(0) is a no-op, not a hang
+        return 0
+    if cfg.epochs_per_call == 1:
+        return 1
+    cap = cfg.epochs_per_call if cfg.epochs_per_call else AUTO_GROUP_CAP
+    k = 1
+    while True:
+        ep = epoch + k - 1
+        if ep == end - 1:
+            break
+        if cfg.target_accuracy and cfg.eval_every and ep % cfg.eval_every == 0:
+            break
+        if checkpoint_due(cfg, ep):
+            break
+        if k >= cap:
+            break
+        k += 1
+    return k
+
+
 def eval_flags(epoch: int, k: int, end: int, cfg: TrainConfig) -> np.ndarray:
     """(k,) bool: which of epochs [epoch, epoch+k) evaluate (the eval_every
     cadence, plus always the final epoch)."""
@@ -186,8 +221,11 @@ class StaleWindow:
     """The bounded-staleness weight stash (JAX's (S+1)-stacked `history`):
     S+1 detached copies of the params, all equal to them at the start;
     `oldest` is the version this epoch's gradients are taken at, and
-    `roll(params)` drops it and appends the just-updated params (reusing
-    its storage)."""
+    `roll(params)` shifts each copy one place towards the oldest and writes
+    the just-updated params into the newest, as JAX's stack roll
+    (`concatenate([hi[1:], p[None]])`) does. The copies keep their storage,
+    so an epoch captured as a CUDA graph reads the right version on every
+    replay."""
 
     def __init__(self, params: dict, staleness: int):
         self.copies = [{k: p.detach().clone().requires_grad_(True)
@@ -198,11 +236,10 @@ class StaleWindow:
         return self.copies[0]
 
     def roll(self, params: dict) -> None:
-        old = self.copies.pop(0)
         with torch.no_grad():
-            for k, p in params.items():
-                old[k].copy_(p)
-        self.copies.append(old)
+            for older, newer in zip(self.copies, self.copies[1:] + [params]):
+                for k, t in older.items():
+                    t.copy_(newer[k])
 
 
 def resume(eng) -> None:
@@ -231,14 +268,35 @@ def checkpoint_due(cfg: TrainConfig, epoch: int) -> bool:
                 and (epoch + 1) % cfg.checkpoint_every == 0)
 
 
+def eager_group(eng, lrs: list, flags: np.ndarray,
+                window: Optional[StaleWindow]) -> tuple[torch.Tensor, torch.Tensor]:
+    """A group's epochs run eagerly: for each, the update at lr
+    (`_train_epoch`, gradients at the window's oldest copy when there is a
+    window, which then rolls) and, where flagged, the evaluation
+    (`_stats`). Returns (losses (k,), stats (k, 3): correct, loss sum,
+    count; zeros where not flagged) on the engine's device, unread."""
+    k = len(lrs)
+    losses = torch.zeros(k, device=eng.device)
+    stats = torch.zeros((k, 3), device=eng.device)
+    for i, (lr, flag) in enumerate(zip(lrs, flags)):
+        losses[i] = eng._train_epoch(lr, None if window is None else window.oldest)
+        if window is not None:
+            window.roll(eng.params)
+        if flag:
+            stats[i] = eng._stats(eng.batch.val_mask)
+    return losses, stats
+
+
 def run_loop(eng, epochs: int) -> RunReport:
-    """The epoch loop of both engines (JAX `run_group_loop`, one epoch an
-    iteration). The engine supplies `_train_epoch(lr, stale)` (the update;
-    returns the loss), `_stats(mask)` ((correct, loss, count) over every
-    shard), `_maybe_checkpoint(epoch)`, `rank` (0 logs), `world` (the
-    ranks: the cost note's GPU count, JAX's mesh.size) and the report.
-    The report's notes gain JAX's "cost" (GPU-seconds and an estimate at
-    an assumed price, engine/profiling.py) and, on the card, "hbm"."""
+    """The group loop of both engines (JAX `run_group_loop`). The engine
+    supplies `_dispatch(lrs, flags, window)` (a group's epochs -> its
+    losses (k,) and stats (k, 3) as device tensors), `_stats(mask)` ((3,):
+    correct, loss, count over every shard), `_maybe_checkpoint(epoch)`,
+    `rank` (0 logs), `world` (the ranks: the cost note's GPU count, JAX's
+    mesh.size) and the report. One host read a group; every rank computes
+    the same groups, so all checkpoint and stop together. The report's
+    notes gain JAX's "cost" (GPU-seconds and an estimate at an assumed
+    price, engine/profiling.py) and, on the card, "hbm"."""
     from dorylus_tpu_torch.engine.profiling import report_cost, report_memory
 
     cfg = eng.cfg
@@ -250,47 +308,51 @@ def run_loop(eng, epochs: int) -> RunReport:
     window = StaleWindow(eng.params, cfg.staleness) if cfg.staleness else None
     # Resume continues the original numbering: LR schedule, eval cadence
     # and checkpoint steps pick up where the prior run left off.
-    start, end = eng.start_epoch, eng.start_epoch + epochs
-    flags = eval_flags(start, epochs, end, cfg)
-    for i, epoch in enumerate(range(start, end)):
+    epoch, end = eng.start_epoch, eng.start_epoch + epochs
+    while epoch < end:
+        k = group_len(epoch, end, cfg)
         t0 = time.perf_counter()
-        loss = eng._train_epoch(lr_at(cfg, epoch),
-                                None if window is None else window.oldest)
-        if window is not None:
-            window.roll(eng.params)
+        flags = eval_flags(epoch, k, end, cfg)
+        losses, stats = eng._dispatch([lr_at(cfg, ep) for ep in range(epoch, epoch + k)],
+                                      flags, window)
+        # the group's one host read: it waits for the device
+        rows = torch.cat([losses[:, None], stats], 1).tolist()
+        dt_ms = 1e3 * (time.perf_counter() - t0) / k
         acc = None
-        if flags[i]:
-            c, vloss, n = eng._stats(eng.batch.val_mask)
-            acc, vloss = c / max(1.0, n), vloss / max(1.0, n)
-        loss_f = float(loss)  # waits for the device
-        dt_ms = 1e3 * (time.perf_counter() - t0)
-        if acc is not None and speak:
-            log("Epoch %d: %.2f ms, train loss %.4f, val acc %.4f, "
-                "val loss %.4f", epoch, dt_ms, loss_f, acc, vloss)
-        eng.report.add_epoch(EpochRecord(epoch, dt_ms, loss=loss_f, accuracy=acc))
-        eng._maybe_checkpoint(epoch)
+        for i, (loss_f, c, vloss, n) in enumerate(rows):
+            ep_acc = None
+            if flags[i]:
+                acc = ep_acc = c / max(1.0, n)
+                if speak:
+                    log("Epoch %d: %.2f ms, train loss %.4f, val acc %.4f, "
+                        "val loss %.4f", epoch + i, dt_ms, loss_f, ep_acc,
+                        vloss / max(1.0, n))
+            eng.report.add_epoch(EpochRecord(epoch + i, dt_ms, loss=loss_f, accuracy=ep_acc))
+        last = epoch + k - 1
+        eng._maybe_checkpoint(last)
         # Converge state machine (weightserver.cpp:270-294): CLOSE drains
         # the stale window (async -> sync), DONE stops. The accuracy is
         # every shard's, so every rank switches and stops together.
         monitor.update(acc)
         if window is not None and monitor.synchronous:
             if speak:
-                log("Converge state CLOSE at epoch %d — switching to sync.", epoch)
+                log("Converge state CLOSE at epoch %d — switching to sync.", last)
             window = None
         if monitor.done:
             if speak:
                 log("Target accuracy %.3f reached at epoch %d — stopping.",
-                    cfg.target_accuracy, epoch)
+                    cfg.target_accuracy, last)
             break
+        epoch += k
     eng.report.notes["converge_state"] = monitor.state.name
     eng.report.total_time_s = time.perf_counter() - t_run
     eng.report.notes["cost"] = report_cost(eng.report.total_time_s, n_gpus=eng.world)
     mem = report_memory(eng.device)
     if mem:
         eng.report.notes["hbm"] = mem
-    c, _, n = eng._stats(eng.batch.val_mask)
+    c, _, n = eng._stats(eng.batch.val_mask).tolist()
     eng.report.final_accuracy = c / max(1.0, n)
-    c, _, n = eng._stats(eng.batch.test_mask)
+    c, _, n = eng._stats(eng.batch.test_mask).tolist()
     eng.report.test_accuracy = c / max(1.0, n)
     return eng.report
 
@@ -400,17 +462,20 @@ class Engine:
 
     rank = 0  # the one shard: it logs
     world = 1
+    _graphs = None  # the run's EpochGraphs, on the card
 
-    def _stats(self, mask: torch.Tensor) -> tuple[float, float, float]:
-        """(correct, loss, count) over the masked rows."""
+    def _stats(self, mask: torch.Tensor) -> torch.Tensor:
+        """(3,) on the device: correct, loss, count over the masked rows."""
         with torch.no_grad():
             probs = row_softmax(self.model.forward(self.batch))
-            c, loss, n = accuracy_and_loss(probs, self.batch.onehot, mask)
-        return float(c), float(loss), float(n)
+            return torch.stack(accuracy_and_loss(probs, self.batch.onehot, mask))
 
-    def _train_epoch(self, lr: float, stale: Optional[dict] = None) -> torch.Tensor:
+    def _train_epoch(self, lr: float | None, stale: Optional[dict] = None,
+                     lr_t: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One update; the gradients are taken at `stale` (the staleness
-        window's oldest copy) when given, else at the current params."""
+        window's oldest copy) when given, else at the current params. lr_t:
+        a 0-dim device tensor that holds the step's rate (Adam's
+        bias-corrected lr_t, SGD's lr), in place of lr (a captured epoch)."""
         cfg = self.cfg
         at = self.params if stale is None else stale
         loss = self.model.loss(self.batch, self.compute_dtype, params=stale)
@@ -419,20 +484,34 @@ class Engine:
         if cfg.adam:
             self.params, self.opt_state = adam_update(
                 self.params, grads, self.opt_state, lr=lr, beta1=cfg.beta1,
-                beta2=cfg.beta2, eps=cfg.eps, weight_decay=cfg.weight_decay)
+                beta2=cfg.beta2, eps=cfg.eps, weight_decay=cfg.weight_decay, lr_t=lr_t)
         else:
-            self.params = sgd_update(self.params, grads, lr)
+            self.params = sgd_update(self.params, grads, lr if lr_t is None else lr_t)
         return loss.detach()
+
+    def _dispatch(self, lrs: list, flags: np.ndarray,
+                  window: Optional[StaleWindow]) -> tuple[torch.Tensor, torch.Tensor]:
+        """A group's epochs: replayed as the run's CUDA graphs where it has
+        them (the card), else eagerly."""
+        if self._graphs is not None:
+            return self._graphs.run_group(self, lrs, flags, window)
+        return eager_group(self, lrs, flags, window)
 
     def _maybe_checkpoint(self, epoch: int) -> None:
         if checkpoint_due(self.cfg, epoch):
             save_checkpoint(self.cfg.checkpoint_dir, epoch + 1, self.params,
                             self.opt_state)
 
-    def run(self, epochs: Optional[int] = None) -> RunReport:
+    def run(self, epochs: Optional[int] = None, graphs: bool = True) -> RunReport:
         """Train `epochs` (cfg.epochs by default) from `start_epoch`. A
         second run() starts again at start_epoch while Adam's step carries
-        on, as JAX's does."""
+        on, as JAX's does. On the card the epochs are captured and replayed
+        as CUDA graphs (engine/graphs.py), captured anew in every run();
+        graphs=False runs them eagerly there, to compare with."""
+        from dorylus_tpu_torch.engine.graphs import EpochGraphs
+
+        self._graphs = (EpochGraphs(self.device) if graphs and self.device.type == "cuda"
+                        else None)
         return run_loop(self, epochs if epochs is not None else self.cfg.epochs)
 
     def profile(self, iters: int = 5) -> dict:

@@ -10,12 +10,17 @@ dryrun_multichip(n, device=None) -> the sharded training step on n ranks
                                    degree and hyb kernels, pair reuse, and
                                    with n >= 4 tensor parallelism; one
                                    `dryrun ok: ...` line each, as the JAX
-                                   package prints them.
+                                   package prints them, after a
+                                   `dryrun group: ...` line for each epoch
+                                   group it ran.
 
 device None means the card (a RuntimeError without one); "cpu" runs on the
-CPU. Where the JAX dry run calls its compiled multi-epoch groups (a
-`lax.scan` with and without the staleness stash), the port runs `run_loop`
-for 2 epochs with eval at staleness 1 and at 0.
+CPU. Where the JAX dry run calls its compiled multi-epoch groups, the port
+runs the same groups through `epochs_per_call=2`: after the step (epoch 0),
+epochs 1-2 as one group at staleness 1 with eval flags [False, True]
+(JAX's `multi["mixed", True]`), then epochs 1-2 again as one group at
+staleness 0 without eval (`multi["none", False]`); the tensor-parallel and
+pair-reuse rows run the second group only, as JAX's do.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 
 from dorylus_tpu_torch.common.config import LayerConfig, TrainConfig
 from dorylus_tpu_torch.common.device import resolve_device
+from dorylus_tpu_torch.common.metrics import RunReport
 
 
 def _flagship(num_vertices: int, avg_degree: int):
@@ -72,18 +78,27 @@ def _community_graph(v: int, n: int):
                  num_classes=5).finalize()
 
 
-def _step_and_runs(eng, runs: bool = True) -> None:
-    """One train step; then 2 epochs with eval at staleness 1 and at 0, the
-    evaluation and predict (runs=False: the step and 2 epochs at 0)."""
+def _step_and_runs(eng, label: str, lines: list, runs: bool = True) -> None:
+    """One train step (epoch 0); then the 2-epoch groups JAX's dry run
+    calls (runs=False: the one without eval or stash), each checked to
+    have run as one group with its eval flags and noted in `lines`; then
+    the evaluation and predict."""
     loss = eng._train_epoch(eng.cfg.learning_rate)
     if not bool(torch.isfinite(loss)):
         raise RuntimeError(f"dry run: non-finite loss {float(loss)}")
-    for staleness in ((1, 0) if runs else (0,)):
-        eng.cfg = dataclasses.replace(eng.cfg, staleness=staleness,
-                                      eval_every=1 if runs else 0)
+    eng.start_epoch = 1  # numbered on from the step, as a resume would
+    # (staleness, eval_every): eval_every 2 flags epoch 2 alone
+    for staleness, every in (((1, 2), (0, 0)) if runs else ((0, 0),)):
+        eng.cfg = dataclasses.replace(eng.cfg, staleness=staleness, eval_every=every,
+                                      epochs_per_call=2)
+        eng.report = RunReport()
         rep = eng.run(2)
-        if not all(np.isfinite([e.loss for e in rep.epochs])):
-            raise RuntimeError(f"dry run: losses {[e.loss for e in rep.epochs]}")
+        flags = [e.accuracy is not None for e in rep.epochs]
+        if (not all(np.isfinite([e.loss for e in rep.epochs]))
+                or len({e.time_ms for e in rep.epochs}) != 1 or flags != [False, bool(every)]):
+            raise RuntimeError(f"dry run: not one 2-epoch group with eval {[False, bool(every)]}: "
+                               f"{rep.epochs}")
+        lines.append(f"dryrun group: {label} staleness={staleness} epochs=1-2 eval={flags}")
     if runs:
         eng._stats(eng.batch.val_mask)
         if not np.isfinite(eng.predict()).all():
@@ -104,8 +119,9 @@ def _dryrun_rank(rank: int, world: int, device) -> list:
     for model in ("gcn", "gat"):
         for kernel in ("xla", "degree", "hyb"):
             cfg = TrainConfig(epochs=1, eval_every=0, kernel=kernel, model=model)
-            _step_and_runs(ShardedEngine(g, layers, cfg, device=device))
-            lines.append(f"dryrun ok: model={model} kernel={kernel} n={world}")
+            label = f"model={model} kernel={kernel} n={world}"
+            _step_and_runs(ShardedEngine(g, layers, cfg, device=device), label, lines)
+            lines.append(f"dryrun ok: {label}")
     # sharded pair reuse on a graph where the rewrite fires
     gr = _community_graph(64 * world, world)
     eng = ShardedEngine(gr, LayerConfig([32, 16, 5]),
@@ -113,21 +129,24 @@ def _dryrun_rank(rank: int, world: int, device) -> list:
                         device=device)
     if eng.model.spmm_op is None or not hasattr(eng.model.spmm_op, "plan_fwd"):
         raise RuntimeError("dry run: reuse=\"pairs\" built no pair rewrite")
-    _step_and_runs(eng, runs=False)
+    _step_and_runs(eng, f"model=gcn kernel=hyb reuse=pairs n={world}", lines, runs=False)
     # tensor parallelism: world // 2 graph shards x 2 feat shards
     if world >= 4:
         for model in ("gcn", "gat"):
             cfg = TrainConfig(epochs=1, eval_every=0, kernel="hyb", feat_shards=2,
                               num_shards=world // 2, reuse="off", model=model)
-            _step_and_runs(ShardedEngine(g, layers, cfg, device=device), runs=False)
-            lines.append(f"dryrun ok: model={model} kernel=hyb tp=2x{world // 2}")
+            label = f"model={model} kernel=hyb tp=2x{world // 2}"
+            _step_and_runs(ShardedEngine(g, layers, cfg, device=device), label, lines,
+                           runs=False)
+            lines.append(f"dryrun ok: {label}")
     return lines
 
 
 def dryrun_multichip(n_devices: int, device: str | None = None) -> list:
     """The sharded training step on n ranks of this host: NCCL with a card a
     rank where there are n cards, else gloo on cuda:0; gloo on the CPU with
-    device="cpu". Prints (and returns) the `dryrun ok` lines."""
+    device="cpu". Prints the `dryrun group` and `dryrun ok` lines; returns
+    the `dryrun ok` lines."""
     from dorylus_tpu_torch.parallel.multihost import spawn_local
 
     if device == "cpu":
@@ -149,4 +168,4 @@ def dryrun_multichip(n_devices: int, device: str | None = None) -> list:
         raise RuntimeError(f"dry run: the ranks report other runs: {res}")
     for line in res[0]:
         print(line, flush=True)
-    return res[0]
+    return [line for line in res[0] if line.startswith("dryrun ok")]

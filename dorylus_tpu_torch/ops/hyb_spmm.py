@@ -56,7 +56,7 @@ import ctypes
 import numpy as np
 import torch
 
-from dorylus_tpu_torch.common.device import resolve_device
+from dorylus_tpu_torch.common.device import resolve_device, stream_handle
 from dorylus_tpu_torch.ops import cuda_build
 from dorylus_tpu_torch.ops.gather_parts import PartTable, gather_table, group_lanes
 from dorylus_tpu_torch.ops.hyb_plan import _LAMBDA_SLOTS, build_hyb_plan
@@ -305,7 +305,7 @@ def launch_parts(build, entry: str, tables: list, plan: dict, out: torch.Tensor,
     lib = build()
     # each library names its entry `<name>_pass` and its error text `<name>_error_string`
     lib_fn, errors = getattr(lib, entry), getattr(lib, entry.replace("_pass", "_error_string"))
-    stream = torch.cuda.current_stream(out.device).cuda_stream
+    stream = stream_handle(_device_index(out))
     launched = 0
     for desc, _, n_blocks, address in plan["parts"].layout(g):
         code = lib_fn(_device_index(out), _DTYPE_CODE[tables[0].dtype], int(unit),
@@ -377,7 +377,7 @@ def _launch_dyn_pass(tb: torch.Tensor, plan: dict, val: torch.Tensor, out: torch
            f"table of {tb.shape[0]} rows, the plan reads {plan['n_src']} source rows")
     lib = build_dyn_kernel()
     dot = own is not None
-    stream = torch.cuda.current_stream(out.device).cuda_stream
+    stream = stream_handle(_device_index(out))
     launched = 0
     for desc, _, n_blocks, address in pt.layout(g):
         code = lib.dyn_pass(

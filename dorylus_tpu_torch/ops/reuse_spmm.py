@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from dorylus_tpu_torch import native
-from dorylus_tpu_torch.common.device import resolve_device
+from dorylus_tpu_torch.common.device import resolve_device, stream_handle
 from dorylus_tpu_torch.graph.reuse import mine_reuse
 from dorylus_tpu_torch.ops import cuda_build
 from dorylus_tpu_torch.ops.hyb_plan import build_hyb_plan
@@ -116,7 +116,7 @@ def _launch_level(tbl: torch.Tensor, pairs: torch.Tensor, base: int) -> bool:
     dev = tbl.device.index if tbl.device.index is not None else torch.cuda.current_device()
     code = lib.pair_level(dev, _DTYPE_CODE[tbl.dtype], tbl.data_ptr(), tbl.shape[1],
                           pairs.data_ptr(), pairs.shape[0], base,
-                          torch.cuda.current_stream(tbl.device).cuda_stream)
+                          stream_handle(dev))
     if code != 0:
         raise RuntimeError(f"pair_level launch failed: "
                            f"{lib.pair_error_string(code).decode()} ({code})")

@@ -36,13 +36,16 @@ With an overlap plan the models get the ghost rows alone from the exchange
 and the local rows' work does not depend on it. (`HaloRecvFn` still waits
 for the exchange before it returns, so nothing runs beside it yet.)
 
-The epoch loop is the single-device engine's (`run_loop`), with its
-bounded staleness, checkpoints and resume (JAX `parallel/train_step.py`
-`:104-200`, `:495-516`): a stale epoch runs its forward and backward, the
-halo exchanges and their reverse included, on every rank at the window's
-oldest copy, and its gradients go into the one flat all-reduce; rank 0
-writes a checkpoint and every rank waits for it at a barrier before the
-next epoch; every rank loads on resume.
+The epoch loop is the single-device engine's group loop (`run_loop`), with
+its bounded staleness, checkpoints and resume (JAX `parallel/train_step.py`
+`:104-200`, `:495-516`): a group's epochs run eagerly (`eager_group`; no
+CUDA graph: gloo stages every collective through the host) and every rank
+reads the group's losses and stats once, as JAX's sharded `multi` returns
+them; every rank computes the same groups. A stale epoch runs its forward
+and backward, the halo exchanges and their reverse included, on every rank
+at the window's oldest copy, and its gradients go into the one flat
+all-reduce; rank 0 writes a checkpoint and every rank waits for it at a
+barrier before the next group; every rank loads on resume.
 
 Tensor parallelism (cfg.feat_shards = m > 1; JAX's mesh of (n, m) with a
 'feat' axis): the world of n * m ranks is a mesh (parallel/mesh.py), rank r
@@ -78,7 +81,7 @@ from dorylus_tpu_torch.common.logging import log
 from dorylus_tpu_torch.common.metrics import RunReport
 from dorylus_tpu_torch.engine.checkpoint import save_checkpoint
 from dorylus_tpu_torch.engine.engine import (_DTYPES, _max_agg_width, check_staleness,
-                                             checkpoint_due, resolve_device,
+                                             checkpoint_due, eager_group, resolve_device,
                                              resolve_reuse_budget, resume, run_loop)
 from dorylus_tpu_torch.graph.graph import Graph
 from dorylus_tpu_torch.graph.partition import (Shard, ShardMeta, partition_graph,
@@ -302,14 +305,13 @@ class ShardedEngine:
             shard.num_local, shard.num_edges, ghosts, meta.max_h, kernel, overlap,
             "none" if self.halo_plan is None else self.halo_plan.wire, cfg.agg_dtype)
 
-    def _stats(self, mask: torch.Tensor) -> tuple[float, float, float]:
-        """(correct, loss, count) over the masked rows of every shard (each
-        shard once: summed over the graph group)."""
+    def _stats(self, mask: torch.Tensor) -> torch.Tensor:
+        """(3,) on the device: correct, loss, count over the masked rows of
+        every shard (each shard once: summed over the graph group)."""
         with torch.no_grad():
             probs = row_softmax(self.model.forward(self.batch, halo=self.halo))
             stats = torch.stack(accuracy_and_loss(probs, self.batch.onehot, mask))
-            c, loss, cnt = multihost.all_reduce_sum(stats, self.mesh.graph_group).tolist()
-        return c, loss, cnt
+            return multihost.all_reduce_sum(stats, self.mesh.graph_group)
 
     def _train_epoch(self, lr: float, stale: Optional[dict] = None) -> torch.Tensor:
         """One update on every rank; the gradients are taken at `stale`
@@ -338,6 +340,9 @@ class ShardedEngine:
         else:
             self.params = sgd_update(self.params, grads, lr)
         return pieces[-1][0]
+
+    def _dispatch(self, lrs: list, flags: np.ndarray, window) -> tuple:
+        return eager_group(self, lrs, flags, window)
 
     def _maybe_checkpoint(self, epoch: int) -> None:
         """Rank 0 writes; every rank waits for the file before the next

@@ -35,6 +35,8 @@ def engine_rank(rank, world, device, graph, dims, cfg_kw, epochs, opts):
                  for k, g in zip(names, gs)}
     rep = eng.run()
     out = {"losses": [e.loss for e in rep.epochs],
+           "accuracies": [e.accuracy for e in rep.epochs],
+           "times": [e.time_ms for e in rep.epochs],
            "val_acc": rep.final_accuracy, "test_acc": rep.test_accuracy,
            "kernel": eng.kernel_selected, "overlap": bool(eng.cfg.overlap),
            "wire": None if eng.halo_plan is None else eng.halo_plan.wire,

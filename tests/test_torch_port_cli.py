@@ -14,10 +14,14 @@ package's (dorylus_tpu/cli.py), in-process with `--device cpu`:
   * refusals: `bench`, `--profile` and `--feat-shards 2` exit non-zero
     naming their ROADMAP.md item; without `--device` and without a card
     the command exits non-zero with one line; the TPU-only flags are
-    accepted, logged and ignored.
+    accepted, logged and ignored;
+  * `--epochs-per-call 3` runs JAX's epoch groups: the per-epoch records
+    (losses, evaluated epochs' accuracies) and the checkpoint steps of
+    JAX's run.
 """
 
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -222,6 +226,37 @@ def test_tpu_only_flags_are_ignored(capsys):
                   "--compile-cache", "off", "--epochs-per-call", "5", "--edge-chunk",
                   "1000"]) == 0
     err = capsys.readouterr().err
-    for flag in ("--compile-cache", "--epochs-per-call", "--edge-chunk"):
+    for flag in ("--compile-cache", "--edge-chunk"):
         assert err.count(f"{flag} ignored") == 1, flag
+    assert "--epochs-per-call" not in err  # honoured, not ignored
     assert "--platform cpu taken as --device cpu" in err
+
+
+def test_epochs_per_call_gives_jax_records(capsys, tmp_path):
+    """--epochs-per-call 3 with eval every 2 epochs and checkpoints every 4:
+    the port's per-epoch records are JAX's (GCN losses atol 1e-4, the
+    evaluated epochs, their accuracies), its group lines log the epochs
+    JAX's log, and both write the same checkpoint steps."""
+    argv = ["train", *SYNTH, "--epochs", "8", "--eval-every", "2", "--kernel", "hyb",
+            "--epochs-per-call", "3", "--checkpoint-every", "4"]
+    reps = {}
+    for who, main in (("j", jmain), ("t", tmain)):
+        extra = ["--device", "cpu"] if who == "t" else []
+        assert main(argv + ["--output", str(tmp_path / f"{who}.json"), "--checkpoint-dir",
+                            str(tmp_path / who)] + extra) == 0
+        reps[who] = json.loads((tmp_path / f"{who}.json").read_text())["epochs"]
+        logged = re.findall(r"\] Epoch (\d+):", capsys.readouterr().err)
+        assert logged == ["0", "2", "4", "6", "7"], (who, logged)
+    j, t = reps["j"], reps["t"]
+    assert [e["epoch"] for e in t] == [e["epoch"] for e in j] == list(range(8))
+    np.testing.assert_allclose([e["loss"] for e in t], [e["loss"] for e in j], rtol=0, atol=1e-4)
+    assert [e["accuracy"] is None for e in t] == [e["accuracy"] is None for e in j]
+    np.testing.assert_allclose([e["accuracy"] for e in t if e["accuracy"] is not None],
+                               [e["accuracy"] for e in j if e["accuracy"] is not None],
+                               rtol=0, atol=1e-6)
+    # groups [0-2], [3], [4-6], [7] (cut at the checkpoint epochs 3 and 7):
+    # one time per group
+    times = [e["time_ms"] for e in t]
+    assert times[0] == times[1] == times[2] and times[4] == times[5] == times[6]
+    names = [sorted(p.name for p in (tmp_path / w).iterdir()) for w in ("j", "t")]
+    assert names[0] == names[1] == ["LATEST", "ckpt_00000004.npz", "ckpt_00000008.npz"]

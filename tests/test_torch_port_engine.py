@@ -222,6 +222,15 @@ for graph, model, kernel, reuse in runs:
     assert rep.notes["cost"]["chip_seconds"] >= 0
 # stage profiling (engine/profiling.py) on the last engine
 assert all(v > 0 for v in eng.profile(iters=1).values())
+# a grouped run (engine/graphs.py imported above): groups of 3 with eval
+# every 2 epochs at staleness 1; one record per epoch, evaluated where flagged
+eng = Engine(g, LayerConfig([12, 6, 3]),
+             TrainConfig(epochs=7, eval_every=2, epochs_per_call=3, staleness=1),
+             device="cpu")
+rep = eng.run()
+assert [e.accuracy is not None for e in rep.epochs] == [True, False, True, False, True,
+                                                        False, True]
+assert rep.epochs[0].time_ms == rep.epochs[2].time_ms != rep.epochs[3].time_ms
 # the sharded engine, two ranks over gloo: each rank is a fresh interpreter
 # and reports whether it loaded jax or the JAX package
 sys.path.insert(0, "tests")

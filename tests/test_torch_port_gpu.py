@@ -1209,3 +1209,121 @@ def test_gather_pass_of_more_parts_than_one_launch_holds(cuda):
     torch.cuda.synchronize()
     assert hyb.KERNEL_LAUNCHES == before + 2
     _close(out, hyb.hyb_static_pass_plain(h, op.fwd, 504), False)
+
+
+# ---- the epoch groups' CUDA graphs (engine/graphs.py) ----
+
+
+def _graph_engines(cuda, path, stale):
+    """Two engines of one configuration from one init on the card."""
+    from dorylus_tpu_torch.common.config import LayerConfig, TrainConfig
+    from dorylus_tpu_torch.engine.engine import Engine
+    from dorylus_tpu_torch.graph.graph import (Graph, community_core_edges,
+                                               synthetic_graph)
+
+    model, kernel, kw = {
+        "hyb gcn": ("gcn", "hyb", dict(agg_dtype="bfloat16")),
+        "hyb gat": ("gat", "hyb", dict(agg_dtype="bfloat16")),
+        "degree bf16": ("gcn", "degree", dict(agg_dtype="bfloat16")),
+        "degree f32": ("gcn", "degree", {}),
+        "reuse pairs gcn": ("gcn", "hyb", dict(reuse="pairs", reuse_max_pairs=0)),
+        "reuse pairs gat": ("gat", "hyb", dict(reuse="pairs", reuse_max_pairs=0)),
+        "xla gcn": ("gcn", "xla", {}),
+        "xla gat": ("gat", "xla", {}),
+    }[path]
+    if "reuse" in path:
+        src, dst = community_core_edges(1500, 10, comm=30, core=15, seed=2)
+        g = Graph(num_vertices=1500, src=src, dst=dst,
+                  features=np.random.default_rng(0).normal(size=(1500, 24)).astype(np.float32),
+                  labels=(np.arange(1500) % 6).astype(np.int32), num_classes=6).finalize()
+    else:
+        g = synthetic_graph(1500, 8, 24, 6, seed=4)
+    kw.setdefault("reuse", "off")
+    cfg = TrainConfig(model=model, kernel=kernel, epochs=7, eval_every=2, epochs_per_call=3,
+                      staleness=stale, learning_rate=0.005 if model == "gat" else 0.01, **kw)
+    return [Engine(g, LayerConfig([24, 16, 6]), cfg, device=cuda) for _ in range(2)]
+
+
+@pytest.mark.parametrize("stale", [0, 1])
+@pytest.mark.parametrize("path", ["hyb gcn", "hyb gat", "degree bf16", "degree f32",
+                                  "reuse pairs gcn", "reuse pairs gat", "xla gcn", "xla gat"])
+def test_graph_run_equals_the_eager_loop(cuda, path, stale):
+    """Engine.run through EpochGraphs (groups of 3, eval every 2 epochs)
+    against the eager loop from the same init: losses, accuracies, params
+    and Adam's state bit for bit; the launch counts of the two runs equal
+    (a replay counts the kernels its capture counted); one train graph for
+    the staleness variant and one eval graph."""
+    from dorylus_tpu_torch.ops import degree_spmm, hyb_spmm, reuse_spmm, spmm
+
+    def counts():
+        return {m.__name__ + "." + k: v for m in (hyb_spmm, degree_spmm, reuse_spmm, spmm)
+                for k, v in vars(m).items() if k.endswith("_LAUNCHES")}
+
+    graphed, eager = _graph_engines(cuda, path, stale)
+    runs = []
+    for eng, use in ((graphed, True), (eager, False)):
+        before = counts()
+        rep = eng.run(graphs=use)
+        torch.cuda.synchronize()
+        runs.append((rep, {k: n - before[k] for k, n in counts().items()}))
+    (rg, cg), (re, ce) = runs
+    assert [e.loss for e in rg.epochs] == [e.loss for e in re.epochs]
+    assert [e.accuracy for e in rg.epochs] == [e.accuracy for e in re.epochs]
+    assert (rg.final_accuracy, rg.test_accuracy) == (re.final_accuracy, re.test_accuracy)
+    for k, p in graphed.params.items():
+        assert torch.equal(p, eager.params[k]), k
+        assert torch.equal(graphed.opt_state.v[k], eager.opt_state.v[k]), k
+    assert graphed.opt_state.step == eager.opt_state.step == 7
+    assert cg == ce and sum(cg.values()) > 0
+    assert set(graphed._graphs.train) == {bool(stale)} and graphed._graphs.eval is not None
+    assert eager._graphs is None
+
+
+def test_capture_survives_a_collection(cuda, monkeypatch):
+    """Another run's graphs left in a fresh reference cycle just after a
+    capture begins, with the collector's threshold at 1 (a collection at
+    nearly every allocation): the captures succeed (no collection runs
+    inside one, which would destroy those graphs there and end the
+    capture) and the run equals the eager loop bit for bit."""
+    import gc
+
+    old, _ = _graph_engines(cuda, "hyb gcn", 0)
+    old.run()
+    holder = [old._graphs]
+    del old
+    real_graph = torch.cuda.graph
+
+    class graph_leaving_a_cycle(real_graph):
+        def __enter__(self):
+            super().__enter__()
+            if holder:
+                box = {"graphs": holder.pop()}
+                box["box"] = box
+
+    monkeypatch.setattr(torch.cuda, "graph", graph_leaving_a_cycle)
+    graphed, eager = _graph_engines(cuda, "hyb gcn", 0)
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        rg = graphed.run()
+    finally:
+        gc.set_threshold(*threshold)
+    re_ = eager.run(graphs=False)
+    assert not holder
+    assert [e.loss for e in rg.epochs] == [e.loss for e in re_.epochs]
+
+
+def test_a_failed_capture_raises(cuda):
+    """A host read inside the captured epoch fails the capture, and run()
+    raises: nothing falls back to the eager loop."""
+    graphed, _ = _graph_engines(cuda, "hyb gcn", 0)
+    loss = graphed.model.loss
+
+    def loss_with_a_host_read(*args, **kw):
+        out = loss(*args, **kw)
+        float(out)  # a device wait: refused while the stream is captured
+        return out
+
+    graphed.model.loss = loss_with_a_host_read
+    with pytest.raises(RuntimeError):
+        graphed.run()

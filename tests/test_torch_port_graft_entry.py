@@ -7,7 +7,10 @@ JAX package's (`__graft_entry__.py`), on the CPU:
     norms, f32, 1e-5 relative to max|ref|;
   * `dryrun_multichip(2, "cpu")` and `(4, "cpu")` print every `dryrun ok`
     line the JAX dry run prints at that n (gloo ranks), the tensor-parallel
-    rows at 4.
+    rows at 4, each after the `dryrun group` lines of the epoch groups JAX's
+    dry run calls there (`multi["mixed", True]` and `multi["none", False]`
+    on the kernel rows, the second alone on the pair-reuse and
+    tensor-parallel rows).
 """
 
 import sys
@@ -49,11 +52,28 @@ def jax_lines(n: int) -> list:
     return lines
 
 
+def group_lines(n: int) -> list:
+    """The group lines the port prints for JAX's dry-run groups at n."""
+    mixed = "staleness=1 epochs=1-2 eval=[False, True]"
+    none = "staleness=0 epochs=1-2 eval=[False, False]"
+    out = []
+    for line in jax_lines(n):
+        label = line.removeprefix("dryrun ok: ")
+        out += [f"dryrun group: {label} {g}" for g in ((none,) if "tp=" in label
+                                                      else (mixed, none))]
+        out.append(line)
+        if label == f"model=gat kernel=hyb n={n}":  # then the pair-reuse row
+            out.append(f"dryrun group: model=gcn kernel=hyb reuse=pairs n={n} {none}")
+    return out
+
+
 @pytest.mark.parametrize("n", [2, 4])
 def test_dryrun_multichip_prints_every_line(n, capsys):
     lines = dryrun_multichip(n, "cpu")
-    printed = [l for l in capsys.readouterr().out.splitlines() if l.startswith("dryrun ok")]
+    out = capsys.readouterr().out.splitlines()
+    printed = [l for l in out if l.startswith("dryrun ok")]
     assert lines == printed == jax_lines(n)
+    assert [l for l in out if l.startswith("dryrun ")] == group_lines(n)
 
 
 def test_entry_device_none_means_the_card():
