@@ -39,7 +39,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
      shape (times of both, K7's kernel-only ms apart), then on a power-law
      graph with isolated rows and rows of > 1,000 edges;
   3f. K6 (the pair-table build) vs plain, exactly, on the mined
-     Reddit-scale community graph (COMMUNITY below): the passes=2
+     Reddit-scale community graph (bench.COMMUNITY): the passes=2
      levels and the engine's passes=1 forward and backward levels (its pair
      budget), F=128 and 41, f32 and bf16; then the mask pass over the
      rewritten plans (forward and dh, F=128 and 41, bf16 and f32) against
@@ -196,6 +196,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
      reuse="pairs" (K6, K2) on phase 5's 4,000-vertex community graph, GCN
      and GAT, 3 epochs at staleness 1: the graph path equal to the eager
      loop bit for bit, the same launch counts;
+ 12. (right after phase 11, before any torch.profiler session) the port's
+     benchmark (dorylus_tpu_torch/bench.py, `python -m dorylus_tpu_torch.cli
+     bench`) on phase 3's Reddit graph and on the plans phase 3 then checks:
+     its pass cells (K1 bf16 and f32, K7 forward, the degree pass, K3
+     forward, P3 over K1's live slot rows for the gather bound,
+     torch.sparse.mm), each held against its plain version first, and its
+     four Reddit-config epoch cells (Engine.run(3) twice), launch counts set
+     to 0 just before and read after;
+ 12b. (after phase 4e) the bench's reuse cells: K2's pass against K6 + K2
+     over the passes=2 rewrite of the 1.6M-vertex community graph (its
+     graph, mining and plans made on the host in a process of its own,
+     started after phase 10, handed back as an .npz), and GCN's warm epochs
+     with reuse "off" and "pairs" on phase 3f's community graph; then the
+     scipy baseline and the bench's record: every key of bench.py's JSON
+     present, its numbers finite and > 0; the reuse="auto" gate's decision
+     on that graph from `reuse_payoff` (phase 5 runs reuse="auto" on its
+     4,000-vertex community graph: the branch the gate predicts, and the
+     losses of the explicit setting bit for bit);
  10. (after 3, 3b, 3d) the Amazon config at its JAX run script's SCALE 0.12
      (benchmarks/run-amazon-gcn: synthetic_graph(1_131_610, 12, 300, 25,
      seed=8888), 27.2M edges, 300-64-25, degree-ascending, hyb, bf16 gather)
@@ -262,8 +280,6 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 MAX_ERR = {k: 0.0 for k in ("K1", "K2", "K3", "K3_dh", "K3_dh_dval", "K4", "K5", "K6", "K7",
                             "K7_dh", "K7_dh_dval", "K8", "K9", "K10", "degree", "reuse",
                             "degree_sharded", "reuse_sharded")}
-# The community graph the JAX package's bench measures pair reuse on.
-COMMUNITY = dict(comm=400, core=60, p_core=0.85, seed=0)
 # The card's published peaks (H100 SXM): device memory rate, and f32 outside
 # the tensor cores (the gather kernels multiply and add in f32 registers).
 HBM_BYTES_PER_S = 3.35e12
@@ -1365,19 +1381,6 @@ def planted_pair(gp, layers, cfg, label: str) -> float:
     return gap
 
 
-def community_graph(v: int, deg: int, feat: int, classes: int, **kw):
-    """A community-core graph (graph.community_core_edges) with random
-    features and block labels, as the JAX package's bench builds it."""
-    from dorylus_tpu_torch.graph.graph import Graph, community_core_edges
-
-    src, dst = community_core_edges(v, deg, **kw)
-    rng = np.random.default_rng(4)
-    return Graph(num_vertices=v, src=src, dst=dst,
-                 features=rng.normal(0, 0.3, size=(v, feat)).astype(np.float32),
-                 labels=((np.arange(v) * classes) // v).astype(np.int32),
-                 num_classes=classes).finalize()
-
-
 def compare_fused(name: str, op, f: int, seed: int, timed: bool,
                   csr: dict | None = None) -> dict:
     """K8 through the fused entries of a ShardedHybSpMM (edges="fused"):
@@ -1803,7 +1806,7 @@ def sharded_phases(sg, sg2, sgc, layers, hyb_f32_losses, kernel_sources) -> dict
     sg2: its 2-way partition (phase 9's graph shards); sgc: the community
     graph's; hyb_f32_losses: {model: 3 single-device hyb f32 losses} from
     phase 4c. Returns what the kernels line needs."""
-    from dorylus_tpu_torch import native
+    from dorylus_tpu_torch import bench, native
     from dorylus_tpu_torch.common.config import TrainConfig
     from dorylus_tpu_torch.engine.engine import Engine
     from dorylus_tpu_torch.graph.graph import synthetic_graph
@@ -1819,8 +1822,8 @@ def sharded_phases(sg, sg2, sgc, layers, hyb_f32_losses, kernel_sources) -> dict
     try:
         t0 = time.perf_counter()
         gp = synthetic_graph(2000, 8, REDDIT["feat"], REDDIT["classes"], seed=8888)
-        gs = community_graph(4000, 20, REDDIT["feat"], REDDIT["classes"], comm=40, core=30,
-                             p_core=0.85, seed=0)
+        gs = bench.community_graph(4000, 20, REDDIT["feat"], REDDIT["classes"], comm=40,
+                                   core=30, p_core=0.85, seed=0)
         for name, part in (("reddit", sg), ("reddit2", sg2), ("community", sgc),
                            ("planted", partition_graph(gp, RANKS)),
                            ("smallcomm", partition_graph(gs, RANKS))):
@@ -2065,6 +2068,119 @@ def memoised_loader(load_graph, graphs: dict):
         return graphs[key]
 
     return load_graph_once
+
+
+def bench_phase(g, ops: dict) -> tuple[dict, dict, dict]:
+    """Phase 12 (right after phase 11, before any torch.profiler session):
+    the port's benchmark (dorylus_tpu_torch/bench.py) on phase 3's Reddit
+    graph and `ops` (bench.spmm_cells' plans, which phase 3 then checks): the
+    pass cells, each held against its plain version first, then the four
+    epoch cells, with every launch count set to 0 just before and read just
+    after. Returns (pass cells, epoch cells, launch counts)."""
+    from dorylus_tpu_torch import bench
+    from dorylus_tpu_torch.engine import engine as engine_mod
+    from dorylus_tpu_torch.tools import probe_prims
+
+    cuda = torch.device("cuda")
+    make_op = engine_mod.HybSpMM
+
+    def op_once(src, dst, num_in, num_out, **kw):
+        # GCN's engines ask for the static plans `ops` holds (the same
+        # plans; the slot->edge maps beside them go unread): handed over
+        # instead of built again. GAT's engines build theirs, without values.
+        for op in (ops["bf16"], ops["f32"]):
+            if (src is g.src and kw.get("static_val") is g.edge_norm
+                    and kw.get("gather_dtype") is op.gather_dtype):
+                return op
+        return make_op(src, dst, num_in, num_out, **kw)
+
+    reset_counts()
+    for k in probe_prims.LAUNCHES:
+        probe_prims.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    cells = bench.spmm_cells(g, ops, iters=10, device=cuda)
+    t1 = time.perf_counter()
+    engine_mod.HybSpMM = op_once
+    try:
+        epochs = bench.epoch_cells(g, cuda)
+    finally:
+        engine_mod.HybSpMM = make_op
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in launch_counts().items() if n}
+    counts["P3"] = probe_prims.LAUNCHES["P3"]
+    print(f"phase 12 bench pass cells ({t1 - t0:.1f} s): {json.dumps(cells)}; epoch cells "
+          f"({time.perf_counter() - t1:.1f} s): {json.dumps(epochs)}; launches "
+          f"{json.dumps(counts)}", flush=True)
+    for k in ("K1", "K2", "K3", "K7", "degree", "P3"):
+        check(counts.get(k, 0) > 0, f"phase 12: the bench launched no {k}")
+    return cells, epochs, counts
+
+
+def bench_reuse_phase(proc, path: str, g, cg, cells: dict, epochs: dict, card: str) -> dict:
+    """Phase 12b: the bench's reuse cells, launch counts set to 0 just before
+    and read after: K2's pass against K6 + K2 on the plans
+    bench.largev_worker made (its process started after phase 10), and GCN's
+    epoch pair on phase 3f's community graph `cg`; then the scipy baseline
+    and the bench's record, every key of bench.py's JSON present and its
+    numbers finite and > 0; the reuse="auto" gate's decision on `cg` from
+    `reuse_payoff`, beside the saving per row this run measured. Returns the
+    record."""
+    from dorylus_tpu_torch import bench
+    from dorylus_tpu_torch.common.config import TrainConfig
+    from dorylus_tpu_torch.engine import engine
+
+    cuda = torch.device("cuda")
+    proc.join(timeout=900)
+    check(proc.exitcode == 0, f"phase 12b: the 1.6M graph's process ended with {proc.exitcode}")
+    with np.load(path) as z:
+        host = {k: z[k] for k in z.files}
+    print(f"phase 12b 1.6M-vertex community graph (in its process): V={int(host['v'])} "
+          f"E={int(host['e'])}, generated in {float(host['graph_s']):.1f} s, mined "
+          f"({host['miner']}) in {float(host['mine_s']):.1f} s, plans {float(host['plan_s']):.1f} "
+          f"s", flush=True)
+    reset_counts()
+    extra = bench.largev_cell(host, cuda, iters=10)
+    del host
+    torch.cuda.empty_cache()
+    extra.update(bench.community_cells(cg, cuda))
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in launch_counts().items() if n}
+    print(f"phase 12b launches {json.dumps(counts)}", flush=True)
+    for k in ("K2", "K6", "K1"):
+        check(counts.get(k, 0) > 0, f"phase 12b: the reuse cells launched no {k}")
+    t0 = time.perf_counter()
+    h = np.random.default_rng(0).normal(0, 1, size=(g.num_vertices, bench.F_HID))
+    # one timed product after the warm-up (the bench times 3: 2.3 s each here)
+    cpu_eps = bench.cpu_spmm_baseline(g, h.astype(np.float32), iters=1)
+    print(f"phase 12b scipy baseline {cpu_eps:.1f} edges/s ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    rec = bench.record(g, cells, epochs, cpu_eps, "gpu", card, extra)
+    ex = rec["extras"]
+    missing = set(bench.BENCH_PY_EXTRAS + bench.BENCH_PY_REUSE) - set(ex)
+    check(not missing, f"phase 12b: the bench's record lacks {sorted(missing)}")
+    bad = {k: x for k, x in [("value", rec["value"]), ("vs_baseline", rec["vs_baseline"]),
+                             *ex.items()]
+           if not isinstance(x, str) and not (np.isfinite(x) and x > 0)}
+    check(not bad, f"phase 12b: the bench's numbers not finite and > 0: {bad}")
+    print("phase 12b bench " + json.dumps(rec), flush=True)
+    # the gate's decision on this graph at the card's constants, and the
+    # saving per row this run's epoch pair shows beside the fitted one
+    v, e = cg.num_vertices, cg.num_edges
+    saved_s = 1e-3 * (ex["reuse_reddit_community_epoch_off_ms"]
+                      - ex["reuse_reddit_community_epoch_ms"])
+    per_row = saved_s / (ex["reuse_reddit_community_row_cut"] * v)
+    for model in ("gcn", "gat"):
+        cfg = TrainConfig(model=model)
+        worth, ceiling, mine = engine.reuse_payoff(cfg, v, e)
+        want = (engine.REUSE_CUT_CAP * v * engine.REUSE_SAVE_S_PER_ROW
+                * engine.REUSE_MODEL_EFF[model] * cfg.epochs >= e * engine.REUSE_MINE_S_PER_EDGE)
+        check(worth == want, f"phase 12b {model}: reuse_payoff says {worth}, the constants {want}")
+        print(f"phase 12b reuse auto {model} on the community graph at {cfg.epochs} epochs: "
+              f"mines {worth} (ceiling {ceiling:.3f} s, mine {mine:.3f} s; fitted "
+              f"{engine.REUSE_SAVE_S_PER_ROW:.3e} s/row, this run's epoch pair "
+              f"{per_row:.3e} s/row, the ReuseSpMM build "
+              f"{ex['reuse_reddit_community_mine_s'] / e:.3e} s/edge)", flush=True)
+    return rec
 
 
 def amazon_graph_worker(path: str) -> None:
@@ -2374,10 +2490,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: no GPU to run on")
     try:
-        from dorylus_tpu_torch import native
+        from dorylus_tpu_torch import bench, native
         from dorylus_tpu_torch.common.config import LayerConfig, TrainConfig
         from dorylus_tpu_torch.engine.batch import build_batch
-        from dorylus_tpu_torch.engine.engine import (Engine, _max_agg_width,
+        from dorylus_tpu_torch.engine.engine import (Engine, _max_agg_width, reuse_payoff,
                                                      resolve_reuse_budget)
         from dorylus_tpu_torch.graph.graph import Graph, build_graph, synthetic_graph
         from dorylus_tpu_torch.graph.partition import partition_graph, shard_edges
@@ -2465,6 +2581,22 @@ def main() -> None:
     # epochs, also before any torch.profiler session
     stamp("phase 11")
     graph_res, graph_eng = graph_phase(g, layers)
+
+    # 12. the port's benchmark on this graph and on the plans phase 3 checks
+    # (3c its CSR op, 3e its bf16 degree plan), also before any
+    # torch.profiler session
+    stamp("phase 12")
+    t0 = time.perf_counter()
+    ops = {"bf16": HybSpMM(g.src, g.dst, v, v, gather_dtype=torch.bfloat16,
+                           static_val=g.edge_norm, dynamic=True, device="cuda"),
+           "f32": HybSpMM(g.src, g.dst, v, v, static_val=g.edge_norm, dynamic=True,
+                          device="cuda"),
+           "degree": DegreeSpMM(g.src, g.dst, v, v, block=16, gather_dtype=torch.bfloat16,
+                                static_val=g.edge_norm, device="cuda"),
+           "edge": EdgeSpMM(g.src, g.dst, v, v, device="cuda")}
+    print(f"phase 12 plans (hyb bf16 and f32 with the slot->edge maps, degree bf16, the "
+          f"edge CSR op): {time.perf_counter() - t0:.1f} s", flush=True)
+    bench_cells, bench_epochs, bench_counts = bench_phase(g, ops)
 
     # 3g. K8, K9, K10 vs plain on rank 0's shard of the 4-way partition
     stamp("phase 3g, 3h")
@@ -2600,16 +2732,13 @@ def main() -> None:
     del tcsr
     results = []
     for gd in (torch.bfloat16, None):
-        t0 = time.perf_counter()
-        # Static plans with the slot->edge maps: K1 reads their values, K2
-        # only their live counts, K7 the per-edge values through s2e.
-        op = HybSpMM(g.src, g.dst, v, v, gather_dtype=gd, static_val=g.edge_norm,
-                     dynamic=True, device="cuda")
+        # Phase 12's static plans with the slot->edge maps: K1 reads their
+        # values, K2 only their live counts, K7 the per-edge values through s2e.
+        op = ops.pop("bf16" if gd is torch.bfloat16 else "f32")
         print(f"plans ({gd}): fwd {len(op.fwd['buckets'])} buckets, top "
               f"{op.fwd['top'] is not None}, layout "
               f"{'n_iso' if 'n_iso' in op.fwd else 'inv'}; bwd layout "
-              f"{'n_iso' if 'n_iso' in op.bwd else 'inv'} "
-              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+              f"{'n_iso' if 'n_iso' in op.bwd else 'inv'}", flush=True)
         for f in (128, 41):
             # timed at the main path's shapes (bf16, both widths) and one f32
             timed = gd is torch.bfloat16 or f == 128
@@ -2641,12 +2770,16 @@ def main() -> None:
     stamp("phase 10")
     amazon = amazon_phase(amazon_graph(graph_proc, graph_path))
     shutil.rmtree(graph_dir, ignore_errors=True)
+    # 12b's graph, mining and plans: made in a process of its own meanwhile
+    largev_dir = tempfile.mkdtemp(prefix="dorylus_smoke_largev_")
+    largev_path = f"{largev_dir}/largev.npz"
+    largev_proc = multiprocessing.get_context("spawn").Process(
+        target=bench.largev_worker, args=(largev_path,), daemon=True)
+    largev_proc.start()
 
     # 3c. K3, K4, K5 vs plain
     stamp("phase 3c")
-    t0 = time.perf_counter()
-    eop = EdgeSpMM(g.src, g.dst, v, v, device="cuda")
-    print(f"edge CSR op: {time.perf_counter() - t0:.1f} s", flush=True)
+    eop = ops.pop("edge")  # phase 12's
     s_t = torch.tensor(g.src, device="cuda")
     d_t = torch.tensor(g.dst, device="cuda")
     v_t = torch.tensor(g.edge_norm, device="cuda")
@@ -2676,8 +2809,9 @@ def main() -> None:
     degree_results = []
     for gd in (torch.bfloat16, None):
         t0 = time.perf_counter()
-        dop = DegreeSpMM(g.src, g.dst, v, v, gather_dtype=gd, static_val=g.edge_norm,
-                         device="cuda")
+        dop = (ops.pop("degree") if gd is torch.bfloat16  # phase 12's
+               else DegreeSpMM(g.src, g.dst, v, v, gather_dtype=gd, static_val=g.edge_norm,
+                               device="cuda"))
         print(f"degree plans ({gd}): fwd {dop.fwd['part']['rows'].shape[0]} block rows "
               f"for {dop.fwd['part']['v'].shape[0]} vertices, live slots "
               f"{int(dop.fwd['part']['cnt'].sum())} ({time.perf_counter() - t0:.1f} s)",
@@ -2698,8 +2832,8 @@ def main() -> None:
     # 3f. K6 on the mined Reddit-scale community levels; the reuse pass
     stamp("phase 3f")
     t0 = time.perf_counter()
-    cg = community_graph(REDDIT["v"], REDDIT["deg"], REDDIT["feat"], REDDIT["classes"],
-                         **COMMUNITY)
+    cg = bench.community_graph(REDDIT["v"], REDDIT["deg"], REDDIT["feat"], REDDIT["classes"],
+                               **bench.COMMUNITY)
     print(f"community graph: V={cg.num_vertices} E={cg.num_edges} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     cv = cg.num_vertices
@@ -2982,6 +3116,13 @@ def main() -> None:
         check(gap <= 1e-2, f"community {model}: reuse and off differ by {gap:.3e} > 1e-2")
         reuse_times[model] = {k: r for k, (_, r) in runs.items()}
 
+    # 12b. the bench's reuse cells, its baseline and its record
+    stamp("phase 12b")
+    bench_rec = bench_reuse_phase(largev_proc, largev_path, g, cg, bench_cells, bench_epochs,
+                                  card)
+    shutil.rmtree(largev_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
     stamp("phase 4f")
     # 4f. main path, dynamic values: GCN on ops without static values, then
     # the same with the edge values requiring a gradient (a model that learns
@@ -3041,8 +3182,8 @@ def main() -> None:
     print(f"planted graph card vs CPU: max loss gap {gap:.3e} over 5 epochs "
           f"(gpu {gpu_l[0]:.5f} -> {gpu_l[-1]:.5f})", flush=True)
     check(gap <= 1e-3, f"card and CPU trajectories differ by {gap:.3e} > 1e-3")
-    gs = community_graph(4000, 20, REDDIT["feat"], REDDIT["classes"], comm=40, core=30,
-                         p_core=0.85, seed=0)
+    gs = bench.community_graph(4000, 20, REDDIT["feat"], REDDIT["classes"], comm=40, core=30,
+                               p_core=0.85, seed=0)
     for graph, model, kernel, reuse in ((gp, "gat", "hyb", "off"), (gp, "gcn", "auto", "off"),
                                         (gp, "gat", "auto", "off"),
                                         (gp, "gcn", "degree", "off"),
@@ -3060,6 +3201,23 @@ def main() -> None:
         rgap = planted_pair(graph, layers, cfg, f"{model} {kernel} reuse={reuse}")
         check(rgap <= 1e-5, f"{model} {kernel} reuse={reuse}: card and CPU differ by "
                             f"{rgap:.3e} relative > 1e-5")
+    # reuse="auto" (the default) on the community graph at the default
+    # horizon: the branch the card's gate predicts, 3 epochs bit for bit
+    # with the explicit setting of that branch
+    for model, lr in (("gcn", 0.01), ("gat", 0.005)):
+        cfg = TrainConfig(eval_every=1, model=model, kernel="hyb", learning_rate=lr)
+        worth = reuse_payoff(cfg, gs.num_vertices, gs.num_edges)[0]
+        eng = Engine(gs, layers, cfg, device="cuda")
+        took = "pairs" if isinstance(eng.model.spmm_op, ReuseSpMM) else "off"
+        check(worth or took == "off", f"reuse auto {model}: the gate is shut and it mined")
+        auto_l = [e.loss for e in eng.run(3).epochs]
+        want_l = [e.loss for e in Engine(gs, layers, dataclasses.replace(cfg, reuse=took),
+                                         device="cuda").run(3).epochs]
+        print(f"reuse auto {model} on the 4,000-vertex community graph at {cfg.epochs} "
+              f"epochs: the gate {'opens' if worth else 'is shut'}, took {took}; losses "
+              f"{json.dumps(auto_l)}", flush=True)
+        check(auto_l == want_l, f"reuse auto {model}: losses {auto_l}, reuse={took} {want_l}")
+        del eng
 
     # 11b. a traced replayed group; the graph path on the other kernels
     stamp("phase 11b")
@@ -3269,6 +3427,7 @@ def main() -> None:
                                    "sharded_4_ranks": sharded["timings"],
                                    "sharded_reuse_shard0": sharded_reuse_info,
                                    "degree_pair_vs_combined_shard0": pair_vs_combined,
+                                   "bench": bench_rec, "bench_launches": bench_counts,
                                    "cli_seconds": cli_times,
                                    "amazon_0.12": {k: amazon[k] for k in ("graph_s", "plan_s",
                                                                            "steps")},

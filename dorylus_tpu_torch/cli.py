@@ -12,15 +12,16 @@ The subcommands and flags are the JAX package's, so a command line written
 for it runs here unchanged. Where the port differs:
 
   * `--device` replaces `--platform`: the default is the card, and without
-    one `train` and `infer` exit non-zero with one line; `--device cpu`
-    runs on the CPU (`--platform cpu` is taken as `--device cpu`).
+    one `train`, `infer` and `bench` exit non-zero with one line; `--device
+    cpu` runs on the CPU (`--platform cpu` is taken as `--device cpu`).
   * `--compile-cache` and `--edge-chunk` tune the JAX package's compiled
     programs and XLA's message tensors; they are accepted and ignored, with
     one log line each. `--epochs-per-call` sizes the epoch groups as in
     JAX (on the card each group replays the epoch's CUDA graphs, k times a
     host read).
-  * What is not ported exits non-zero naming its ROADMAP.md item: the
-    `bench` subcommand (item 5).
+  * `bench` runs the port's benchmark (dorylus_tpu_torch/bench.py, the
+    counterpart of bench.py), not bench.py: one JSON line in its shape;
+    `--device cpu` runs bench.py's CPU scale.
   * `--shards n --feat-shards m` starts n * m ranks on this host
     (parallel/multihost.py `spawn_local`): one card each over NCCL when
     there are n * m cards, all on the one card over gloo when there are
@@ -454,8 +455,13 @@ def cmd_partition(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    raise CliError("bench: the port's benchmark is not written yet (ROADMAP.md "
-                   "queue 1 item 5); bench.py is the JAX package's")
+    """The port's benchmark (dorylus_tpu_torch/bench.py): one JSON line in
+    bench.py's shape; on the card unless --device cpu (bench.py's CPU
+    scale)."""
+    from dorylus_tpu_torch import bench
+
+    bench.main(_device(args))
+    return 0
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -497,7 +503,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--out", default=None)
     p.set_defaults(fn=cmd_partition)
 
-    p = sub.add_parser("bench", help="the benchmark (not ported yet)")
+    p = sub.add_parser("bench", help="the benchmark: one JSON line")
+    _add_device_args(p)
     p.set_defaults(fn=cmd_bench)
     return ap.parse_args(argv)
 

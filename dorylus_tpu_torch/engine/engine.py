@@ -39,8 +39,9 @@ raises NotImplementedError naming its ROADMAP.md item.
 
 reuse="pairs" sizes its pair budget as JAX does (`resolve_reuse_budget`,
 `_max_agg_width`, copied below with the 64 MiB gather-cliff constant, so
-both packages mine the same rewrite). reuse="auto" stays off: JAX's payoff
-gate is calibrated on a TPU.
+both packages mine the same rewrite). reuse="auto" runs JAX's payoff gate
+before mining (`gate_reuse_auto`) and its row-cut floor after it
+(`REUSE_AUTO_MIN_CUT`), with the gate's constants fitted on the H100.
 """
 
 from __future__ import annotations
@@ -119,6 +120,81 @@ def _max_agg_width(layers: LayerConfig, cfg: TrainConfig,
             widths.append(w)
         return max(widths)
     return max(dims[:-1])
+
+
+# reuse="auto" (JAX engine/engine.py:75-135, the same arithmetic): the
+# payoff gate before mining, then the row-cut floor after it. The
+# constants are the card's, fitted on an NVIDIA H100 80GB HBM3 at a 700.00 W
+# power limit from `python -m dorylus_tpu_torch.cli bench` (its reuse_*
+# cells) and chip_smoke.py phases 4e and 12b (PERF.md §6). On the
+# card the rewrite saves nothing, so the gate never opens: its log line
+# shows the 0 s/row.
+#
+# Minimum mined row cut to keep the rewrite: JAX's value. The card's cells
+# show cuts of 29.8% and 32.8% losing (below): no cut wins, so there is no
+# winning cut to move the floor to, and the shut gate never reaches it.
+REUSE_AUTO_MIN_CUT = 0.10
+# Seconds an epoch saves per gathered row the rewrite cuts, (epoch off -
+# epoch pairs) / (row cut x V), GCN on the Reddit-size community graph (a
+# 29.8% cut): the bench's pair read 9.390 ms off against 11.353 with pairs
+# (-2.8e-8 s/row) and 9.619 against 14.924 (-7.6e-8); its 1.6M-vertex pass
+# pair (a 32.8% cut) 1.565 ms plain against 3.041 with K6 + K2. No saving:
+# 0.
+REUSE_SAVE_S_PER_ROW = 0.0
+# Each model's saving per row over GCN's. GAT's pair saves nothing either
+# (chip_smoke.py phase 4e: warm epoch 8.338 ms with pairs against 7.963
+# off, train step 5.885 against 5.142): 0.
+REUSE_MODEL_EFF = {"gcn": 1.0, "gat": 0.0}
+# The best mined cut ever observed plus a margin: a property of mined
+# graphs, JAX's value.
+REUSE_CUT_CAP = 0.45
+# The miner's seconds per edge on the card's host (the numpy miner: the
+# host cannot build native/libgraphcore.so), both directions and both
+# plans, at the slower of the two graphs: the Reddit-size community graph's
+# ReuseSpMM build, 7.89 and 8.51 s over 11,619,013 edges (the 1.6M-vertex
+# graph's forward mining, two passes, 15.2 s over 23,940,344).
+REUSE_MINE_S_PER_EDGE = 7.3e-7
+
+
+def reuse_payoff(cfg: TrainConfig, num_vertices: int,
+                 num_edges: int) -> tuple[bool, float, float]:
+    """Pre-mine gate for reuse="auto": (worth_mining, ceiling_s, mine_s)
+    (JAX `reuse_payoff`). ceiling_s is the best-case saving over
+    cfg.epochs (the cut capped at REUSE_CUT_CAP, scaled by the model's
+    efficiency); mine_s the predicted cost of mining."""
+    eff = REUSE_MODEL_EFF.get(cfg.model, 1.0)
+    ceiling = (REUSE_CUT_CAP * num_vertices * REUSE_SAVE_S_PER_ROW
+               * eff * max(1, cfg.epochs))
+    mine = num_edges * REUSE_MINE_S_PER_EDGE
+    return ceiling >= mine, ceiling, mine
+
+
+def gate_reuse_auto(cfg: TrainConfig, num_vertices: int,
+                    num_edges: int) -> bool:
+    """The reuse="auto" pre-mine gate with its decision log (JAX
+    `gate_reuse_auto`), shared by Engine and ShardedEngine."""
+    worth, ceiling, mine = reuse_payoff(cfg, num_vertices, num_edges)
+    if not worth:
+        log("reuse auto: predicted saving ceiling %.2fs "
+            "(cut<=%.2f x %d rows x %.1e s/row x eff %.2f x "
+            "%d epochs) < mine cost %.2fs (%d edges x %.1e "
+            "s/edge) — skipping mining; --reuse pairs forces",
+            ceiling, REUSE_CUT_CAP, num_vertices,
+            REUSE_SAVE_S_PER_ROW,
+            REUSE_MODEL_EFF.get(cfg.model, 1.0), cfg.epochs,
+            mine, num_edges, REUSE_MINE_S_PER_EDGE)
+    return worth
+
+
+def below_reuse_floor(cfg: TrainConfig, cut: float, what: str = "row cut") -> bool:
+    """reuse="auto"'s floor after mining: True (with JAX's log line) where
+    the mined cut is below REUSE_AUTO_MIN_CUT and the run takes plain
+    hyb."""
+    if cfg.reuse != "auto" or cut >= REUSE_AUTO_MIN_CUT:
+        return False
+    log("reuse auto: %s %.1f%% below the %.0f%% profitability floor — plain hyb",
+        what, 100 * cut, 100 * REUSE_AUTO_MIN_CUT)
+    return True
 
 
 def resolve_reuse_budget(cfg: TrainConfig, base_rows: int,
@@ -380,14 +456,6 @@ class Engine:
             raise NotImplementedError(f"dorylus_tpu_torch Engine: {problem} "
                                       "(see ROADMAP.md)")
         check_staleness(cfg)
-        if cfg.reuse == "auto":
-            # JAX's payoff gate (engine/engine.py reuse_payoff) is fitted on
-            # a TPU; off until re-fit on the H100. At the Reddit scale the
-            # JAX gate itself mines only past ~373 GCN epochs, so both
-            # packages train without reuse at the default 100.
-            log("reuse auto -> off (the payoff gate's constants are "
-                "TPU-fitted; --reuse pairs forces the rewrite)")
-            cfg = dataclasses.replace(cfg, reuse="off")
         if cfg.reuse == "pairs" and kernel != "hyb":
             log("pair reuse requires kernel=hyb (have %s) — off", kernel)
         self.device = resolve_device(device)
@@ -402,7 +470,11 @@ class Engine:
         spmm_op = edge_op = None
         blk_rows = 0
         gather_dtype = torch.bfloat16 if cfg.agg_dtype == "bfloat16" else None
-        if kernel == "hyb" and cfg.reuse == "pairs":
+        reuse_on = kernel == "hyb" and cfg.reuse in ("pairs", "auto")
+        if reuse_on and cfg.reuse == "auto":
+            # the payoff gate before mining (model- and horizon-aware)
+            reuse_on = gate_reuse_auto(cfg, v, graph.num_edges)
+        if reuse_on:
             width = _max_agg_width(layers, cfg, v)
             cap, reuse_on = resolve_reuse_budget(cfg, v, width)
             if reuse_on:
@@ -416,9 +488,12 @@ class Engine:
                                     passes=cfg.reuse_passes, max_pairs=cap,
                                     device=self.device)
                 st = spmm_op.plan_fwd.stats
-                log("pair reuse: %d fwd pairs, gathered rows %d -> %d (-%.1f%%)",
-                    spmm_op.plan_fwd.num_pairs, st["rows_before"], st["rows_after"],
-                    100 * st["row_reduction"])
+                if below_reuse_floor(cfg, st["row_reduction"]):
+                    spmm_op = None
+                else:
+                    log("pair reuse: %d fwd pairs, gathered rows %d -> %d (-%.1f%%)",
+                        spmm_op.plan_fwd.num_pairs, st["rows_before"], st["rows_after"],
+                        100 * st["row_reduction"])
         if kernel in ("hyb", "degree") and spmm_op is None:
             # GCN: static plans with the norms baked in; GAT: plans without
             # values (dst-functional attention needs no per-edge values).

@@ -181,8 +181,10 @@ class ReuseSpMM:
     and the output rows' factors. None for unit / dst-weighted
     aggregation (GAT apply_dst). min_uses, passes, max_pairs go to the
     miner (max_pairs per pass, 0 = unlimited). After construction,
-    `miner` names the miner that ran ("native" or "numpy") and
-    `mine_seconds` holds the (forward, backward) mining times.
+    `miner` names the miner that ran ("native" or "numpy"),
+    `mine_seconds` holds the (forward, backward) mining times and
+    `build_seconds` the whole build (both directions mined, both plans
+    built and uploaded).
 
     device: None means the card and raises without one; the CPU only when
     the caller passes device="cpu"."""
@@ -224,6 +226,7 @@ class ReuseSpMM:
                          for p in plan.levels)
 
         self.lvl_fwd, self.lvl_bwd = levels(fwd), levels(bwd)
+        self.build_seconds = time.perf_counter() - t0
         self.f_in = self.f_out = None
         if rank1_factor is not None:
             f_in, f_out = (rank1_factor if isinstance(rank1_factor, (tuple, list))

@@ -30,7 +30,10 @@ the graph axis, for GCN and GAT, on both halo wire formats:
                    boundary edges;
   reuse="pairs"    on hyb: the per-shard pair rewrite (ops/reuse_sharded.py)
                    on the combined table, which turns overlap off; on any
-                   other kernel it is logged and off, as in JAX.
+                   other kernel it is logged and off, as in JAX;
+  reuse="auto"     JAX's payoff gate on the whole graph's counts, then the
+                   pair rewrite, kept where the cut summed over the shards
+                   clears REUSE_AUTO_MIN_CUT (engine/engine.py).
 
 With an overlap plan the models get the ghost rows alone from the exchange
 and the local rows' work does not depend on it. (`HaloRecvFn` still waits
@@ -80,8 +83,9 @@ from dorylus_tpu_torch.common.config import LayerConfig, TrainConfig, resolve_ke
 from dorylus_tpu_torch.common.logging import log
 from dorylus_tpu_torch.common.metrics import RunReport
 from dorylus_tpu_torch.engine.checkpoint import save_checkpoint
-from dorylus_tpu_torch.engine.engine import (_DTYPES, _max_agg_width, check_staleness,
-                                             checkpoint_due, eager_group, resolve_device,
+from dorylus_tpu_torch.engine.engine import (_DTYPES, _max_agg_width, below_reuse_floor,
+                                             check_staleness, checkpoint_due, eager_group,
+                                             gate_reuse_auto, resolve_device,
                                              resolve_reuse_budget, resume, run_loop)
 from dorylus_tpu_torch.graph.graph import Graph
 from dorylus_tpu_torch.graph.partition import (Shard, ShardMeta, partition_graph,
@@ -207,12 +211,13 @@ class ShardedEngine:
             raise NotImplementedError(f"dorylus_tpu_torch ShardedEngine: {problem} "
                                       "(see ROADMAP.md)")
         check_staleness(cfg)
-        if cfg.reuse == "auto":
-            log("reuse auto -> off (the payoff gate's constants are TPU-fitted)")
-            cfg = dataclasses.replace(cfg, reuse="off")
-        reuse_on, reuse_cap = cfg.reuse == "pairs" and kernel == "hyb", 0
+        reuse_on, reuse_cap = cfg.reuse in ("pairs", "auto") and kernel == "hyb", 0
         if cfg.reuse == "pairs" and not reuse_on:
             log("pair reuse requires kernel=hyb (have %s) — off", kernel)
+        if reuse_on and cfg.reuse == "auto":
+            # the payoff gate before mining, on the whole graph's counts
+            # (mining is per shard but sums to the same edges)
+            reuse_on = gate_reuse_auto(cfg, meta.num_vertices, meta.num_edges)
         # The table the models aggregate over: local then ghost rows; one
         # graph shard has no halo, so the model hands the vp local rows.
         table_rows = meta.vp + n * meta.max_h if n > 1 else meta.vp
@@ -221,19 +226,9 @@ class ShardedEngine:
             # at the column slice a feat rank gathers.
             width = max(1, _max_agg_width(layers, cfg, table_rows) // m)
             reuse_cap, reuse_on = resolve_reuse_budget(cfg, table_rows, width)
-        if reuse_on and cfg.overlap and n > 1:
-            # A pair may combine an interior and a ghost row: reuse runs the
-            # combined-plan path.
-            cfg = dataclasses.replace(cfg, overlap=False)
-            log("pair reuse: interior/boundary overlap split disabled (rewrites "
-                "span the combined edge set)")
-        overlap = bool(cfg.overlap) and n > 1
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
-        self.layers, self.cfg, self.meta, self.shard = layers, cfg, meta, shard
-        self.kernel_selected = kernel
-        self.compute_dtype = _DTYPES[cfg.compute_dtype]
         self.halo_plan = None
         if n > 1:
             # JAX: exact where the platform can; torch.distributed takes
@@ -241,7 +236,6 @@ class ShardedEngine:
             wire = "ragged" if cfg.halo == "auto" else cfg.halo
             self.halo_plan = HaloPlan(shard, n, wire, self.device,
                                       group=self.mesh.graph_group)
-        self.halo = make_halo_fn(self.halo_plan, overlap, n > 1)
         spmm_op = spmm_split = edge_op = edge_split = None
         gather_dtype = torch.bfloat16 if cfg.agg_dtype == "bfloat16" else None
         kw = dict(gather_dtype=gather_dtype, device=self.device)
@@ -252,9 +246,29 @@ class ShardedEngine:
             spmm_op = ShardedReuseSpMM(shard, n, rank1_factor=f_in, passes=cfg.reuse_passes,
                                        max_pairs=reuse_cap, **kw)
             st = spmm_op.plan_fwd.stats
-            log("sharded pair reuse, rank %d: %d fwd pairs, gathered rows %d -> %d "
-                "(-%.1f%%)", me, spmm_op.num_pairs, st["rows_before"], st["rows_after"],
-                100 * st["row_reduction"])
+            # the floor reads the cut over every shard, as JAX sums it
+            rows = torch.tensor([st["rows_before"], st["rows_after"]], dtype=torch.int64,
+                                device=self.device)
+            rows_b, rows_a = multihost.all_reduce_sum(rows, self.mesh.graph_group).tolist()
+            if below_reuse_floor(cfg, 1 - rows_a / max(1, rows_b), "sharded row cut"):
+                spmm_op, reuse_on = None, False
+            else:
+                log("sharded pair reuse, rank %d: %d fwd pairs, gathered rows %d -> %d "
+                    "(-%.1f%%)", me, spmm_op.num_pairs, st["rows_before"],
+                    st["rows_after"], 100 * st["row_reduction"])
+        if reuse_on and cfg.overlap and n > 1:
+            # A pair may combine an interior and a ghost row: reuse runs the
+            # combined-plan path.
+            cfg = dataclasses.replace(cfg, overlap=False)
+            log("pair reuse: interior/boundary overlap split disabled (rewrites "
+                "span the combined edge set)")
+        overlap = bool(cfg.overlap) and n > 1
+        self.layers, self.cfg, self.meta, self.shard = layers, cfg, meta, shard
+        self.kernel_selected = kernel
+        self.compute_dtype = _DTYPES[cfg.compute_dtype]
+        self.halo = make_halo_fn(self.halo_plan, overlap, n > 1)
+        if reuse_on:
+            pass  # the rewrite, kept above
         elif kernel == "hyb":
             op = ShardedHybSpMM(shard, n, edges="fused" if overlap else "combined",
                                 static_vals=not gat, **kw)

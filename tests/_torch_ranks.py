@@ -21,8 +21,15 @@ def engine_rank(rank, world, device, graph, dims, cfg_kw, epochs, opts):
     """Train `epochs` on this rank's shard; returns what the tests compare.
     opts: "grads" (the loss's gradients at the initial params, summed over
     the world as the train step sums them, taken before training),
-    "profile" (ShardedEngine.profile after training), "predict"."""
+    "profile" (ShardedEngine.profile after training), "predict",
+    "constants" (engine/engine.py module constants set before the engine
+    is built, e.g. reuse="auto"'s gate), "run" (epochs to run when they
+    differ from cfg.epochs, the horizon the gate reads)."""
+    from dorylus_tpu_torch.engine import engine as engine_module
+
     torch.set_num_threads(1)
+    for name, value in opts.get("constants", {}).items():
+        setattr(engine_module, name, value)
     cfg = TrainConfig(epochs=epochs, **cfg_kw)
     eng = ShardedEngine(graph, LayerConfig(list(dims)), cfg, device=device,
                         partition_method=opts.get("partition", "range"))
@@ -33,7 +40,7 @@ def engine_rank(rank, world, device, graph, dims, cfg_kw, epochs, opts):
         gs = torch.autograd.grad(loss, [eng.params[k] for k in names])
         grads = {k: multihost.all_reduce_sum(g.detach().clone()).cpu().numpy()
                  for k, g in zip(names, gs)}
-    rep = eng.run()
+    rep = eng.run(opts.get("run"))
     out = {"losses": [e.loss for e in rep.epochs],
            "accuracies": [e.accuracy for e in rep.epochs],
            "times": [e.time_ms for e in rep.epochs],

@@ -11,10 +11,13 @@ package's (dorylus_tpu/cli.py), in-process with `--device cpu`:
     checkpoint of either package;
   * the port reaches tests/test_real_dataset.py's accuracy band on the
     digits graph through the command line;
-  * refusals: `bench`, `--profile` and `--feat-shards 2` exit non-zero
-    naming their ROADMAP.md item; without `--device` and without a card
-    the command exits non-zero with one line; the TPU-only flags are
-    accepted, logged and ignored;
+  * `--profile` runs and a `--feat-shards` that does not divide a width
+    exits non-zero with one line; without `--device` and without a card
+    `train`, `infer` and `bench` exit non-zero with one line; the TPU-only
+    flags are accepted, logged and ignored;
+  * `bench --device cpu` prints one JSON line in bench.py's shape (the
+    port's benchmark at a small scale here; tests/test_torch_port_bench.py
+    runs it at bench.py's CPU scale);
   * `--epochs-per-call 3` runs JAX's epoch groups: the per-epoch records
     (losses, evaluated epochs' accuracies) and the checkpoint steps of
     JAX's run.
@@ -176,16 +179,15 @@ def test_digits_accuracy_band(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["bench"], "item 5"),
     (["train", "--profile"], None),
     (["train", "--feat-shards", "3"], "divisible"),
-], ids=["bench", "profile", "feat-shards"])
+], ids=["profile", "feat-shards"])
 def test_unported_exits_naming_its_item(capsys, tmp_path, argv, item):
-    """`bench` exits 2 naming its ROADMAP item. `--profile` and
-    `--feat-shards`, refused until they were ported, now run: the profile's
-    brackets (JAX's, for the same config) land in the report, and a
-    --feat-shards that does not divide a width (the default 32-64-8 by 3)
-    exits 2 with one error line before any rank starts."""
+    """`--profile` and `--feat-shards`, refused until they were ported, now
+    run: the profile's brackets (JAX's, for the same config) land in the
+    report, and a --feat-shards that does not divide a width (the default
+    32-64-8 by 3) exits 2 with one error line before any rank starts.
+    (`bench`, refused until it was ported, runs: test_bench_prints_one_json_line.)"""
     if argv[0] == "train":
         argv = argv + [*SYNTH, "--epochs", "2", "--device", "cpu", "--output",
                        str(tmp_path / "rep.json")]
@@ -203,22 +205,40 @@ def test_unported_exits_naming_its_item(capsys, tmp_path, argv, item):
     refusals = [line for line in err if line.startswith("dorylus_tpu_torch:")]
     assert len(refusals) == 1 and refusals == err[-1:] and item in err[-1]
     assert len(err) == 1 or argv[0] == "train"  # train logs the dataset it loaded first
-    assert item != "item 5" or "ROADMAP" in err[0]
 
 
-@pytest.mark.parametrize("cmd", ["train", "infer"])
+@pytest.mark.parametrize("cmd", ["train", "infer", "bench"])
 def test_no_card_exits_nonzero(capsys, tmp_path, cmd):
     """Without --device the commands mean the card; without one they exit
-    2 with one line before reading any data."""
+    2 with one line before reading any data (bench: before building its
+    graph; it has no CPU fallback)."""
     if torch.cuda.is_available():
         pytest.skip("a card is visible: the command runs on it")
-    argv = (["train", *SYNTH] if cmd == "train"
-            else ["infer", "--data-dir", str(tmp_path), "--config", "cora",
-                  "--checkpoint-dir", str(tmp_path), "--out", str(tmp_path / "p.txt")])
+    argv = {"train": ["train", *SYNTH], "bench": ["bench"],
+            "infer": ["infer", "--data-dir", str(tmp_path), "--config", "cora",
+                      "--checkpoint-dir", str(tmp_path), "--out", str(tmp_path / "p.txt")]}[cmd]
     assert tmain(argv) == 2
     err = capsys.readouterr().err.strip().splitlines()
     assert len(err) == 1 and "--device cpu" in err[0]
     assert tmain(argv + ["--platform", "tpu"]) == 2
+
+
+def test_bench_prints_one_json_line(capsys, monkeypatch):
+    """`bench --device cpu` prints one JSON line in bench.py's shape and
+    nothing else on stdout (the engines log to stderr); a small graph here
+    (V 2,000, degree 8, 1 iteration)."""
+    from dorylus_tpu_torch import bench
+
+    monkeypatch.setitem(bench.SCALES, "cpu", dict(v=2000, deg=8, iters=1))
+    assert tmain(["bench", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1
+    res = json.loads(out[0])
+    assert set(res) == {"metric", "value", "unit", "vs_baseline", "extras"}
+    assert res["metric"] == "spmm_aggregation_edges_per_s_per_chip" and res["value"] > 0
+    ex = res["extras"]
+    assert (ex["platform"], ex["num_vertices"], ex["num_edges"]) == ("cpu", 2000, 16000)
+    assert ex["gcn_reddit_config_epoch_bf16_ms"] > 0 and res["vs_baseline"] > 0
 
 
 def test_tpu_only_flags_are_ignored(capsys):
