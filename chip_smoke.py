@@ -214,6 +214,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
      on that graph from `reuse_payoff` (phase 5 runs reuse="auto" on its
      4,000-vertex community graph: the branch the gate predicts, and the
      losses of the explicit setting bit for bit);
+ 12c. (right after phase 12, before any torch.profiler session) the card's
+     switch points (tools/switch_points.py): kernel="auto"'s choice (the
+     engines' kernel_selected) on phase 3's Reddit graph and on phase 4g's
+     450k-vertex graph (made here, trained in 4g), the plan overlap="auto"
+     picks per kernel on phase 6's 4-way partition (made here, used from
+     3g on), and one hyb/xla f32 GCN pair of warm epochs (groups of 10
+     replayed) with the tool's `engine_times` on phase 12's plans;
  10. (after 3, 3b, 3d) the Amazon config at its JAX run script's SCALE 0.12
      (benchmarks/run-amazon-gcn: synthetic_graph(1_131_610, 12, 300, 25,
      seed=8888), 27.2M edges, 300-64-25, degree-ascending, hyb, bf16 gather)
@@ -432,21 +439,6 @@ def library_ms(fn, label: str):
 
 def randn(gen: torch.Generator, *shape, dtype=torch.float32) -> torch.Tensor:
     return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
-
-
-def powerlaw_edges(v: int, seed: int, empty: float = 0.0):
-    """dst-sorted edges with Zipf in-degrees (capped at 2,000; many above
-    max_width=8) and uniform sources; vertex ids are not degree-sorted (inv
-    layout). `empty`: the share of vertices given no in-edge."""
-    rng = np.random.default_rng(seed)
-    deg = np.minimum(rng.zipf(1.6, v), 2000)
-    if empty:
-        deg[rng.random(v) < empty] = 0
-    dst = np.repeat(rng.permutation(v).astype(np.int32), deg)
-    dst = np.sort(dst)
-    src = rng.integers(0, v, size=len(dst)).astype(np.int32)
-    val = rng.uniform(0.05, 1.0, size=len(dst)).astype(np.float32)
-    return src, dst, val
 
 
 def close(res: dict, kernel: str, key: str, got: torch.Tensor, ref: torch.Tensor,
@@ -1901,7 +1893,7 @@ def sharded_phases(sg, sg2, sgc, layers, hyb_f32_losses, kernel_sources) -> dict
             runs += [run(f"{model} f32 xla split", "reddit", timed=True, kernel="xla",
                          overlap=True, epochs=2, **kw),
                      run(f"{model} f32 xla combined", "reddit", timed=True, kernel="xla",
-                         epochs=2, **kw)]
+                         overlap=False, epochs=2, **kw)]
         runs += [run("gat f32 fused", "reddit", epochs=2, **gat),
                  run("gat f32 degree pair", "reddit", kernel="degree", epochs=2, **gat)]
         # 9. tensor parallelism: 2 graph shards x 2 feat shards, rank r on
@@ -2114,6 +2106,65 @@ def bench_phase(g, ops: dict) -> tuple[dict, dict, dict]:
     for k in ("K1", "K2", "K3", "K7", "degree", "P3"):
         check(counts.get(k, 0) > 0, f"phase 12: the bench launched no {k}")
     return cells, epochs, counts
+
+
+def switch_phase(g, gb, sg, layers, ops: dict) -> dict:
+    """Phase 12c (right after phase 12, before any torch.profiler session):
+    the switch points the card's numbers set (tools/switch_points.py).
+    Prints kernel="auto"'s choice on the Reddit graph g and the 450k-vertex
+    graph gb (each an engine's kernel_selected) and the plan overlap="auto"
+    picks per kernel on the 4-way partition sg (phase 6's ranks); then times
+    one hyb/xla f32 GCN pair with the tool's `engine_times` (one
+    construction each; warm epochs of groups of 10 replayed), the engines
+    handed phase 12's f32 static plan and CSR op where they ask for them."""
+    from dorylus_tpu_torch.common.config import AUTO_KERNEL_EDGES, TrainConfig, resolve_kernel
+    from dorylus_tpu_torch.engine import engine as engine_mod
+    from dorylus_tpu_torch.engine.engine import Engine
+    from dorylus_tpu_torch.parallel.train_step import AUTO_OVERLAP
+    from dorylus_tpu_torch.tools import switch_points
+
+    t0 = time.perf_counter()
+    cuda = torch.device("cuda")
+    make_hyb, make_edge = engine_mod.HybSpMM, engine_mod.EdgeSpMM
+
+    def hyb_once(src, dst, num_in, num_out, **kw):
+        if (src is g.src and kw.get("static_val") is g.edge_norm
+                and kw.get("gather_dtype") is None):
+            return ops["f32"]
+        return make_hyb(src, dst, num_in, num_out, **kw)
+
+    def edge_once(src, dst, num_in, num_out, **kw):
+        return ops["edge"] if src is g.src else make_edge(src, dst, num_in, num_out, **kw)
+
+    out = {"threshold": AUTO_KERNEL_EDGES, "auto": {}}
+    engine_mod.HybSpMM, engine_mod.EdgeSpMM = hyb_once, edge_once
+    try:
+        for name, graph in (("reddit", g), ("450k", gb)):
+            eng = Engine(graph, layers, TrainConfig(kernel="auto", epochs=1), device=cuda)
+            want = resolve_kernel("auto", graph.num_edges)
+            check(eng.kernel_selected.split("+")[0] == want,
+                  f"phase 12c {name}: auto ran {eng.kernel_selected}, the rule says {want}")
+            out["auto"][name] = {"edges": graph.num_edges, "kernel": eng.kernel_selected}
+            del eng
+            torch.cuda.empty_cache()
+        kernel = resolve_kernel("auto", sg.ep)
+        out["overlap_4_ranks"] = {
+            "auto_kernel": kernel, "edges_per_shard": sg.ep,
+            "plans": {k: switch_points.OVERLAP_PLANS[k] if on else "combined"
+                      for k, on in AUTO_OVERLAP.items()}}
+        out["gcn_f32"] = {k: switch_points.engine_times(
+            g, TrainConfig(kernel=k, epochs=1, eval_every=0), cuda, reps=1)
+            for k in ("hyb", "xla")}
+    finally:
+        engine_mod.HybSpMM, engine_mod.EdgeSpMM = make_hyb, make_edge
+    torch.cuda.empty_cache()
+    for k, rec in out["gcn_f32"].items():
+        check(rec["kernel_selected"] == k and 0 < rec["warm_ms"]["median"] < float("inf"),
+              f"phase 12c {k}: {json.dumps(rec)}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 12c switch points (threshold {AUTO_KERNEL_EDGES} edges): "
+          + json.dumps(out), flush=True)
+    return out
 
 
 def bench_reuse_phase(proc, path: str, g, cg, cells: dict, epochs: dict, card: str) -> dict:
@@ -2510,6 +2561,7 @@ def main() -> None:
         from dorylus_tpu_torch.ops.spmm import EdgeSpMM
         from dorylus_tpu_torch.parallel import halo
         from dorylus_tpu_torch.tools import probe_prims
+        from dorylus_tpu_torch.tools.switch_points import powerlaw_edges
     except ImportError as e:
         fail(f"run from the root of a checkout that holds dorylus_tpu_torch ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2598,12 +2650,20 @@ def main() -> None:
           f"edge CSR op): {time.perf_counter() - t0:.1f} s", flush=True)
     bench_cells, bench_epochs, bench_counts = bench_phase(g, ops)
 
-    # 3g. K8, K9, K10 vs plain on rank 0's shard of the 4-way partition
-    stamp("phase 3g, 3h")
+    # 12c. the card's switch points, also before any torch.profiler session
+    stamp("phase 12c")
     t0 = time.perf_counter()
     sg = partition_graph(g, RANKS)
     print(f"{RANKS}-way range partition: vp {sg.vp}, max_h {sg.max_h}, edges per shard "
           f"{[s.num_edges for s in sg.shards]} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    gb = build_graph(450_000, 16, REDDIT["feat"], REDDIT["classes"], seed=2)
+    print(f"450k-vertex graph: V={gb.num_vertices} E={gb.num_edges} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    switch_res = switch_phase(g, gb, sg, layers, ops)
+
+    # 3g. K8, K9, K10 vs plain on rank 0's shard of the 4-way partition
+    stamp("phase 3g, 3h")
     shard0 = sg.shards[0]
     ne0 = shard0.num_edges
     csr0 = csr_pattern(shard0.src[:ne0], shard0.dst[:ne0], sg.vp)
@@ -3028,10 +3088,6 @@ def main() -> None:
     stamp("phase 4g")
     # 4g. the edgewise path past 400k vertices: kernel="auto" resolves to
     # xla under 8M edges, and the engine takes JAX's dst-blocked branch
-    t0 = time.perf_counter()
-    gb = build_graph(450_000, 16, REDDIT["feat"], REDDIT["classes"], seed=2)
-    print(f"450k-vertex graph: V={gb.num_vertices} E={gb.num_edges} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
     check(gb.num_vertices > 400_000 and gb.num_edges < 8_000_000,
           f"the dst-blocked graph has V={gb.num_vertices}, E={gb.num_edges}")
     eng, rep, counts = train(gb, layers, TrainConfig(epochs=2, eval_every=1, kernel="auto",
@@ -3428,6 +3484,7 @@ def main() -> None:
                                    "sharded_reuse_shard0": sharded_reuse_info,
                                    "degree_pair_vs_combined_shard0": pair_vs_combined,
                                    "bench": bench_rec, "bench_launches": bench_counts,
+                                   "switch_points": switch_res,
                                    "cli_seconds": cli_times,
                                    "amazon_0.12": {k: amazon[k] for k in ("graph_s", "plan_s",
                                                                            "steps")},

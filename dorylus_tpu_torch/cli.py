@@ -121,7 +121,7 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                    choices=["auto", "on", "off"],
                    help="halo/compute overlap plan: auto = the fused plan "
                         "on hyb, the (interior, boundary) pair on degree, "
-                        "off on xla")
+                        "the edgewise split on xla")
     p.add_argument("--no-overlap", action="store_true",
                    help=argparse.SUPPRESS)  # legacy alias for --overlap off
     p.add_argument("--compile-cache", default=None, metavar="DIR|off",

@@ -107,10 +107,11 @@ class TrainConfig:
     # Feature/tensor parallelism (still to port). 1 = off.
     feat_shards: int = 1
     # Halo/compute overlap ("auto" | True | False): "auto" resolves per
-    # kernel in ShardedEngine: hyb gets the FUSED overlap plan
+    # kernel in ShardedEngine from the card's table
+    # (parallel/train_step.py AUTO_OVERLAP): hyb the FUSED overlap plan
     # (ops/hyb_sharded.py edges="fused": pure buckets gather local rows,
-    # mixed buckets the local and the ghost rows); the edgewise path
-    # runs the combined plan. Booleans force on/off.
+    # mixed buckets the local and the ghost rows), degree the (interior,
+    # boundary) pair, xla the edgewise split. Booleans force on/off.
     overlap: object = "auto"
     # Halo wire format ("auto" | "padded" | "ragged"): padded ships max_h
     # rows per (shard, peer) pair; ragged ships each pair's EXACT count
@@ -172,14 +173,25 @@ class TrainConfig:
 AUTO_KERNEL_EDGES = 1 << 23  # 8M
 
 
-def resolve_kernel(kernel: str, num_edges: int) -> str:
-    """Resolve kernel="auto": a slot-grid kernel ("hyb") past 8M edges,
-    the edgewise path ("xla") below: the JAX package's rule, kept so both
-    packages run the same path on the same graph (the switch point is
-    still to be re-measured on the H100)."""
+def resolve_kernel(kernel: str, num_edges: int, threshold: int = AUTO_KERNEL_EDGES) -> str:
+    """Resolve kernel="auto": a slot-grid kernel ("hyb") past `threshold`
+    edges, the edgewise path ("xla") at and below it (per shard in
+    ShardedEngine).
+
+    The threshold is JAX's 8M, kept by the card's readings
+    (tools/switch_points.py, two runs pooled, NVIDIA H100 80GB HBM3, 700.00
+    W; the defaults: f32 gather, Reddit's widths 602-128-41). hyb's warm
+    epoch beats xla's by more than the spread for both models from 7.9M
+    edges up (Reddit, 11.6M: GCN 7.220 against 8.008 ms, GAT 7.564 against
+    9.117; 27M: 28.24 / 29.23, 29.93 / 32.59), so nothing moves the switch
+    up. Below 8M hyb never wins both the epoch and the run: at 4M and under
+    GAT's epochs tie (5.190 / 5.217 ms at 4M), and at 7.9M, where hyb wins
+    (GCN 6.129 / 6.552 ms), its plans cost 1.46 s more set-up (3.41 against
+    1.95 s), so a default run of 100 epochs ends later on hyb (4.04 against
+    2.63 s). So nothing moves it down."""
     if kernel != "auto":
         return kernel
-    if num_edges <= AUTO_KERNEL_EDGES:
+    if num_edges <= threshold:
         return "xla"
     return "hyb"
 

@@ -19,15 +19,16 @@ ranks. The loss denominator is |V_global| * 0.66 on every rank.
 Scope: every kernel / overlap / reuse combination of the JAX engine on
 the graph axis, for GCN and GAT, on both halo wire formats:
 
-  kernel="hyb"     overlap on (the default): the fused-overlap plan; off:
-                   the combined plan (ops/hyb_sharded.py);
-  kernel="degree"  overlap on (the default): the (interior, boundary) plan
-                   pair; off: the combined plan (ops/degree_sharded.py);
-  kernel="xla"     (and "auto" up to 8M edges per shard) overlap off (the
-                   default): EdgeSpMM over the shard's real edges, gathering
-                   from `halo_exchange`'s table; overlap=True/"on": the
+  kernel="hyb"     overlap on: the fused-overlap plan; off: the combined
+                   plan (ops/hyb_sharded.py);
+  kernel="degree"  overlap on: the (interior, boundary) plan pair; off: the
+                   combined plan (ops/degree_sharded.py);
+  kernel="xla"     (and "auto" up to 8M edges per shard) overlap on: the
                    edgewise split, two EdgeSpMM over the interior and the
-                   boundary edges;
+                   boundary edges; off: EdgeSpMM over the shard's real
+                   edges, gathering from `halo_exchange`'s table;
+  overlap="auto"   (the default) per kernel from AUTO_OVERLAP: on for all
+                   three on the card (JAX off a TPU: off for xla);
   reuse="pairs"    on hyb: the per-shard pair rewrite (ops/reuse_sharded.py)
                    on the combined table, which turns overlap off; on any
                    other kernel it is logged and off, as in JAX;
@@ -102,6 +103,26 @@ from dorylus_tpu_torch.optim.adam import adam_init, adam_update, sgd_update
 from dorylus_tpu_torch.parallel import multihost
 from dorylus_tpu_torch.parallel.halo import HaloPlan, make_halo_fn
 from dorylus_tpu_torch.parallel.mesh import make_mesh
+
+# overlap="auto" per kernel: True takes the kernel's overlap plan (hyb the
+# fused plan, degree the (interior, boundary) pair, xla the edgewise split),
+# False the combined plan. `HaloRecvFn` overlaps nothing yet, so both plans
+# ship the same bytes and the one with less device work wins on any wire.
+# tools/switch_points.py measures that work: kernel ms per rank and step,
+# the max over ranks, f32, the Reddit-shaped graph's 4- and 2-way range
+# partitions on gloo ranks of one NVIDIA H100 80GB HBM3 (700.00 W), two
+# runs pooled; a plan is taken where it wins by more than the spread for
+# both models at both partitions, else JAX's off-TPU choice stays.
+#   xla: the split wins everywhere (GCN 2.469 / 2.650 ms at 4 ranks, 4.241 /
+#        4.613 at 2; GAT 2.928 / 3.064, 4.862 / 5.165): True (JAX: False).
+#   hyb: fused below combined everywhere (GCN 2.421 / 2.540 at 4 ranks, GAT
+#        2.558 / 2.683), but GCN's 4-rank gap is inside the combined plan's
+#        spread (0.129 ms): JAX's True stays.
+#   degree: GCN's pair wins (2.507 / 2.614), GAT's loses (2.780 / 2.748):
+#        JAX's True stays.
+# Revisit when the exchange runs beside the interior's work (ROADMAP queue 2
+# point 4).
+AUTO_OVERLAP = {"hyb": True, "degree": True, "xla": True}
 
 
 def _unsupported(cfg: TrainConfig) -> Optional[str]:
@@ -200,16 +221,14 @@ class ShardedEngine:
                 cfg = dataclasses.replace(cfg, overlap=False)
             if self.rank == 0:
                 log("tensor parallelism: %d feat shards x %d graph shards", m, n)
-        if isinstance(cfg.overlap, str):
-            # overlap="auto" as JAX resolves it off a TPU: hyb and degree
-            # take an overlap plan, the edgewise path the combined one.
-            cfg = dataclasses.replace(
-                cfg, overlap=(cfg.overlap == "on" if cfg.overlap != "auto"
-                              else kernel in ("hyb", "degree")))
         problem = _unsupported(cfg)
         if problem is not None:
             raise NotImplementedError(f"dorylus_tpu_torch ShardedEngine: {problem} "
                                       "(see ROADMAP.md)")
+        if isinstance(cfg.overlap, str):
+            cfg = dataclasses.replace(
+                cfg, overlap=(cfg.overlap == "on" if cfg.overlap != "auto"
+                              else AUTO_OVERLAP[kernel]))
         check_staleness(cfg)
         reuse_on, reuse_cap = cfg.reuse in ("pairs", "auto") and kernel == "hyb", 0
         if cfg.reuse == "pairs" and not reuse_on:

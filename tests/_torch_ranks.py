@@ -24,12 +24,20 @@ def engine_rank(rank, world, device, graph, dims, cfg_kw, epochs, opts):
     "profile" (ShardedEngine.profile after training), "predict",
     "constants" (engine/engine.py module constants set before the engine
     is built, e.g. reuse="auto"'s gate), "run" (epochs to run when they
-    differ from cfg.epochs, the horizon the gate reads)."""
+    differ from cfg.epochs, the horizon the gate reads), "threshold"
+    (kernel="auto"'s edge threshold the sharded engine resolves with)."""
+    import functools
+
+    from dorylus_tpu_torch.common import config
     from dorylus_tpu_torch.engine import engine as engine_module
+    from dorylus_tpu_torch.parallel import train_step
 
     torch.set_num_threads(1)
     for name, value in opts.get("constants", {}).items():
         setattr(engine_module, name, value)
+    if "threshold" in opts:
+        train_step.resolve_kernel = functools.partial(config.resolve_kernel,
+                                                      threshold=opts["threshold"])
     cfg = TrainConfig(epochs=epochs, **cfg_kw)
     eng = ShardedEngine(graph, LayerConfig(list(dims)), cfg, device=device,
                         partition_method=opts.get("partition", "range"))
@@ -46,6 +54,7 @@ def engine_rank(rank, world, device, graph, dims, cfg_kw, epochs, opts):
            "times": [e.time_ms for e in rep.epochs],
            "val_acc": rep.final_accuracy, "test_acc": rep.test_accuracy,
            "kernel": eng.kernel_selected, "overlap": bool(eng.cfg.overlap),
+           "edges_per_shard": eng.meta.ep,
            "wire": None if eng.halo_plan is None else eng.halo_plan.wire,
            "params": {k: p.detach().cpu().numpy() for k, p in eng.params.items()},
            "foreign_modules": sorted(m for m in sys.modules

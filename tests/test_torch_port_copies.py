@@ -124,7 +124,10 @@ def test_config_constants_presets_and_json():
 @pytest.mark.parametrize("kernel", ["auto", "hyb", "xla", "degree"])
 @pytest.mark.parametrize("edges", [0, 1000, 7_999_999, 8_000_000, 8_000_001, 1 << 30])
 def test_resolve_kernel(kernel, edges):
-    assert tconfig.resolve_kernel(kernel, edges) == jconfig.resolve_kernel(kernel, edges)
+    """JAX's rule at JAX's threshold (the port's own threshold is the card's,
+    tests/test_torch_port_switch_points.py)."""
+    assert tconfig.resolve_kernel(kernel, edges, threshold=jconfig.AUTO_KERNEL_EDGES) == \
+        jconfig.resolve_kernel(kernel, edges)
 
 
 def test_run_report():

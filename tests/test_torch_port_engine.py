@@ -288,18 +288,24 @@ assert main(["partition", "--graph", str(d / "ds" / "graph.bsnap"), "--n", "2"])
 # the reference-scale tools and the entry points: each imported above; a
 # reference config's command line at a tiny scale, and the entry's forward
 from dorylus_tpu_torch import graft_entry
-from dorylus_tpu_torch.tools import reference_configs, scale_pipeline, validate_32way
+from dorylus_tpu_torch.tools import (reference_configs, scale_pipeline, switch_points,
+                                     validate_32way)
 assert {"dorylus_tpu_torch.bench", "dorylus_tpu_torch.graft_entry",
         "dorylus_tpu_torch.tools.reference_configs",
         "dorylus_tpu_torch.tools.scale_pipeline",
+        "dorylus_tpu_torch.tools.switch_points",
         "dorylus_tpu_torch.tools.validate_32way"} <= set(names)
+# the switch-point sweep's engine timing, on a small graph
+from dorylus_tpu_torch import bench
+t = switch_points.engine_times(bench.bench_graph(300, 4), TrainConfig(kernel="hyb", epochs=1),
+                               torch.device("cpu"), reps=1)
+assert t["kernel_selected"] == "hyb" and t["warm_ms"]["median"] > 0
 rec = reference_configs.run("amazon-gat", scale=400 / 9430088, epochs=2, device="cpu")
 assert rec["vertices"] in (399, 400) and len(rec["losses"]) == 2
 assert all(l == l for l in rec["losses"])
 fn, (params, batch) = graft_entry.entry(device="cpu")
 assert fn(params, batch).shape == (4096, 41)
 # the benchmark's every CPU cell on a small graph
-from dorylus_tpu_torch import bench
 bench.SCALES["cpu"] = dict(v=1000, deg=4, iters=1)
 assert bench.main("cpu")["extras"]["num_edges"] == 4000
 import shutil

@@ -174,8 +174,10 @@ def test_sharded_profile_returns_jaxs_keys(sharded_runs, graph, kernel, plan):
 @pytest.fixture(scope="module")
 def sharded_runs(graph):
     kernels = ["hyb", "degree", "xla"]
-    runs = [(dict(model="gcn", kernel=k, reuse="off", eval_every=0), 1, {"profile": True})
-            for k in kernels]
+    # the plan JAX's overlap="auto" resolves to off a TPU, given explicitly
+    # (the port's auto is the card's table, parallel/train_step.py AUTO_OVERLAP)
+    runs = [(dict(model="gcn", kernel=k, overlap=k != "xla", reuse="off", eval_every=0), 1,
+             {"profile": True}) for k in kernels]
     res = spawn_local(2, ranks.engines_rank, (graph, DIMS, runs), backend="gloo",
                       device="cpu", timeout_s=180)
     return {k: [res[r][i] for r in range(2)] for i, k in enumerate(kernels)}

@@ -193,26 +193,27 @@ def graph():
 @pytest.mark.parametrize("model,lr", [("gcn", 0.01), ("gat", 0.005)])
 @pytest.mark.parametrize("n", [2, 4])
 def test_edgewise_split_engine_matches_jax_and_single_device(graph, n, model, lr):
-    """kernel="xla": overlap=True and "on" run the edgewise split, auto
-    stays on the combined edgewise path (as JAX off a TPU)."""
+    """kernel="xla": overlap=True and "on" run the edgewise split, False
+    (what JAX's auto resolves to off a TPU) the combined edgewise path. (The
+    port's auto reads the card's table: tests/test_torch_port_switch_points.py.)"""
     base = dict(model=model, kernel="xla", learning_rate=lr, eval_every=1, reuse="off")
     runs = [(dict(base, overlap=True), 5, {"predict": True}),
             (dict(base, overlap="on"), 2, {}),
-            (dict(base), 5, {})]
+            (dict(base, overlap=False), 5, {})]
     res = spawn_local(n, ranks.engines_rank, (graph, DIMS, runs), backend="gloo",
                       device="cpu", timeout_s=240)
     for r in range(1, n):
         for a, b in zip(res[0], res[r]):
             assert a["losses"] == b["losses"]
-    split, on, auto = res[0]
+    split, on, combined = res[0]
     assert (split["kernel"], split["overlap"], split["plan"]) == ("xla", True, "edge_split")
     assert on["plan"] == "edge_split" and on["losses"] == split["losses"][:2]
-    assert (auto["overlap"], auto["plan"]) == (False, "edge_op")
+    assert (combined["overlap"], combined["plan"]) == (False, "edge_op")
     kw = dict(model=model, kernel="xla", learning_rate=lr, eval_every=1)
     jl, jeng = jax_sharded(graph, n, overlap=True, **kw)
     assert jeng.cfg.overlap and jeng.model.spmm_split is None and jeng.model.spmm_op is None
     loss_close(split["losses"], jl, model, False)
-    loss_close(split["losses"], auto["losses"], model, False)
+    loss_close(split["losses"], combined["losses"], model, False)
     single_l, single = port_single(graph, **kw)
     loss_close(split["losses"], single_l, model, False)
     want = single.predict()
