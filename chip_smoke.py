@@ -234,6 +234,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
      width (64 and 32, 25 padded; 2 each a step), notes["hbm"]'s peak within
      the card's memory (and of 3 more epochs of the same engine, eager and
      through the epoch's CUDA graphs), the train step's ms;
+ 13. (after 7) tools/weak_scaling.py's device mode at the JAX package's
+     r5 config (benchmarks/results/weak_scaling_hyb_r5.json: kernel hyb,
+     GCN, 262,144 base vertices, degree 16, 64-32-8, clustered, cut 0.1,
+     10 epochs, 3 repeats, --overlap both --decompose, shards 1 2 4): one
+     NCCL rank a card through the tool's `sweep`, so on one card n = 1
+     runs over NCCL (a world of 1, the port's first NCCL group on the
+     card) and 2 and 4 print the skip line: backend nccl, the graph's
+     edges, a finite epoch and 3 runs, ShardedEngine.profile's keys; the
+     rank's losses against a one-device Engine on the same graph and
+     config (rtol 1e-4), K1 launched in the rank's window (the combined
+     plan: no K8-K10 at n = 1); its eager epoch beside the Engine's
+     replayed warm epoch (what capturing the sharded step would buy);
 K1, K2, K7 and K8 (and the degree passes on K1/K7) are one launch a pass
 over every part of their plan (the gather core, csrc/gather_pass.cuh); their
 timed rows carry the pass ms (CUDA events: the table's cast, the
@@ -2536,6 +2548,96 @@ def amazon_phase(graph: tuple) -> dict:
     return out
 
 
+def weak_scaling_phase() -> dict:
+    """13. tools/weak_scaling.py's device mode at the JAX package's r5
+    config (hyb GCN, 262,144 base vertices, degree 16, 64-32-8, clustered,
+    cut 0.1, 10 epochs, 3 repeats, --overlap both --decompose, shards 1 2
+    4): one NCCL rank a card, counts above the card count skipped. The
+    n = 1 record against a one-device Engine on the same graph and config
+    (loss rtol 1e-4), K1 launched in its rank's window; its eager epoch
+    beside the Engine's replayed one."""
+    from dorylus_tpu_torch.engine.engine import Engine
+    from dorylus_tpu_torch.tools import switch_points
+    from dorylus_tpu_torch.tools import weak_scaling as ws
+
+    t0 = time.perf_counter()
+    args = ws.build_parser().parse_args(
+        ["--kernel", "hyb", "--model", "gcn", "--base-vertices", "262144", "--degree", "16",
+         "--feature-dim", "64", "--classes", "8", "--graph", "clustered", "--cut", "0.1",
+         "--epochs", "10", "--repeats", "3", "--overlap", "both", "--decompose",
+         "--shards", "1", "2", "4"])
+    lines = []
+
+    def out(line: str) -> None:
+        lines.append(line)
+        print(line, flush=True)
+
+    # one graph a shard count for the tool's ranks and the Engine here (as
+    # phase 10 memoises the command line's loader)
+    graphs, make_graph = {}, ws.make_graph
+
+    def memo_graph(a, n: int):
+        if n not in graphs:
+            graphs[n] = make_graph(a, n)
+        return graphs[n]
+
+    ws.make_graph = memo_graph
+    try:
+        summary, by_n = ws.sweep(args, out=out, timeout_s=300)
+    finally:
+        ws.make_graph = make_graph
+    sweep_s = time.perf_counter() - t0
+    cards = torch.cuda.device_count()
+    ran = [n for n in args.shards if n <= cards]
+    for n in args.shards:
+        if n > cards:
+            check(f"# skipping {n} shards (only {cards} devices)" in lines,
+                  f"weak_scaling: no skip line for {n} shards on {cards} card(s)")
+    check((summary["mode"], summary["backend"]) == ("device", "nccl"),
+          f"weak_scaling: mode {summary['mode']}, backend {summary['backend']}")
+    recs = summary["weak_scaling"]
+    check([r["shards"] for r in recs] == ran, f"weak_scaling ran {[r['shards'] for r in recs]}")
+    layers, cfg = ws.make_config(args)
+    for rec in recs:
+        n = rec["shards"]
+        stages = {f"{k}_l{l}_ms" for l in range(layers.num_layers)
+                  for k in (("halo", "aggregate") if n > 1 else ("aggregate",))}
+        check(all(r["backend"] == "nccl" for r in by_n[n]),
+              f"weak_scaling {n}: backends {[r['backend'] for r in by_n[n]]}")
+        check(np.isfinite(rec["epoch_ms"]) and rec["epoch_ms"] > 0
+              and len(rec["edges_per_s_runs"]) == 3,
+              f"weak_scaling {n}: epoch_ms {rec['epoch_ms']}, runs {rec['edges_per_s_runs']}")
+        check(set(rec["stages_ms"]) == stages | {"forward_ms", "loss_and_grad_ms"},
+              f"weak_scaling {n}: stages {sorted(rec['stages_ms'])}")
+        check(n == 1 or {"serial", "overlap_speedup", "halo"} <= set(rec),
+              f"weak_scaling {n}: keys {sorted(rec)}")
+    g = graphs[1]
+    rec, ranks = recs[0], by_n[1]
+    check(rec["edges"] == g.num_edges, f"weak_scaling: {rec['edges']} edges, the graph "
+          f"{g.num_edges}")
+    # at n = 1 the engine runs the combined plan: K1, no K8-K10
+    launches = ranks[0]["launches"]
+    check(launches.get("hyb_static_pass", 0) > 0,
+          f"weak_scaling: the rank launched no K1 ({launches})")
+    eng = Engine(g, layers, cfg, device="cuda")
+    single = [e.loss for e in eng.run().epochs]
+    gap = rel_gap(ranks[0]["losses"], single)
+    check(all(np.isfinite(single)) and gap <= 1e-4,
+          f"weak_scaling: the NCCL rank's losses {ranks[0]['losses']} against one "
+          f"device's {single}: rtol {gap:.3e} > 1e-4")
+    replayed = switch_points.warm_ms(eng, cfg.learning_rate)
+    del eng
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"weak_scaling n=1 over NCCL: losses within rtol {gap:.3e} of Engine's; the rank's "
+          f"launches {json.dumps(launches)}; ShardedEngine eager epoch {rec['epoch_ms']} ms "
+          f"(runs {rec['edges_per_s_runs']} edges/s) beside Engine's replayed warm epoch "
+          f"{float(np.median(replayed)):.3f} ms ({json.dumps(replayed)}); phase 13 "
+          f"{seconds:.1f} s (the tool's sweep {sweep_s:.1f} s)", flush=True)
+    return {"summary": summary, "engine_replayed_ms": replayed, "launches": launches,
+            "loss_rtol": gap, "seconds": seconds, "sweep_s": sweep_s}
+
+
 def main() -> None:
     # 1. the card
     if not torch.cuda.is_available():
@@ -3292,6 +3394,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     cli_times = cli_phases(card)
 
+    # 13. the weak-scaling harness's device mode: the port's NCCL group
+    stamp("phase 13")
+    torch.cuda.empty_cache()
+    weak = weak_scaling_phase()
+
     def pick(rows, **kw):
         return next(r for r in rows if all(r.get(k) == x for k, x in kw.items()))
 
@@ -3486,6 +3593,7 @@ def main() -> None:
                                    "bench": bench_rec, "bench_launches": bench_counts,
                                    "switch_points": switch_res,
                                    "cli_seconds": cli_times,
+                                   "weak_scaling_r5": weak,
                                    "amazon_0.12": {k: amazon[k] for k in ("graph_s", "plan_s",
                                                                            "steps")},
                                    "stages_1_device": stages}),
