@@ -152,7 +152,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the degree pair, and the 4,000-vertex community graph with
      reuse="pairs": rtol 1e-5;
   6c. only where torch.cuda.device_count() >= 2: phase 6's GCN over NCCL,
-     one rank per card; else one line says the NCCL path was not run.
+     one rank per card, through the epochs' CUDA graphs (the halo
+     exchanges and the all-reduce captured) and then eagerly from the same
+     init, bit for bit with the same launches; else one line says the NCCL
+     path was not run.
   7. the command line, through `cli.main` on the card it picks by default,
      at the Reddit config (602-128-41) on synthetic_graph(232_965, 25, 602,
      41, seed=8888) (11.6M edges), degree-ascending, one graph for 7a-7d:
@@ -191,6 +194,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
      bit, notes["hbm"]'s peak of each; the warm epoch of a group of 10 with
      eval_every 0 and 1, replayed and eager in turns (CUDA events over the
      group, and the host's wall time with the group's read);
+ 11c. (right after phase 11, before any torch.profiler session) the same
+     on `ShardedEngine` with no process group (one shard, the combined
+     plan), GCN (K1) and GAT (K2): the eager loop then the graph path, bit
+     for bit with equal launch counts; losses within rtol 1e-4 of phase
+     11's Engine (printed: whether bit for bit); a replayed group of 10's
+     warm epoch beside phase 11's; a second run() of each sharded engine
+     and of phase 11's GCN Engine captures nothing (the graphs live as
+     long as the engine);
  11b. (after phase 5) one traced group of 10 of phase 11's GCN, replayed
      and eager: the device's idle share; then xla, degree in f32 (K7) and
      reuse="pairs" (K6, K2) on phase 5's 4,000-vertex community graph, GCN
@@ -244,8 +255,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
      edges, a finite epoch and 3 runs, ShardedEngine.profile's keys; the
      rank's losses against a one-device Engine on the same graph and
      config (rtol 1e-4), K1 launched in the rank's window (the combined
-     plan: no K8-K10 at n = 1); its eager epoch beside the Engine's
-     replayed warm epoch (what capturing the sharded step would buy);
+     plan: no K8-K10 at n = 1); the rank's epochs replayed as CUDA graphs
+     (`epoch_timing` "replayed"), equal bit for bit to the same config run
+     eagerly from the same init in the rank; `multihost.all_to_all_rows`
+     and an NCCL all-reduce captured in one CUDA graph on the world of 1,
+     3 replays with new inputs exact; the replayed epoch beside the
+     Engine's and the rank's eager one;
 K1, K2, K7 and K8 (and the degree passes on K1/K7) are one launch a pass
 over every part of their plan (the gather core, csrc/gather_pass.cuh); their
 timed rows carry the pass ms (CUDA events: the table's cast, the
@@ -1130,12 +1145,13 @@ def stage_phase(g, layers) -> dict:
     times (the forward; the backward bracket's forward and dh) and nothing
     else; then the profile, whose
     brackets must be JAX's, finite and > 0. Returns {model: {bracket: ms}}
-    and the brackets' widths."""
+    and the brackets' widths, and the two engines, which phase 11 trains
+    (the profile steps no param)."""
     from dorylus_tpu_torch.common.config import TrainConfig
     from dorylus_tpu_torch.engine import profiling
     from dorylus_tpu_torch.engine.engine import Engine
 
-    out = {}
+    out, engines = {}, {}
     for model, kernel, lr in (("gcn", "K1", 0.01), ("gat", "K2", 0.005)):
         cfg = TrainConfig(epochs=1, eval_every=0, model=model, kernel="hyb",
                           agg_dtype="bfloat16", learning_rate=lr, reuse="off")
@@ -1168,9 +1184,8 @@ def stage_phase(g, layers) -> dict:
               f"({time.perf_counter() - t0:.1f} s with the engine): " + json.dumps(times)
               + f", launches {json.dumps(counts)}", flush=True)
         out[model] = {"stages_ms": times, "widths": widths}
-        del eng
-        torch.cuda.empty_cache()
-    return out
+        engines[model] = eng
+    return out, engines
 
 
 def graph_pair(eng) -> list:
@@ -1199,22 +1214,23 @@ def graph_pair(eng) -> list:
     return out
 
 
-def graph_equal(label: str, pair: list) -> None:
+def graph_equal(label: str, pair: list, phase: str = "11") -> None:
     """The graph path equals the eager loop bit for bit: losses, evaluated
     accuracies, the final accuracies, params; the same launch counts."""
+    label = f"{phase} {label}"
     (re_, ce, pe), (rg, cg, pg) = pair
     same = ([e.loss for e in rg.epochs] == [e.loss for e in re_.epochs]
             and [e.accuracy for e in rg.epochs] == [e.accuracy for e in re_.epochs]
             and (rg.final_accuracy, rg.test_accuracy) == (re_.final_accuracy,
                                                           re_.test_accuracy))
-    check(same, f"phase 11 {label}: graph losses {[e.loss for e in rg.epochs]} / accuracies "
+    check(same, f"phase {label}: graph losses {[e.loss for e in rg.epochs]} / accuracies "
                 f"{[e.accuracy for e in rg.epochs]}, eager {[e.loss for e in re_.epochs]} / "
                 f"{[e.accuracy for e in re_.epochs]}")
     diff = {k: float((pg[k] - pe[k]).abs().max()) for k in pe if not torch.equal(pg[k], pe[k])}
-    check(not diff, f"phase 11 {label}: params differ from the eager loop's: {diff}")
+    check(not diff, f"phase {label}: params differ from the eager loop's: {diff}")
     check(cg == ce and sum(cg.values()) > 0,
-          f"phase 11 {label}: launches graph {json.dumps(cg)}, eager {json.dumps(ce)}")
-    print(f"phase 11 {label}: graph == eager bit for bit over {len(rg.epochs)} epochs "
+          f"phase {label}: launches graph {json.dumps(cg)}, eager {json.dumps(ce)}")
+    print(f"phase {label}: graph == eager bit for bit over {len(rg.epochs)} epochs "
           f"(losses {json.dumps([e.loss for e in rg.epochs])}), launches "
           f"{json.dumps({k: n for k, n in cg.items() if n})} on both", flush=True)
 
@@ -1290,23 +1306,20 @@ def traced_group(eng, lr: float, label: str, k: int = 10) -> dict:
     return out
 
 
-def graph_phase(g, layers) -> dict:
+def graph_phase(engines: dict) -> dict:
     """Phase 11 (right after phase 8, before any torch.profiler session):
     on phase 3's Reddit graph, GCN (K1) and GAT (K2) on hyb with bf16 gather
-    tables, 8 epochs in one group with eval every 3 epochs: the eager loop,
+    tables (phase 8's engines: two builds fewer, their epochs and eval
+    cadence set here), 8 epochs in one group with eval every 3 epochs: the eager loop,
     then the graph path from the same init, equal bit for bit (losses,
     accuracies, params, launch counts), notes["hbm"] of each; then warm
     epoch ms of groups of 10 with eval_every 0 and 1, replayed and eager.
     Returns the numbers and the GCN engine, kept for phase 11b's trace."""
-    from dorylus_tpu_torch.common.config import TrainConfig
-    from dorylus_tpu_torch.engine.engine import Engine
-
     out, kept = {}, None
     for model, lr in (("gcn", 0.01), ("gat", 0.005)):
         label = f"reddit-config {model} hyb bf16"
-        cfg = TrainConfig(epochs=8, eval_every=3, model=model, kernel="hyb",
-                          agg_dtype="bfloat16", learning_rate=lr, reuse="off")
-        eng = Engine(g, layers, cfg, device="cuda")
+        eng = engines.pop(model)
+        eng.cfg = dataclasses.replace(eng.cfg, epochs=8, eval_every=3)
         pair = graph_pair(eng)
         graph_equal(label, pair)
         hbm = {"eager": pair[0][0].notes["hbm"]["peak_bytes_in_use"],
@@ -1315,6 +1328,7 @@ def graph_phase(g, layers) -> dict:
         print(f"phase 11 {label}: notes hbm peak bytes {json.dumps(hbm)}, warm epoch ms "
               f"of a group of 10 {json.dumps(times)}", flush=True)
         out[model] = {"hbm_peak_bytes": hbm, "group_of_10": times,
+                      "losses": [e.loss for e in pair[1][0].epochs],
                       "run_epoch_ms": {"eager": [e.time_ms for e in pair[0][0].epochs],
                                        "graph": [e.time_ms for e in pair[1][0].epochs]}}
         if model == "gcn":
@@ -1323,6 +1337,77 @@ def graph_phase(g, layers) -> dict:
             del eng
             torch.cuda.empty_cache()
     return out, kept
+
+
+def second_run_captures_nothing(eng, label: str, kernel: str) -> float:
+    """A second run() of an engine that has captured: it replays from its
+    first epoch and captures nothing (its kept graphs), launching `kernel`
+    with the counts at 0 just before; returns its mean epoch ms."""
+    graphs, caps = eng._graphs, eng._graphs.captures
+    n0 = len(eng.report.epochs)
+    reset_counts()
+    rep = eng.run()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(eng._graphs is graphs and graphs.captures == caps and counts[kernel] > 0,
+          f"phase 11c {label}: a second run() captured {graphs.captures - caps} graphs "
+          f"(kept: {eng._graphs is graphs}), launches {json.dumps(counts)}")
+    return float(np.mean([e.time_ms for e in rep.epochs[n0:]]))
+
+
+def sharded_graph_phase(g, layers, engine_res: dict, engine_eng) -> dict:
+    """Phase 11c (right after phase 11, before any torch.profiler session):
+    on phase 3's Reddit graph, ShardedEngine with no process group (one
+    shard: the combined plan), GCN (K1) and GAT (K2) on hyb with bf16
+    gather tables, phase 11's config (8 epochs in one group, eval every 3):
+    the eager loop, then the graph path from one init, bit for bit (losses,
+    accuracies, params, launch counts); the losses within rtol 1e-4 of
+    phase 11's Engine, and whether bit for bit; the warm epoch of a
+    replayed group of 10 beside phase 11's; a second run() of each engine,
+    and of phase 11's GCN Engine, captures nothing."""
+    from dorylus_tpu_torch.common.config import TrainConfig
+    from dorylus_tpu_torch.parallel.train_step import ShardedEngine
+
+    t0 = time.perf_counter()
+    out = {"engine_second_run_ms": second_run_captures_nothing(engine_eng, "Engine gcn", "K1")}
+    for model, lr, kernel in (("gcn", 0.01, "K1"), ("gat", 0.005, "K2")):
+        label = f"reddit-config {model} hyb bf16 ShardedEngine (no group)"
+        cfg = TrainConfig(epochs=8, eval_every=3, model=model, kernel="hyb",
+                          agg_dtype="bfloat16", learning_rate=lr, reuse="off")
+        t1 = time.perf_counter()
+        eng = ShardedEngine(g, layers, cfg, device="cuda")
+        build_s = time.perf_counter() - t1
+        check(eng.graph_refusal is None and eng.n == 1 and eng.halo_plan is None,
+              f"phase 11c {label}: refusal {eng.graph_refusal}, {eng.n} shards")
+        pair = graph_pair(eng)
+        graph_equal(label, pair, phase="11c")
+        check(pair[1][1][kernel] > 0, f"phase 11c {label}: no {kernel} in the graph run")
+        losses = [e.loss for e in pair[1][0].epochs]
+        gap = rel_gap(losses, engine_res[model]["losses"])
+        bitwise = losses == engine_res[model]["losses"]
+        check(gap <= 1e-4, f"phase 11c {label}: losses {losses} against the Engine's "
+                           f"{engine_res[model]['losses']}: rtol {gap:.3e} > 1e-4")
+        second_ms = second_run_captures_nothing(eng, label, kernel)
+        times = group_times(eng, lr)
+        hbm = {"eager": pair[0][0].notes["hbm"]["peak_bytes_in_use"],
+               "graph": pair[1][0].notes["hbm"]["peak_bytes_in_use"]}
+        warm = {k: float(np.median(v["graph"]["ms"])) for k, v in times.items()}
+        engine_warm = {k: float(np.median(v["graph"]["ms"]))
+                       for k, v in engine_res[model]["group_of_10"].items()}
+        agree = "bit for bit" if bitwise else f"within rtol {gap:.3e}"
+        print(f"phase 11c {label}: built in {build_s:.1f} s; losses {agree} "
+              f"of the Engine's; a second run() captured nothing ({second_ms:.3f} ms an "
+              f"epoch); replayed warm epoch ms of a group of 10 {json.dumps(warm)} beside the "
+              f"Engine's {json.dumps(engine_warm)}; notes hbm peak bytes {json.dumps(hbm)}; "
+              f"group of 10 {json.dumps(times)}", flush=True)
+        out[model] = {"build_s": build_s, "loss_rtol": gap, "bitwise": bitwise,
+                      "second_run_ms": second_ms, "group_of_10": times, "hbm_peak_bytes": hbm,
+                      "launches": pair[1][1]}
+        del eng, pair
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 11c {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 def graph_phase_b(eng, gs, layers) -> dict:
@@ -1660,9 +1745,10 @@ def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list,
         eng = ShardedEngine((shard, meta), LayerConfig(run["dims"]), cfg, device=device)
         build_s = time.perf_counter() - t0
         restore = width_counter() if run.get("widths") else None
-        rep = eng.run()
+        rep = eng.run(graphs=not run.get("eager"))
         sync()
         row = {"label": run["label"], "rank": rank, "backend": multihost.backend_name(),
+               "epoch_timing": "replayed" if eng._graphs is not None else "eager",
                "mesh": list(eng.mesh[:4]),
                "device": str(eng.device), "launches": launch_counts(),
                "losses": [e.loss for e in rep.epochs],
@@ -1837,11 +1923,11 @@ def sharded_phases(sg, sg2, sgc, layers, hyb_f32_losses, kernel_sources) -> dict
         dims = list(layers.dims)
 
         def run(label, shards, timed=False, profile=False, predict=False, stages=False,
-                widths=False, **cfg):
+                widths=False, eager=False, **cfg):
             cfg = dict(dict(epochs=2, eval_every=1, kernel="hyb", reuse="off"), **cfg)
             return {"label": label, "shards": shards, "dims": dims, "cfg": cfg,
                     "timed": timed or profile, "profile": profile, "predict": predict,
-                    "stages": stages, "widths": widths}
+                    "stages": stages, "widths": widths, "eager": eager}
 
         def launch(phase, runs, device="cuda:0", timeout_s=900):
             t0 = time.perf_counter()
@@ -2037,15 +2123,23 @@ def sharded_phases(sg, sg2, sgc, layers, hyb_f32_losses, kernel_sources) -> dict
         if torch.cuda.device_count() >= 2:
             n = min(RANKS, torch.cuda.device_count())
             check(n == RANKS, f"the NCCL phase needs {RANKS} cards, found {n}")
-            runs = [run("gcn bf16 fused nccl", "reddit", timed=True, agg_dtype="bfloat16")]
+            # through the epochs' CUDA graphs (the halo exchanges and the
+            # all-reduce inside), then eagerly from the same init
+            runs = [run("gcn bf16 fused nccl", "reddit", timed=True, agg_dtype="bfloat16"),
+                    run("gcn bf16 fused nccl eager", "reddit", eager=True,
+                        agg_dtype="bfloat16")]
             nres = spawn_local(RANKS, sharded_rank, (shard_dir, runs), backend="nccl",
                                device="cuda:{rank}", timeout_s=600)
             for k in range(RANKS):
-                r = nres[k][0]
+                r, e = nres[k]
                 print(f"sharded {r['label']} rank {k}: " + json.dumps(
                     {a: b for a, b in r.items() if a not in ("label", "rank")}), flush=True)
                 check(r["backend"] == "nccl" and all(np.isfinite(r["losses"])),
                       f"nccl rank {k}: backend {r['backend']} or non-finite loss")
+                check((r["epoch_timing"], e["epoch_timing"]) == ("replayed", "eager")
+                      and r["losses"] == e["losses"] and r["launches"] == e["launches"],
+                      f"nccl rank {k}: replayed losses {r['losses']} ({r['epoch_timing']}), "
+                      f"launches {r['launches']}; eager {e['losses']}, {e['launches']}")
             gap = rel_gap(nres[0][0]["losses"], by_label["gcn bf16 fused"][0]["losses"])
             check(gap <= 1e-5, f"nccl and gloo runs differ by {gap:.3e} > 1e-5")
         else:
@@ -2548,14 +2642,87 @@ def amazon_phase(graph: tuple) -> dict:
     return out
 
 
+def collective_capture(device, replays: int = 3) -> list:
+    """multihost.all_to_all_rows and a dist.all_reduce on this rank's world
+    captured in one CUDA graph (first run eagerly on a side stream, which
+    creates the communicator, as the engine's first epoch does), replayed
+    with new inputs copied into the captured buffers: whether each
+    replay's results equal the same collectives run eagerly."""
+    import torch.distributed as dist
+
+    from dorylus_tpu_torch.parallel import multihost
+
+    world = dist.get_world_size()
+    x = torch.zeros((8 * world, 16), device=device)
+    y = torch.zeros(1000, device=device)
+
+    def body():
+        out = multihost.all_to_all_rows(x, [8] * world, [8] * world)
+        dist.all_reduce(y)
+        return out
+
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        body()
+    cur.wait_stream(side)
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = body()
+    gen = torch.Generator(device=device).manual_seed(dist.get_rank())
+    exact = []
+    for _ in range(replays):
+        a = torch.randn(tuple(x.shape), generator=gen, device=device)
+        b = torch.randn(1000, generator=gen, device=device)
+        x.copy_(a)
+        y.copy_(b)
+        graph.replay()
+        want_y = b.clone()
+        dist.all_reduce(want_y)
+        want = multihost.all_to_all_rows(a, [8] * world, [8] * world)
+        exact.append(bool(torch.equal(got, want) and torch.equal(y, want_y)))
+    return exact
+
+
+def weak_rank(rank: int, world: int, device, shard_dir: str, dims: list, cfg,
+              opts: dict) -> dict:
+    """Phase 13's rank: tools/weak_scaling.py's `_rank` (its engine's
+    epochs replayed from the warm-up run on), then the same configuration
+    from the same init run eagerly (`run(graphs=False)`; then once more,
+    warm, for its epoch ms), and this rank's collectives captured in a
+    CUDA graph (`collective_capture`)."""
+    from pathlib import Path
+
+    from dorylus_tpu_torch.common.config import LayerConfig
+    from dorylus_tpu_torch.graph.partition import load_shard
+    from dorylus_tpu_torch.parallel.train_step import ShardedEngine
+    from dorylus_tpu_torch.tools import weak_scaling as ws
+
+    out = ws._rank(rank, world, device, shard_dir, dims, cfg, opts)
+    shard, meta = load_shard(Path(shard_dir) / f"shard_{rank}.npz")
+    eng = ShardedEngine((shard, meta), LayerConfig(list(dims)), cfg, device=device)
+    out["eager_losses"] = [e.loss for e in eng.run(graphs=False).epochs]
+    n0 = len(eng.report.epochs)
+    # a second eager run, warm, as the tool's measured runs are
+    out["eager_epoch_ms"] = [e.time_ms for e in eng.run(graphs=False).epochs[n0:]]
+    del eng
+    out["collective_capture"] = collective_capture(device)
+    return out
+
+
 def weak_scaling_phase() -> dict:
     """13. tools/weak_scaling.py's device mode at the JAX package's r5
     config (hyb GCN, 262,144 base vertices, degree 16, 64-32-8, clustered,
     cut 0.1, 10 epochs, 3 repeats, --overlap both --decompose, shards 1 2
     4): one NCCL rank a card, counts above the card count skipped. The
     n = 1 record against a one-device Engine on the same graph and config
-    (loss rtol 1e-4), K1 launched in its rank's window; its eager epoch
-    beside the Engine's replayed one."""
+    (loss rtol 1e-4), K1 launched in its rank's window; the rank's engine
+    replays its epochs (`epoch_timing` "replayed"), equal bit for bit to
+    the same configuration run eagerly from the same init, and its
+    collectives replay exactly from one CUDA graph (`weak_rank`); its
+    replayed epoch beside the Engine's and its eager one."""
     from dorylus_tpu_torch.engine.engine import Engine
     from dorylus_tpu_torch.tools import switch_points
     from dorylus_tpu_torch.tools import weak_scaling as ws
@@ -2581,11 +2748,11 @@ def weak_scaling_phase() -> dict:
             graphs[n] = make_graph(a, n)
         return graphs[n]
 
-    ws.make_graph = memo_graph
+    ws.make_graph, tool_rank, ws._rank = memo_graph, ws._rank, weak_rank
     try:
         summary, by_n = ws.sweep(args, out=out, timeout_s=300)
     finally:
-        ws.make_graph = make_graph
+        ws.make_graph, ws._rank = make_graph, tool_rank
     sweep_s = time.perf_counter() - t0
     cards = torch.cuda.device_count()
     ran = [n for n in args.shards if n <= cards]
@@ -2593,8 +2760,10 @@ def weak_scaling_phase() -> dict:
         if n > cards:
             check(f"# skipping {n} shards (only {cards} devices)" in lines,
                   f"weak_scaling: no skip line for {n} shards on {cards} card(s)")
-    check((summary["mode"], summary["backend"]) == ("device", "nccl"),
-          f"weak_scaling: mode {summary['mode']}, backend {summary['backend']}")
+    check((summary["mode"], summary["backend"], summary["epoch_timing"])
+          == ("device", "nccl", "replayed"),
+          f"weak_scaling: mode {summary['mode']}, backend {summary['backend']}, epochs "
+          f"{summary['epoch_timing']}")
     recs = summary["weak_scaling"]
     check([r["shards"] for r in recs] == ran, f"weak_scaling ran {[r['shards'] for r in recs]}")
     layers, cfg = ws.make_config(args)
@@ -2619,6 +2788,13 @@ def weak_scaling_phase() -> dict:
     launches = ranks[0]["launches"]
     check(launches.get("hyb_static_pass", 0) > 0,
           f"weak_scaling: the rank launched no K1 ({launches})")
+    for r, res in enumerate(ranks):
+        check(res["eager_losses"] == res["losses"],
+              f"weak_scaling: rank {r}'s replayed losses {res['losses']} against its eager "
+              f"run's {res['eager_losses']}")
+        check(res["collective_capture"] == [True] * 3,
+              f"weak_scaling: rank {r}'s captured collectives {res['collective_capture']}")
+    eager_ms = float(np.mean(ranks[0]["eager_epoch_ms"]))
     eng = Engine(g, layers, cfg, device="cuda")
     single = [e.loss for e in eng.run().epochs]
     gap = rel_gap(ranks[0]["losses"], single)
@@ -2630,12 +2806,16 @@ def weak_scaling_phase() -> dict:
     torch.cuda.empty_cache()
     seconds = time.perf_counter() - t0
     print(f"weak_scaling n=1 over NCCL: losses within rtol {gap:.3e} of Engine's; the rank's "
-          f"launches {json.dumps(launches)}; ShardedEngine eager epoch {rec['epoch_ms']} ms "
-          f"(runs {rec['edges_per_s_runs']} edges/s) beside Engine's replayed warm epoch "
-          f"{float(np.median(replayed)):.3f} ms ({json.dumps(replayed)}); phase 13 "
-          f"{seconds:.1f} s (the tool's sweep {sweep_s:.1f} s)", flush=True)
+          f"launches {json.dumps(launches)}; replayed == eager bit for bit; all_to_all_rows "
+          f"and all_reduce captured in one graph, 3 replays exact; ShardedEngine replayed "
+          f"epoch {rec['epoch_ms']} ms (runs {rec['edges_per_s_runs']} edges/s) beside "
+          f"Engine's replayed warm epoch {float(np.median(replayed)):.3f} ms "
+          f"({json.dumps(replayed)}), the rank's warm eager epoch {eager_ms:.3f} ms and the "
+          f"uncaptured step's 1.82-2.62 ms (PERF.md section 6); phase 13 {seconds:.1f} s (the "
+          f"tool's sweep {sweep_s:.1f} s)", flush=True)
     return {"summary": summary, "engine_replayed_ms": replayed, "launches": launches,
-            "loss_rtol": gap, "seconds": seconds, "sweep_s": sweep_s}
+            "loss_rtol": gap, "seconds": seconds, "sweep_s": sweep_s,
+            "rank_eager_epoch_ms": ranks[0]["eager_epoch_ms"]}
 
 
 def main() -> None:
@@ -2729,12 +2909,17 @@ def main() -> None:
 
     # 8. the stage profiler, before any torch.profiler session in this process
     stamp("phase 8")
-    stages = stage_phase(g, layers)
+    stages, stage_engines = stage_phase(g, layers)
 
     # 11. the epoch's CUDA graphs against the eager loop, and their warm
     # epochs, also before any torch.profiler session
     stamp("phase 11")
-    graph_res, graph_eng = graph_phase(g, layers)
+    graph_res, graph_eng = graph_phase(stage_engines)
+
+    # 11c. the sharded engine's epoch graphs with no group, against its eager
+    # loop and phase 11's Engine; both engines' second run captures nothing
+    stamp("phase 11c")
+    sharded_graph_res = sharded_graph_phase(g, layers, graph_res, graph_eng)
 
     # 12. the port's benchmark on this graph and on the plans phase 3 checks
     # (3c its CSR op, 3e its bf16 degree plan), also before any
@@ -3581,6 +3766,7 @@ def main() -> None:
         check(k["launches"] > 0, f"{k['name']}: no launch on its main path")
     print("timings " + json.dumps({"gcn_hyb_bf16": gcn_times, "gat_hyb_bf16": gat_times,
                                    "epoch_graphs": graph_res,
+                                   "sharded_epoch_graphs": sharded_graph_res,
                                    "xla_f32": edge_times,
                                    "xla_dst_blocked_450k": blocked_times,
                                    "xla_f32_launches_per_step": edge_steps,

@@ -32,10 +32,11 @@ The cells (extras), each with the kernel it runs:
   {gcn,gat}_reddit_config_epoch{,_bf16}_ms
                                    `epoch_ms_warm`: one Engine, run(3) twice,
                                    the mean of the second run's epochs; on the
-                                   card each run() captures the epoch as CUDA
-                                   graphs after one eager epoch and replays
-                                   them (engine/graphs.py), so the mean holds
-                                   that epoch and the capture (`epoch_timing`)
+                                   card the first run() captures the epoch as
+                                   CUDA graphs after one eager epoch and the
+                                   engine keeps them (engine/graphs.py), so the
+                                   second run's epochs are three replays
+                                   (`epoch_timing`)
   reuse_largev_*, reuse_row_cut, reuse_mine_s
                                    on the card only: `community_core_edges(
                                    1_600_000, 15, comm=400, core=60,
@@ -109,8 +110,8 @@ BENCH_PY_REUSE = (
     "reuse_reddit_community_epoch_off_ms", "reuse_reddit_community_epoch_ms",
     "reuse_reddit_community_speedup")
 EPOCH_TIMING = ("Engine.run(3) twice, the mean of the second run's 3 epochs; on the card "
-                "each run() runs one eager epoch, captures the epoch as CUDA graphs and "
-                "replays them for the rest")
+                "the first run() runs one eager epoch and captures the epoch as CUDA graphs, "
+                "which the engine keeps: the second run's 3 epochs are replays")
 
 
 def bench_graph(v: int, deg: int, seed: int = 1) -> Graph:

@@ -12,17 +12,21 @@ device; the loop reads them once a group, logs each evaluated epoch, adds
 one record per epoch at the group's wall time over k, checkpoints at the
 group's last epoch and feeds the converge state machine (the switch to
 synchronous training, the early stop) the group's last accuracy. On the
-card `Engine` replays the epoch as CUDA graphs (engine/graphs.py); on the
-CPU, and in the sharded engine, the group runs eagerly. The final val/test
-accuracy, `predict`, `dump_predictions` and the RunReport are as in JAX.
+card both engines replay the epoch as CUDA graphs (engine/graphs.py), kept
+from one run() to the next as JAX keeps its compiled groups; on the CPU,
+and in a sharded engine over gloo, the group runs eagerly. The final
+val/test accuracy, `predict`, `dump_predictions` and the RunReport are as
+in JAX.
 
 Bounded staleness (staleness = S > 0; the reference's async pipeline,
 pipeline.cpp:95-102, with weight stashing): `StaleWindow` holds S+1
 detached copies of the params; each epoch takes its gradients at the
 oldest (up to S epochs old) through `torch.func.functional_call`, Adam
-applies them to the current params, and the window rolls. Resume and every
-`run()` start a fresh window from the params they hold, as JAX's does (the
-window is not stored in a checkpoint). staleness 0 or None is synchronous.
+applies them to the current params, and the window rolls. Every `run()`
+starts the window afresh from the params it holds, as JAX's does (the
+window is not stored in a checkpoint): the engine keeps one window per
+staleness and refills it in place (`stale_window`), so a kept graph reads
+the same copies. staleness 0 or None is synchronous.
 
 Checkpoints (engine/checkpoint.py) hold the params and the Adam state in
 the JAX package's npz layout; `resume=True` loads the latest and numbers
@@ -307,6 +311,13 @@ class StaleWindow:
         self.copies = [{k: p.detach().clone().requires_grad_(True)
                         for k, p in params.items()} for _ in range(staleness + 1)]
 
+    def fill(self, params: dict) -> None:
+        """Every copy equal to `params` again, in place (a run's start)."""
+        with torch.no_grad():
+            for copy in self.copies:
+                for k, t in copy.items():
+                    t.copy_(params[k])
+
     @property
     def oldest(self) -> dict:
         return self.copies[0]
@@ -316,6 +327,21 @@ class StaleWindow:
             for older, newer in zip(self.copies, self.copies[1:] + [params]):
                 for k, t in older.items():
                     t.copy_(newer[k])
+
+
+def stale_window(eng, staleness: Optional[int]) -> Optional[StaleWindow]:
+    """The engine's window for `staleness` at a run's start (JAX's
+    `make_stack` per run), or None when synchronous: made at the first run
+    and refilled from the params in every later one, so the copies a kept
+    graph captured stay the ones it reads."""
+    if not staleness:
+        return None
+    window = eng._windows.get(staleness)
+    if window is None:
+        window = eng._windows[staleness] = StaleWindow(eng.params, staleness)
+    else:
+        window.fill(eng.params)
+    return window
 
 
 def resume(eng) -> None:
@@ -363,10 +389,53 @@ def eager_group(eng, lrs: list, flags: np.ndarray,
     return losses, stats
 
 
+def epoch_graph_refusal(device: torch.device, backend: str) -> Optional[str]:
+    """Why an engine on `device` whose collectives run over `backend`
+    ("none" without a process group) runs its epochs eagerly, or None when
+    it captures them as CUDA graphs (engine/graphs.py). Decided by the
+    names when the engine is built, never by a failed attempt."""
+    from dorylus_tpu_torch.parallel import multihost  # the package imports this module
+
+    if device.type != "cuda":
+        return "the CPU has no CUDA graphs"
+    if not multihost.collectives_capturable(backend):
+        return (f"{backend} stages every CUDA tensor through a host buffer, which a "
+                "capture refuses")
+    return None
+
+
+def epoch_mode(refusal: Optional[str]) -> str:
+    """The construction log's words for how the epochs run."""
+    return "replayed as CUDA graphs" if refusal is None else f"eager ({refusal})"
+
+
+def dispatch_group(eng, lrs: list, flags: np.ndarray,
+                   window: Optional[StaleWindow]) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both engines' `_dispatch`: a group's epochs replayed as the engine's
+    CUDA graphs where it keeps them, else eagerly."""
+    if eng._graphs is not None:
+        return eng._graphs.run_group(eng, lrs, flags, window)
+    return eager_group(eng, lrs, flags, window)
+
+
+def run_graphed(eng, epochs: Optional[int], graphs: bool) -> RunReport:
+    """Both engines' `run`: the group loop through the engine's kept
+    EpochGraphs (made at the first run that can capture: `graph_refusal`
+    is None), or eagerly with graphs=False, which drops them."""
+    from dorylus_tpu_torch.engine.graphs import EpochGraphs
+
+    if not graphs:
+        eng._graphs = None
+    elif eng._graphs is None and eng.graph_refusal is None:
+        eng._graphs = EpochGraphs(eng.device)
+    return run_loop(eng, epochs if epochs is not None else eng.cfg.epochs)
+
+
 def run_loop(eng, epochs: int) -> RunReport:
     """The group loop of both engines (JAX `run_group_loop`). The engine
     supplies `_dispatch(lrs, flags, window)` (a group's epochs -> its
-    losses (k,) and stats (k, 3) as device tensors), `_stats(mask)` ((3,):
+    losses (k,) and stats (k, 3) as device tensors), `_windows` (its
+    staleness windows, `stale_window`), `_stats(mask)` ((3,):
     correct, loss, count over every shard), `_maybe_checkpoint(epoch)`,
     `rank` (0 logs), `world` (the ranks: the cost note's GPU count, JAX's
     mesh.size) and the report. One host read a group; every rank computes
@@ -381,7 +450,7 @@ def run_loop(eng, epochs: int) -> RunReport:
     eng.report.notes["kernel"] = eng.kernel_selected
     eng.report.notes["device"] = str(eng.device)
     t_run = time.perf_counter()
-    window = StaleWindow(eng.params, cfg.staleness) if cfg.staleness else None
+    window = stale_window(eng, cfg.staleness)
     # Resume continues the original numbering: LR schedule, eval cadence
     # and checkpoint steps pick up where the prior run left off.
     epoch, end = eng.start_epoch, eng.start_epoch + epochs
@@ -530,14 +599,17 @@ class Engine:
         self.params = self.model.init_params(seed=cfg.seed)
         self.opt_state = adam_init(self.params) if cfg.adam else None
         self.report = RunReport()
+        self._windows: dict = {}
         resume(self)
+        self.graph_refusal = epoch_graph_refusal(self.device, "none")
         log("dorylus_tpu_torch engine on %s: %s, %d vertices, %d edges, "
-            "kernel %s, agg %s", self.device, cfg.model, graph.num_vertices,
-            graph.num_edges, self.kernel_selected, cfg.agg_dtype)
+            "kernel %s, agg %s, epochs %s", self.device, cfg.model, graph.num_vertices,
+            graph.num_edges, self.kernel_selected, cfg.agg_dtype,
+            epoch_mode(self.graph_refusal))
 
     rank = 0  # the one shard: it logs
     world = 1
-    _graphs = None  # the run's EpochGraphs, on the card
+    _graphs = None  # the engine's EpochGraphs, on the card
 
     def _stats(self, mask: torch.Tensor) -> torch.Tensor:
         """(3,) on the device: correct, loss, count over the masked rows."""
@@ -566,11 +638,7 @@ class Engine:
 
     def _dispatch(self, lrs: list, flags: np.ndarray,
                   window: Optional[StaleWindow]) -> tuple[torch.Tensor, torch.Tensor]:
-        """A group's epochs: replayed as the run's CUDA graphs where it has
-        them (the card), else eagerly."""
-        if self._graphs is not None:
-            return self._graphs.run_group(self, lrs, flags, window)
-        return eager_group(self, lrs, flags, window)
+        return dispatch_group(self, lrs, flags, window)
 
     def _maybe_checkpoint(self, epoch: int) -> None:
         if checkpoint_due(self.cfg, epoch):
@@ -581,13 +649,10 @@ class Engine:
         """Train `epochs` (cfg.epochs by default) from `start_epoch`. A
         second run() starts again at start_epoch while Adam's step carries
         on, as JAX's does. On the card the epochs are captured and replayed
-        as CUDA graphs (engine/graphs.py), captured anew in every run();
-        graphs=False runs them eagerly there, to compare with."""
-        from dorylus_tpu_torch.engine.graphs import EpochGraphs
-
-        self._graphs = (EpochGraphs(self.device) if graphs and self.device.type == "cuda"
-                        else None)
-        return run_loop(self, epochs if epochs is not None else self.cfg.epochs)
+        as CUDA graphs (engine/graphs.py), kept for the next run();
+        graphs=False runs them eagerly there, to compare with, and drops
+        the kept graphs."""
+        return run_graphed(self, epochs, graphs)
 
     def profile(self, iters: int = 5) -> dict:
         """Per-stage times in ms (engine/profiling.py `profile_stages`; JAX

@@ -69,6 +69,16 @@ def backend_name() -> str:
     return dist.get_backend() if initialized() else "none"
 
 
+def collectives_capturable(backend: str | None = None) -> bool:
+    """Whether this process's collectives can be captured in a CUDA graph,
+    by the backend's name (None: this process's): without a process group
+    (they are the identity) and under NCCL, which enqueues on the device;
+    not under gloo, whose CUDA tensors are staged through a pinned host
+    buffer (`_staged`): the copy out waits for the stream and the copy back
+    runs after the host's collective, which a capture refuses."""
+    return (backend or backend_name()) in ("none", "nccl")
+
+
 def init_group(backend: str, init_method: str, world: int, rank_: int,
                device: str | torch.device,
                timeout_s: float = 600.0) -> torch.device:

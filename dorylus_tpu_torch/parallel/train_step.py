@@ -42,10 +42,21 @@ for the exchange before it returns, so nothing runs beside it yet.)
 
 The epoch loop is the single-device engine's group loop (`run_loop`), with
 its bounded staleness, checkpoints and resume (JAX `parallel/train_step.py`
-`:104-200`, `:495-516`): a group's epochs run eagerly (`eager_group`; no
-CUDA graph: gloo stages every collective through the host) and every rank
-reads the group's losses and stats once, as JAX's sharded `multi` returns
-them; every rank computes the same groups. A stale epoch runs its forward
+`:104-200`, `:495-516`), and every rank reads the group's losses and stats
+once, as JAX's sharded `multi` returns them; every rank computes the same
+groups. On the card with no process group or over NCCL, a group's epochs
+replay the engine's CUDA graphs (engine/graphs.py, JAX's compiled
+`make_multi`): the train graph holds the forward with its halo exchanges,
+the backward with their reverse (enqueued by autograd's device thread), the
+one all-reduce of the gradients and the loss, Adam and the window's roll;
+the eval graph the forward and the sum of the stats. Nothing in either
+reads the device from the host: the split sizes are fixed per plan and the
+receive buffers come from the graph's pool, where they stay across
+replays. The graphs are kept as long as the engine. Under gloo (and on the
+CPU) the groups run eagerly (`eager_group`): gloo stages a CUDA tensor
+through a host buffer, which a capture refuses; the engine's construction
+log says which. `profile`, `predict` and the checkpoint's barrier stay
+eager, outside any graph. A stale epoch runs its forward
 and backward, the halo exchanges and their reverse included, on every rank
 at the window's oldest copy, and its gradients go into the one flat
 all-reduce; rank 0 writes a checkpoint and every rank waits for it at a
@@ -85,9 +96,10 @@ from dorylus_tpu_torch.common.logging import log
 from dorylus_tpu_torch.common.metrics import RunReport
 from dorylus_tpu_torch.engine.checkpoint import save_checkpoint
 from dorylus_tpu_torch.engine.engine import (_DTYPES, _max_agg_width, below_reuse_floor,
-                                             check_staleness, checkpoint_due, eager_group,
-                                             gate_reuse_auto, resolve_device,
-                                             resolve_reuse_budget, resume, run_loop)
+                                             check_staleness, checkpoint_due, dispatch_group,
+                                             epoch_graph_refusal, epoch_mode, gate_reuse_auto,
+                                             resolve_device, resolve_reuse_budget, resume,
+                                             run_graphed)
 from dorylus_tpu_torch.graph.graph import Graph
 from dorylus_tpu_torch.graph.partition import (Shard, ShardMeta, partition_graph,
                                                shard_edges)
@@ -329,14 +341,19 @@ class ShardedEngine:
         self.params = self.model.init_params(seed=cfg.seed)
         self.opt_state = adam_init(self.params) if cfg.adam else None
         self.report = RunReport()
+        self._windows: dict = {}
         resume(self)  # every rank loads
+        self.graph_refusal = epoch_graph_refusal(self.device, multihost.backend_name())
         ghosts = 0 if self.halo_plan is None else int(self.halo_plan.recv_cnt.sum())
         log("dorylus_tpu_torch sharded engine, rank %d/%d (shard %d/%d, feat %d/%d) on %s "
             "(%s): %s, %d local vertices, %d edges, %d ghosts, max_h %d, kernel %s, "
-            "overlap %s, halo %s, agg %s", self.rank, self.world, me, n,
+            "overlap %s, halo %s, agg %s, epochs %s", self.rank, self.world, me, n,
             self.mesh.feat_index, m, self.device, multihost.backend_name(), cfg.model,
             shard.num_local, shard.num_edges, ghosts, meta.max_h, kernel, overlap,
-            "none" if self.halo_plan is None else self.halo_plan.wire, cfg.agg_dtype)
+            "none" if self.halo_plan is None else self.halo_plan.wire, cfg.agg_dtype,
+            epoch_mode(self.graph_refusal))
+
+    _graphs = None  # the engine's EpochGraphs, on the card
 
     def _stats(self, mask: torch.Tensor) -> torch.Tensor:
         """(3,) on the device: correct, loss, count over the masked rows of
@@ -346,10 +363,13 @@ class ShardedEngine:
             stats = torch.stack(accuracy_and_loss(probs, self.batch.onehot, mask))
             return multihost.all_reduce_sum(stats, self.mesh.graph_group)
 
-    def _train_epoch(self, lr: float, stale: Optional[dict] = None) -> torch.Tensor:
+    def _train_epoch(self, lr: float | None, stale: Optional[dict] = None,
+                     lr_t: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One update on every rank; the gradients are taken at `stale`
         (the staleness window's oldest copy) when given, else at the
-        current params."""
+        current params. lr_t: a 0-dim device tensor that holds the step's
+        rate (Adam's bias-corrected lr_t, SGD's lr), in place of lr (a
+        captured epoch)."""
         cfg = self.cfg
         at = self.params if stale is None else stale
         loss = self.model.loss(self.batch, self.compute_dtype, self.halo, params=stale)
@@ -369,13 +389,13 @@ class ShardedEngine:
         if cfg.adam:
             self.params, self.opt_state = adam_update(
                 self.params, grads, self.opt_state, lr=lr, beta1=cfg.beta1,
-                beta2=cfg.beta2, eps=cfg.eps, weight_decay=cfg.weight_decay)
+                beta2=cfg.beta2, eps=cfg.eps, weight_decay=cfg.weight_decay, lr_t=lr_t)
         else:
-            self.params = sgd_update(self.params, grads, lr)
+            self.params = sgd_update(self.params, grads, lr if lr_t is None else lr_t)
         return pieces[-1][0]
 
     def _dispatch(self, lrs: list, flags: np.ndarray, window) -> tuple:
-        return eager_group(self, lrs, flags, window)
+        return dispatch_group(self, lrs, flags, window)
 
     def _maybe_checkpoint(self, epoch: int) -> None:
         """Rank 0 writes; every rank waits for the file before the next
@@ -387,11 +407,15 @@ class ShardedEngine:
                             self.opt_state)
         multihost.barrier(self.device)
 
-    def run(self, epochs: Optional[int] = None) -> RunReport:
+    def run(self, epochs: Optional[int] = None, graphs: bool = True) -> RunReport:
+        """`Engine.run` on every rank: the epochs replayed as the engine's
+        kept CUDA graphs where it captures (`graph_refusal` is None),
+        eagerly with graphs=False, which drops them. Every rank must call
+        it with the same arguments."""
         self.report.notes["shards"] = self.n
         if self.mesh.feat_shards > 1:
             self.report.notes["feat_shards"] = self.mesh.feat_shards
-        return run_loop(self, epochs if epochs is not None else self.cfg.epochs)
+        return run_graphed(self, epochs, graphs)
 
     def profile(self, iters: int = 5) -> dict:
         """Per-stage times in ms (engine/profiling.py

@@ -29,7 +29,10 @@ r, so the halo record and the ranks read the same partition. Three modes:
 A record, as JAX's `_measure`: a warm-up `run()`, then `--repeats` runs; a
 run's epoch ms is the mean of its last `--epochs` epochs, taken as the max
 over ranks (the SPMD program's epoch); the median run gives `edges_per_s`
-and `epoch_ms`. `--overlap both` also measures the combined plan
+and `epoch_ms`. In device mode the engine captures its epochs as CUDA
+graphs in the warm-up run (as JAX's warm-up holds its compiles) and keeps
+them, so the measured runs are replays; gloo ranks run their epochs
+eagerly (parallel/train_step.py). `--overlap both` also measures the combined plan
 (overlap=False) on the same shard (`serial`, `overlap_speedup`);
 `--decompose` attaches `ShardedEngine.profile(iters=3)` (`stages_ms`, the
 max over ranks); at n > 1 `halo` gives the exchange's rows and bytes a
@@ -42,8 +45,10 @@ JAX package's XLA:CPU results. `overlap_speedup` compares two plans' work,
 not concurrency: `HaloRecvFn.forward` returns after the collective
 (parallel/halo.py), so nothing runs beside the exchange yet.
 
-The summary carries JAX's keys plus `backend` (gloo or nccl) and
-`threads_per_rank` (the torch threads of each rank, by shard count).
+The summary carries JAX's keys plus `backend` (gloo or nccl),
+`threads_per_rank` (the torch threads of each rank, by shard count) and
+`epoch_timing` ("replayed": the epochs were CUDA-graph replays, or
+"eager").
 """
 
 from __future__ import annotations
@@ -197,6 +202,7 @@ def _rank(rank: int, world: int, device, shard_dir: str, dims: list, cfg,
     before = _launches()
     measure, losses = _measure(eng, opts["edges"], opts["epochs"], opts["repeats"])
     out = {"measure": measure, "losses": losses, "backend": dist.get_backend(),
+           "epoch_timing": "replayed" if eng._graphs is not None else "eager",
            "threads": torch.get_num_threads(), "cores": len(os.sched_getaffinity(0)),
            "launches": {k: n - before[k] for k, n in _launches().items() if n > before[k]}}
     if world > 1 and opts["both"]:
@@ -328,7 +334,7 @@ def _pinned(args, out) -> dict:
     return {"weak_scaling": results, "mode": "pinned-cpu", "graph": args.graph,
             "cut": args.cut, "kernel": args.kernel, "model": args.model,
             "cores": ncores, "repeats": args.repeats, "backend": "gloo",
-            "threads_per_rank": threads}
+            "threads_per_rank": threads, "epoch_timing": "eager"}
 
 
 def sweep(args, out=print, timeout_s: float = RANK_TIMEOUT_S) -> tuple[dict, dict]:
@@ -341,7 +347,7 @@ def sweep(args, out=print, timeout_s: float = RANK_TIMEOUT_S) -> tuple[dict, dic
         return _pinned(args, out), {}
     if mode == "device":
         _need_card()
-    results, threads, by_n = [], {}, {}
+    results, threads, by_n, timing = [], {}, {}, None
     base_eps = None
     out(what_line(mode))
     for n in args.shards:
@@ -354,12 +360,13 @@ def sweep(args, out=print, timeout_s: float = RANK_TIMEOUT_S) -> tuple[dict, dic
         rec["weak_scaling_efficiency"] = efficiency(rec, base_eps)
         results.append(rec)
         threads[str(n)] = ranks[0]["threads"]
+        timing = ranks[0]["epoch_timing"]  # one mode, one backend: every rank's
         by_n[n] = ranks
         out(json.dumps(rec))
     summary = {"weak_scaling": results, "mode": mode, "graph": args.graph, "cut": args.cut,
                "kernel": args.kernel, "model": args.model,
                "backend": "nccl" if mode == "device" else "gloo",
-               "threads_per_rank": threads}
+               "threads_per_rank": threads, "epoch_timing": timing}
     return summary, by_n
 
 

@@ -5,16 +5,108 @@ only, so a rank starts without loading jax."""
 
 from __future__ import annotations
 
+import contextlib
 import sys
 
 import numpy as np
 import torch
 
 from dorylus_tpu_torch.common.config import LayerConfig, TrainConfig
+from dorylus_tpu_torch.engine import graphs
 from dorylus_tpu_torch.graph.partition import partition_graph
 from dorylus_tpu_torch.ops.reuse_sharded import ShardedReuseSpMM
 from dorylus_tpu_torch.parallel import halo, multihost
 from dorylus_tpu_torch.parallel.train_step import ShardedEngine
+
+
+class HostRead(RuntimeError):
+    pass
+
+
+# What waits for the device on the host, which a capture refuses.
+_HOST_READS = ("item", "tolist", "numpy", "__bool__", "__float__", "__int__")
+
+
+@contextlib.contextmanager
+def host_reads_refused():
+    """Tensor.item, .tolist, .numpy, bool(), float(), int() and
+    torch.cuda.synchronize raise HostRead inside the block."""
+    def refuse(name):
+        def call(*args, **kw):
+            raise HostRead(f"{name} inside a captured body")
+        return call
+
+    saved = {name: torch.Tensor.__dict__.get(name) for name in _HOST_READS}
+    sync = torch.cuda.synchronize
+    for name in _HOST_READS:
+        setattr(torch.Tensor, name, refuse(f"Tensor.{name}"))
+    torch.cuda.synchronize = refuse("torch.cuda.synchronize")
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            if fn is None:
+                delattr(torch.Tensor, name)
+            else:
+                setattr(torch.Tensor, name, fn)
+        torch.cuda.synchronize = sync
+
+
+class Rerun(graphs._Graph):
+    """A stand-in for a captured graph on the CPU: the capture records the
+    body and runs nothing; a replay reruns it (with host reads refused
+    where `guard` is set) and leaves the host's state of `eng` (Adam's
+    step) as a graph replay does. `made` counts the captures."""
+
+    eng = None
+    guard = False
+    made = 0
+
+    def __init__(self, body):
+        Rerun.made += 1
+        self.body, self.added = body, []
+
+    def replay(self):
+        state = self.eng.opt_state
+        with host_reads_refused() if self.guard else contextlib.nullcontext():
+            out = self.body()
+        self.eng.opt_state = state
+        return out
+
+
+@contextlib.contextmanager
+def _patched(obj, name, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def rebind(eng, what: str) -> None:
+    """Replace state a captured epoch reads by other tensors of the same
+    values: "adam" new m and v objects, "param" each param's storage
+    (`p.data = ...`: the same object at a new address)."""
+    if what == "adam":
+        st = eng.opt_state
+        eng.opt_state = st._replace(m={k: t.clone() for k, t in st.m.items()},
+                                    v={k: t.clone() for k, t in st.v.items()})
+    else:
+        for p in eng.params.values():
+            p.data = p.data.clone()
+
+
+def stand_in_graphs(eng, guard: bool = False) -> contextlib.ExitStack:
+    """EpochGraphs with the capture stood in for by `Rerun` (the eager
+    warm-up on the current stream) for `eng`; undone when the stack
+    closes."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(_patched(graphs, "_Graph", Rerun))
+    stack.enter_context(_patched(graphs.EpochGraphs, "_eager", lambda self, fn: fn()))
+    stack.enter_context(_patched(Rerun, "eng", eng))
+    stack.enter_context(_patched(Rerun, "guard", guard))
+    return stack
 
 
 def engine_rank(rank, world, device, graph, dims, cfg_kw, epochs, opts):
@@ -25,7 +117,14 @@ def engine_rank(rank, world, device, graph, dims, cfg_kw, epochs, opts):
     "constants" (engine/engine.py module constants set before the engine
     is built, e.g. reuse="auto"'s gate), "run" (epochs to run when they
     differ from cfg.epochs, the horizon the gate reads), "threshold"
-    (kernel="auto"'s edge threshold the sharded engine resolves with)."""
+    (kernel="auto"'s edge threshold the sharded engine resolves with),
+    "as_card" (the engine decides whether it captures as on the card over
+    this backend name), "graphs" (the epochs through EpochGraphs with the
+    capture stood in for by `Rerun`; implies as_card "nccl"), "guard"
+    (host reads refused while the stand-in's bodies run), "sequence" (the
+    run() calls to make, each {"graphs": bool, "rebind": None, "adam" or
+    "param"}, in place of one run(); each one's records and the captures
+    so far come back under "runs")."""
     import functools
 
     from dorylus_tpu_torch.common import config
@@ -38,9 +137,31 @@ def engine_rank(rank, world, device, graph, dims, cfg_kw, epochs, opts):
     if "threshold" in opts:
         train_step.resolve_kernel = functools.partial(config.resolve_kernel,
                                                       threshold=opts["threshold"])
-    cfg = TrainConfig(epochs=epochs, **cfg_kw)
-    eng = ShardedEngine(graph, LayerConfig(list(dims)), cfg, device=device,
-                        partition_method=opts.get("partition", "range"))
+    logs = []
+
+    def log(msg, *args, **kw):
+        logs.append(msg % args if args else msg)
+        real_log(msg, *args, **kw)
+
+    real_log = train_step.log
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_patched(train_step, "log", log))
+        as_card = opts.get("as_card", "nccl" if opts.get("graphs") else None)
+        if as_card is not None:
+            real = train_step.epoch_graph_refusal
+            stack.enter_context(_patched(train_step, "epoch_graph_refusal",
+                                         lambda dev, be: real(torch.device("cuda"), as_card)))
+        cfg = TrainConfig(epochs=epochs, **cfg_kw)
+        eng = ShardedEngine(graph, LayerConfig(list(dims)), cfg, device=device,
+                            partition_method=opts.get("partition", "range"))
+        if opts.get("graphs"):
+            stack.enter_context(stand_in_graphs(eng, opts.get("guard", False)))
+        made = Rerun.made
+        return _engine_result(eng, opts, logs, made)
+
+
+def _engine_result(eng, opts, logs, made):
     grads = None
     if opts.get("grads"):
         names = list(eng.params)
@@ -48,7 +169,16 @@ def engine_rank(rank, world, device, graph, dims, cfg_kw, epochs, opts):
         gs = torch.autograd.grad(loss, [eng.params[k] for k in names])
         grads = {k: multihost.all_reduce_sum(g.detach().clone()).cpu().numpy()
                  for k, g in zip(names, gs)}
-    rep = eng.run(opts.get("run"))
+    runs = []
+    for call in opts.get("sequence", [{"graphs": True}]):
+        if call.get("rebind"):
+            rebind(eng, call["rebind"])
+        n0 = len(eng.report.epochs)
+        rep = eng.run(opts.get("run"), graphs=call["graphs"])
+        runs.append({"losses": [e.loss for e in rep.epochs[n0:]],
+                     "accuracies": [e.accuracy for e in rep.epochs[n0:]],
+                     "val_acc": rep.final_accuracy, "captures": Rerun.made - made,
+                     "graphed": eng._graphs is not None})
     out = {"losses": [e.loss for e in rep.epochs],
            "accuracies": [e.accuracy for e in rep.epochs],
            "times": [e.time_ms for e in rep.epochs],
@@ -61,7 +191,12 @@ def engine_rank(rank, world, device, graph, dims, cfg_kw, epochs, opts):
                                      if m.split(".")[0] in ("dorylus_tpu", "bench")),
            "mesh": (eng.mesh.n_shards, eng.mesh.feat_shards, eng.mesh.graph_index,
                     eng.mesh.feat_index),
-           "notes": dict(rep.notes), "grads": grads}
+           "notes": dict(rep.notes), "grads": grads, "runs": runs, "logs": logs,
+           "graph_refusal": eng.graph_refusal}
+    if eng.opt_state is not None:
+        st = eng.opt_state
+        out["adam"] = (st.step, {k: t.cpu().numpy() for k, t in st.m.items()},
+                       {k: t.cpu().numpy() for k, t in st.v.items()})
     split = eng.model.spmm_split
     op = eng.model.spmm_op
     out["plan"] = ("edge_split" if eng.model.edge_split is not None
@@ -178,3 +313,12 @@ def sleeping_rank(rank, world, device, seconds):
 
     time.sleep(seconds)
     return rank
+
+
+def collective_capture_rank(rank, world, device):
+    """chip_smoke.py's `collective_capture` on this rank: all_to_all_rows
+    and an all-reduce captured in one CUDA graph, whether each replay was
+    exact."""
+    import chip_smoke
+
+    return chip_smoke.collective_capture(device)

@@ -1327,3 +1327,111 @@ def test_a_failed_capture_raises(cuda):
     graphed.model.loss = loss_with_a_host_read
     with pytest.raises(RuntimeError):
         graphed.run()
+
+
+# ---- the sharded engine's epoch graphs, kept for the engine's life ----
+
+
+def _sharded_engines(cuda, model):
+    """Two ShardedEngines without a process group (one shard) of one
+    configuration from one init on the card: hyb, bf16 gather tables, S=1,
+    groups of 3, eval every 2."""
+    from dorylus_tpu_torch.common.config import LayerConfig, TrainConfig
+    from dorylus_tpu_torch.graph.graph import synthetic_graph
+    from dorylus_tpu_torch.parallel.train_step import ShardedEngine
+
+    g = synthetic_graph(1500, 8, 24, 6, seed=4)
+    cfg = TrainConfig(model=model, kernel="hyb", agg_dtype="bfloat16", epochs=7, eval_every=2,
+                      epochs_per_call=3, staleness=1, reuse="off",
+                      learning_rate=0.005 if model == "gat" else 0.01)
+    return [ShardedEngine(g, LayerConfig([24, 16, 6]), cfg, device=cuda) for _ in range(2)]
+
+
+@pytest.mark.parametrize("model", ["gcn", "gat"])
+def test_sharded_graph_run_equals_the_eager_loop(cuda, model):
+    """The no-group ShardedEngine through its CUDA graphs against the eager
+    loop from the same init, two run()s each: losses, accuracies, params,
+    Adam's state and launch counts bit for bit; the second run captures
+    nothing."""
+    from dorylus_tpu_torch.ops import hyb_spmm
+
+    def counts():
+        return {k: v for k, v in vars(hyb_spmm).items() if k.endswith("_LAUNCHES")}
+
+    graphed, eager = _sharded_engines(cuda, model)
+    assert graphed.graph_refusal is None
+    runs = []
+    for eng, use in ((graphed, True), (eager, False)):
+        for second in (False, True):
+            before = counts()
+            rep = eng.run(graphs=use)
+            torch.cuda.synchronize()
+            runs.append(([e.loss for e in rep.epochs], [e.accuracy for e in rep.epochs],
+                         {k: n - before[k] for k, n in counts().items()}))
+            if use and not second:
+                captures, kept = graphed._graphs.captures, graphed._graphs
+    assert runs[:2] == runs[2:] and sum(runs[0][2].values()) > 0
+    assert graphed._graphs is kept and kept.captures == captures == 2
+    for k, p in graphed.params.items():
+        assert torch.equal(p, eager.params[k]), k
+        assert torch.equal(graphed.opt_state.m[k], eager.opt_state.m[k]), k
+    assert graphed.opt_state.step == eager.opt_state.step == 14
+
+
+def test_engine_second_run_captures_nothing(cuda):
+    """Engine's graphs outlive run(): the second run replays from its first
+    epoch; new Adam tensors lead to a new capture of train alone."""
+    graphed, eager = _graph_engines(cuda, "hyb gcn", 1)
+    graphed.run()
+    kept = graphed._graphs
+    graphed.run()
+    assert graphed._graphs is kept and kept.captures == 2
+    st = graphed.opt_state
+    graphed.opt_state = st._replace(m={k: t.clone() for k, t in st.m.items()},
+                                    v={k: t.clone() for k, t in st.v.items()})
+    rep = graphed.run()
+    assert kept.captures == 3
+    for _ in range(3):
+        want = eager.run(graphs=False)
+    assert [e.loss for e in rep.epochs] == [e.loss for e in want.epochs]
+
+
+def test_one_nccl_rank_replays_as_eager(cuda):
+    """A world of one over NCCL: the rank's engine captures its epochs and
+    equals an eager engine from the same init bit for bit; its collectives
+    captured in one graph replay exactly."""
+    import _torch_ranks as ranks
+    from dorylus_tpu_torch.graph.graph import synthetic_graph
+    from dorylus_tpu_torch.ops import cuda_build, hyb_sharded, hyb_spmm
+    from dorylus_tpu_torch.parallel import halo
+    from dorylus_tpu_torch.parallel.multihost import spawn_local
+
+    cuda_build.compile_sources([hyb_spmm._CSRC, hyb_sharded._CSRC, halo._CSRC])
+    g = synthetic_graph(600, 8, 33, 5, seed=2)
+    kw = dict(model="gcn", kernel="hyb", eval_every=2, epochs_per_call=3, staleness=1)
+    runs = [(kw, 6, {}), (kw, 6, {"sequence": [{"graphs": False}]})]
+    res = spawn_local(1, ranks.engines_rank, (g, [33, 16, 5], runs), backend="nccl",
+                      device="cuda:{rank}", timeout_s=300)[0]
+    graphed, eager = res
+    assert graphed["graph_refusal"] is None and graphed["runs"][0]["graphed"]
+    assert not eager["runs"][0]["graphed"]
+    assert graphed["losses"] == eager["losses"] and np.isfinite(graphed["losses"]).all()
+    exact = spawn_local(1, ranks.collective_capture_rank, (), backend="nccl",
+                        device="cuda:{rank}", timeout_s=300)[0]
+    assert exact == [True] * 3
+
+
+def test_a_failed_sharded_capture_raises(cuda):
+    """A host read inside the sharded engine's captured epoch fails the
+    capture, and run() raises: nothing falls back to the eager loop."""
+    graphed, _ = _sharded_engines(cuda, "gcn")
+    loss = graphed.model.loss
+
+    def loss_with_a_host_read(*args, **kw):
+        out = loss(*args, **kw)
+        float(out)  # a device wait: refused while the stream is captured
+        return out
+
+    graphed.model.loss = loss_with_a_host_read
+    with pytest.raises(RuntimeError):
+        graphed.run()

@@ -239,21 +239,8 @@ def test_ring_stash_equals_jax_roll_and_rotation():
     assert ptrs == [[t.data_ptr() for t in c.values()] for c in win.copies]
 
 
-class _Rerun(graphs._Graph):
-    """A stand-in for a captured graph on the CPU: the capture records the
-    body and runs nothing; a replay reruns it and leaves the host's state
-    of `eng` (Adam's step) as a graph replay does."""
-
-    eng = None
-
-    def __init__(self, body):
-        self.body, self.added = body, []
-
-    def replay(self):
-        state = self.eng.opt_state
-        out = self.body()
-        self.eng.opt_state = state
-        return out
+# the capture stood in for: a replay reruns the body
+_Rerun = ranks.Rerun
 
 
 @pytest.mark.parametrize("stale", [0, 1])

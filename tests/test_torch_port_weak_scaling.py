@@ -93,7 +93,7 @@ def test_cpu_record_against_jax_run_once(jws):
     # every rank reads the same max-over-ranks epoch
     assert ranks[0]["measure"] == ranks[1]["measure"]
     assert all(r["backend"] == "gloo" and r["threads"] == max(1, os.cpu_count() // 2)
-               for r in ranks)
+               and r["epoch_timing"] == "eager" for r in ranks)
     # xla's edgewise split: K3 ran in its plain version, which counts no launch
     assert ranks[0]["launches"] == {}
 
@@ -150,15 +150,15 @@ def test_efficiency_arithmetic_as_jax(jws, monkeypatch, capsys, mode):
     want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     monkeypatch.setattr(weak_scaling, "run_shards",
                         lambda a, n, t: ({"shards": n, "edges_per_s": MADE_UP[n]},
-                                         [{"threads": 8 // n}]))
+                                         [{"threads": 8 // n, "epoch_timing": "eager"}]))
     got, _ = weak_scaling.sweep(weak_scaling.build_parser().parse_args([mode, *shards]),
                                 out=lambda line: None)
     assert got["weak_scaling"] == want["weak_scaling"]
     effs = [r["weak_scaling_efficiency"] for r in got["weak_scaling"]]
     assert effs == [1.0, round(1710 / 2000, 3), round(3100 / 4000, 3)]
     assert got["mode"] == want["mode"] == ("pinned-cpu" if mode == "--pin" else "shared-cpu")
-    assert set(got) == set(want) | {"backend", "threads_per_rank"}
-    assert got["backend"] == "gloo"
+    assert set(got) == set(want) | {"backend", "threads_per_rank", "epoch_timing"}
+    assert (got["backend"], got["epoch_timing"]) == ("gloo", "eager")
 
 
 def test_pin_command_line():
@@ -173,8 +173,10 @@ def test_pin_command_line():
     assert f"# skipping {many} shards (only {os.cpu_count()} cores to pin)" in lines
     summary = json.loads(lines[-1])
     assert set(summary) == {"weak_scaling", "mode", "graph", "cut", "kernel", "model",
-                            "cores", "repeats", "backend", "threads_per_rank"}
+                            "cores", "repeats", "backend", "threads_per_rank",
+                            "epoch_timing"}
     assert summary["mode"] == "pinned-cpu" and summary["backend"] == "gloo"
+    assert summary["epoch_timing"] == "eager"
     assert summary["threads_per_rank"] == {"1": 1, "2": 1}
     recs = summary["weak_scaling"]
     assert [r["shards"] for r in recs] == [1, 2]
@@ -194,13 +196,14 @@ def test_device_mode_needs_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setattr(weak_scaling, "run_shards",
-                        lambda a, n, t: ({"shards": n, "edges_per_s": 5.0}, [{"threads": 4}]))
+                        lambda a, n, t: ({"shards": n, "edges_per_s": 5.0},
+                                         [{"threads": 4, "epoch_timing": "replayed"}]))
     lines = []
     got, _ = weak_scaling.sweep(args_of("--shards", "1", "2", "4"), out=lines.append)
     assert [r["shards"] for r in got["weak_scaling"]] == [1]
     assert "# skipping 2 shards (only 1 devices)" in lines
     assert "# skipping 4 shards (only 1 devices)" in lines
-    assert (got["mode"], got["backend"]) == ("device", "nccl")
+    assert (got["mode"], got["backend"], got["epoch_timing"]) == ("device", "nccl", "replayed")
 
 
 def test_bench_mine_against_jax(monkeypatch, capsys):
