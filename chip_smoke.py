@@ -133,7 +133,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
      ShardedEngine.profile(iters=3), taken before its trace. Then both in f32
      against 4c's
      single-device hyb f32 losses (rtol 1e-4), and GCN with overlap off
-     (the combined plan) against the fused plan (rtol 1e-5);
+     (the combined plan) against the fused plan (rtol 1e-5). Every overlap
+     run (here and in 6d, 6f) splits each forward exchange around the
+     rank's interior work (parallel/halo.py `Halo.start` / `finish`): each
+     rank prints its fused plan's pure_edges / mixed_edges (or the pair's
+     interior / boundary edges), the exchanges its training started, those
+     whose interior work had completed when gloo's wait returned (an event
+     recorded before the wait, queried after it), the host's ms an exchange
+     and the card's ms beside a held one (multihost.EXCHANGES); an overlap
+     run that split no exchange, or a combined one that split any, fails;
   6d. (in phase 6's launch) the same on kernel="degree" with the (interior,
      boundary) plan pair, bf16, 2 epochs: degree, K9 and K10 launches > 0 on
      every rank; in f32 against 4c's hyb losses (rtol 1e-4) and against
@@ -153,9 +161,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
      reuse="pairs": rtol 1e-5;
   6c. only where torch.cuda.device_count() >= 2: phase 6's GCN over NCCL,
      one rank per card, through the epochs' CUDA graphs (the halo
-     exchanges and the all-reduce captured) and then eagerly from the same
-     init, bit for bit with the same launches; else one line says the NCCL
-     path was not run.
+     exchanges, each forked onto a side stream beside the pure K8 range and
+     joined before the mixed one, and the all-reduce captured) and then
+     eagerly from the same init, bit for bit with the same launches; else
+     one line says the NCCL path was not run.
   7. the command line, through `cli.main` on the card it picks by default,
      at the Reddit config (602-128-41) on synthetic_graph(232_965, 25, 602,
      41, seed=8888) (11.6M edges), degree-ascending, one graph for 7a-7d:
@@ -258,9 +267,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
      plan: no K8-K10 at n = 1); the rank's epochs replayed as CUDA graphs
      (`epoch_timing` "replayed"), equal bit for bit to the same config run
      eagerly from the same init in the rank; `multihost.all_to_all_rows`
-     and an NCCL all-reduce captured in one CUDA graph on the world of 1,
-     3 replays with new inputs exact; the replayed epoch beside the
-     Engine's and the rank's eager one;
+     (its fork onto the side stream and join) and an NCCL all-reduce
+     captured in one CUDA graph on the world of 1, 3 replays with new
+     inputs exact; the replayed epoch beside the Engine's and the rank's
+     eager one; then K8 as the engines launch it, two ranges of its parts
+     (the pure range, then the mixed one into the same output) on shard 0
+     of the 4-way partition of that graph (its pure range not empty;
+     n_pure and pure_edges printed), GCN's static op in bf16 and the mask
+     op in f32 at F=32 and 8: each range against its plain half (f32 1e-4,
+     bf16 1e-2 of max |plain|), the two bit for bit against one launch over
+     every part, the pure range's launch counted apart (FUSED_PURE_LAUNCHES);
+     the pass and kernel-only ms of each range at F=32 bf16 beside the one
+     launch's;
 K1, K2, K7 and K8 (and the degree passes on K1/K7) are one launch a pass
 over every part of their plan (the gather core, csrc/gather_pass.cuh); their
 timed rows carry the pass ms (CUDA events: the table's cast, the
@@ -1042,6 +1060,7 @@ def launch_counts() -> dict:
             "K5": spmm.SEGSUM_LAUNCHES, "K6": reuse_spmm.PAIR_LAUNCHES,
             "K7": hyb_spmm.DYN_LAUNCHES, "K7_dh": hyb_spmm.DYN_T_LAUNCHES,
             "K7_dh_dval": hyb_spmm.DYN_DVAL_LAUNCHES, "K8": hyb_sharded.FUSED_LAUNCHES,
+            "K8_pure": hyb_sharded.FUSED_PURE_LAUNCHES,
             "K9": halo.PACK_LAUNCHES, "K10": halo.HALO_BWD_LAUNCHES,
             "degree": degree_spmm.DEGREE_LAUNCHES}
 
@@ -1056,6 +1075,7 @@ def reset_counts() -> None:
     spmm.SDDMM_LAUNCHES = spmm.SEGSUM_LAUNCHES = 0
     reuse_spmm.PAIR_LAUNCHES = degree_spmm.DEGREE_LAUNCHES = 0
     hyb_sharded.FUSED_LAUNCHES = halo.PACK_LAUNCHES = halo.HALO_BWD_LAUNCHES = 0
+    hyb_sharded.FUSED_PURE_LAUNCHES = 0
 
 
 def step_launches(step) -> dict:
@@ -1540,6 +1560,98 @@ def compare_fused(name: str, op, f: int, seed: int, timed: bool,
     return res
 
 
+def compare_fused_ranges(name: str, op, f: int, seed: int, timed: bool) -> dict:
+    """K8 as the engines launch it (ops/hyb_sharded.py): the pure range
+    (fused_pure_pass, before the exchange's finish), then the mixed buckets
+    and the hub top into the same output (fused_mixed_pass). Each range
+    against its plain half on the same CUDA tensors (the mixed range alone,
+    into a zeroed output), launches 1 + 1 (the pure range none where the
+    plan has no pure bucket), and the two ranges bit for bit against one
+    launch over every part (fused_pass). Where timed: the pass ms of each
+    range, of both, of the one launch and of the plain halves, and each
+    range's kernel-only ms."""
+    from dorylus_tpu_torch.ops import hyb_sharded as hs
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    vp, ng, f_plan = op.vp, op.table - op.vp, op.fwd
+    h, gh = randn(gen, vp, f), randn(gen, ng, f)
+    gd = op.gather_dtype
+    dtype = "bfloat16" if gd is torch.bfloat16 else "float32"
+    mode = "static" if op.has_static_vals else "mask"
+    res = {"case": name, "kernel": "K8 ranges", "mode": mode, "F": f, "dtype": dtype,
+           "tol_rel": TOL[dtype], "n_pure": op.n_pure, "pure_edges": op.pure_edges,
+           "mixed_edges": op.mixed_edges,
+           "parts": [len(f_plan[k]["parts"].parts) for k in ("pure", "mixed")]}
+    before = (hs.FUSED_LAUNCHES, hs.FUSED_PURE_LAUNCHES)
+    pure = hs.fused_pure_pass(h, f_plan, op.n_pure, gd, mode)
+    pure_out = pure.out.clone()
+    got = hs.fused_mixed_pass(pure, gh, f_plan, op.n_pure, gd, mode)
+    torch.cuda.synchronize()
+    res["launches"] = [hs.FUSED_LAUNCHES - before[0], hs.FUSED_PURE_LAUNCHES - before[1]]
+    check(res["launches"] == ([2, 1] if op.n_pure else [1, 0]),
+          f"{name}: K8 ranges launched {res['launches']} (all, pure)")
+    want_pure = hs.fused_pure_plain(h, f_plan, op.n_pure, gd, mode)
+    close(res, "K8", "pure", pure_out, want_pure.out, dtype)
+    mixed = hs.fused_mixed_pass(hs.PureRange(torch.zeros_like(pure.out), pure.h_table), gh,
+                                f_plan, op.n_pure, gd, mode)
+    want_mixed = hs.fused_mixed_plain(hs.PureRange(torch.zeros_like(want_pure.out),
+                                                   want_pure.h_table), gh, f_plan, op.n_pure,
+                                      gd, mode)
+    close(res, "K8", "mixed", mixed, want_mixed, dtype)
+    one = hs.fused_pass(h, gh, f_plan, op.n_pure, gd, mode)
+    check(torch.equal(got, one), f"{name} F={f} {dtype}: the two K8 ranges differ from one "
+          "launch over every part")
+    res["ranges_equal_one_launch"] = True
+    del pure_out, mixed, want_mixed, one
+    if timed:
+        def both():
+            return hs.fused_mixed_pass(hs.fused_pure_pass(h, f_plan, op.n_pure, gd, mode), gh,
+                                       f_plan, op.n_pure, gd, mode)
+
+        res["pure_ms"] = cuda_ms(lambda: hs.fused_pure_pass(h, f_plan, op.n_pure, gd, mode), 20)
+        res["mixed_ms"] = cuda_ms(lambda: hs.fused_mixed_pass(pure, gh, f_plan, op.n_pure, gd,
+                                                              mode), 20)
+        res["both_ms"] = cuda_ms(both, 20)
+        res["one_launch_ms"] = cuda_ms(lambda: hs.fused_pass(h, gh, f_plan, op.n_pure, gd,
+                                                             mode), 20)
+        res["plain_ms"] = cuda_ms(lambda: hs.fused_mixed_plain(
+            hs.fused_pure_plain(h, f_plan, op.n_pure, gd, mode), gh, f_plan, op.n_pure, gd,
+            mode), 3)
+        kernel_split(res, "pure", f_plan["pure"],
+                     lambda: hs.fused_pure_pass(h, f_plan, op.n_pure, gd, mode))
+        kernel_split(res, "mixed", f_plan,
+                     lambda: hs.fused_mixed_pass(pure, gh, f_plan, op.n_pure, gd, mode))
+    print("compare " + json.dumps(res), flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def fused_ranges_phase(g) -> list:
+    """(Phase 13) K8's two ranges on shard 0 of the 4-way range partition
+    of JAX's r5 clustered graph (clustered cut 0.1, in-degree 16: about a
+    fifth of a shard's vertices have only local in-edges, so its pure range
+    is not empty), built in this process: GCN's static op in bf16 and the
+    mask op in f32, at the r5 model's aggregation widths 32 and 8 (the
+    static bf16 pass at 32 timed)."""
+    from dorylus_tpu_torch.graph.partition import partition_graph
+    from dorylus_tpu_torch.ops.hyb_sharded import ShardedHybSpMM
+
+    t0 = time.perf_counter()
+    shard = partition_graph(g, RANKS).shards[0]
+    out = []
+    for static, gd in ((True, torch.bfloat16), (False, None)):
+        op = ShardedHybSpMM(shard, RANKS, edges="fused", static_vals=static, gather_dtype=gd,
+                            device="cuda")
+        check(op.n_pure > 0, f"r5 shard 0: no pure bucket ({op.pure_edges} pure edges)")
+        for f in (32, 8):
+            out.append(compare_fused_ranges(
+                f"r5 shard 0/{RANKS} {'static' if static else 'mask'}", op, f, 80 + f,
+                timed=static and f == 32))
+        del op
+    print(f"K8 ranges on the r5 shard: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def compare_hyb_split(name: str, op, f: int, seed: int) -> dict:
     """A rank's interior or boundary hyb plan (ShardedHybSpMM with static
     values): K1 through apply_static and K2 through apply_dst, forward and
@@ -1712,7 +1824,10 @@ def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list,
     the run is timed, also the train step's ms and launches and the halo
     exchange's ms at each layer's aggregation width; with "stages", the
     engine's stage profile (before any trace in the run); where it is
-    profiled, a profile of the step. native_miner False: the parent found
+    profiled, a profile of the step. Each run also reports the exchanges
+    its training split around the interior work (multihost.EXCHANGES, set
+    to 0 just before the run: started, held, the host's and the card's ms)
+    and its fused plan's pure and mixed edges. native_miner False: the parent found
     that native/libgraphcore.so does not build on this host, so the rank
     does not try again (each try costs seconds) and mines with numpy."""
     from dorylus_tpu_torch import native
@@ -1745,8 +1860,10 @@ def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list,
         eng = ShardedEngine((shard, meta), LayerConfig(run["dims"]), cfg, device=device)
         build_s = time.perf_counter() - t0
         restore = width_counter() if run.get("widths") else None
+        multihost.EXCHANGES.update(started=0, held=0, host_ms=0.0, beside_ms=0.0)
         rep = eng.run(graphs=not run.get("eager"))
         sync()
+        exchanges = dict(multihost.EXCHANGES)
         row = {"label": run["label"], "rank": rank, "backend": multihost.backend_name(),
                "epoch_timing": "replayed" if eng._graphs is not None else "eager",
                "mesh": list(eng.mesh[:4]),
@@ -1757,13 +1874,14 @@ def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list,
                "overlap": bool(eng.cfg.overlap), "wire": eng.halo_plan.wire,
                "local_vertices": shard.num_local, "edges": shard.num_edges,
                "ghosts": int(eng.halo_plan.recv_cnt.sum()), "max_h": meta.max_h,
-               "wire_rows": eng.halo_plan.wire_rows(rank)}
+               "wire_rows": eng.halo_plan.wire_rows(rank), "exchanges": exchanges}
         split, op = eng.model.spmm_split, eng.model.spmm_op
         if getattr(split, "fused", False):
             row.update(n_pure=split.n_pure, pure_edges=split.pure_edges,
                        mixed_edges=split.mixed_edges)
-        elif split is not None:
-            row.update(interior_edges=split[0].num_edges, boundary_edges=split[1].num_edges)
+        elif split is not None or eng.model.edge_split is not None:
+            pair = split if split is not None else eng.model.edge_split
+            row.update(interior_edges=pair[0].num_edges, boundary_edges=pair[1].num_edges)
         if restore is not None:
             row["launches_by_width"] = restore()
         if hasattr(op, "plan_fwd"):  # the sharded reuse op
@@ -1955,6 +2073,29 @@ def sharded_phases(sg, sg2, sgc, layers, hyb_f32_losses, kernel_sources) -> dict
                       f"{r['overlap']}")
                 for k in kernels:
                     check(r["launches"][k] > 0, f"{label} rank {r['rank']}: no {k} launch")
+                ex = r["exchanges"]
+                # an overlap plan splits every forward exchange around its
+                # interior work; the combined plan splits none
+                check((ex["started"] > 0) == overlap and ex["held"] <= ex["started"],
+                      f"{label} rank {r['rank']}: exchanges {ex}")
+            if overlap:
+                overlap_lines(label, rows)
+
+        def overlap_lines(label, rows):
+            """Per rank: the exchanges training split around the interior
+            work, those whose interior work had completed when gloo's wait
+            returned, the host's ms an exchange and the card's ms beside a
+            held one, and the fused plan's pure / mixed edges."""
+            for r in rows:
+                ex = r["exchanges"]
+                edges = (f", pure_edges {r['pure_edges']}, mixed_edges {r['mixed_edges']}"
+                         if "pure_edges" in r else
+                         f", interior_edges {r['interior_edges']}, boundary_edges "
+                         f"{r['boundary_edges']}" if "interior_edges" in r else "")
+                print(f"overlap {label} rank {r['rank']}: exchanges started {ex['started']}, "
+                      f"interior done within the wait {ex['held']}, host ms an exchange "
+                      f"{ex['host_ms'] / max(1, ex['started']):.3f}, card ms beside a held "
+                      f"exchange {ex['beside_ms'] / max(1, ex['held']):.4f}{edges}", flush=True)
 
         def timing(rows):
             out = {"warm_epoch_ms": float(np.mean(rows[0]["epoch_ms"][1:])),
@@ -2028,7 +2169,7 @@ def sharded_phases(sg, sg2, sgc, layers, hyb_f32_losses, kernel_sources) -> dict
                 if model == "gcn":
                     check(rows[0]["losses"][-1] < rows[0]["losses"][0],
                           f"{model} bf16 {plan}: loss did not fall")
-                for k in ("K1", "K2", "K8", "K9", "K10", "degree"):
+                for k in ("K1", "K2", "K8", "K8_pure", "K9", "K10", "degree"):
                     key = k if plan == "fused" or k == "degree" else f"{k}_degree"
                     launches[key] = launches.get(key, 0) + sum(r["launches"][k] for r in rows)
                 timings[f"{model} {plan}"] = timing(rows)
@@ -2804,6 +2945,7 @@ def weak_scaling_phase() -> dict:
     replayed = switch_points.warm_ms(eng, cfg.learning_rate)
     del eng
     torch.cuda.empty_cache()
+    ranges = fused_ranges_phase(g)
     seconds = time.perf_counter() - t0
     print(f"weak_scaling n=1 over NCCL: losses within rtol {gap:.3e} of Engine's; the rank's "
           f"launches {json.dumps(launches)}; replayed == eager bit for bit; all_to_all_rows "
@@ -2815,7 +2957,7 @@ def weak_scaling_phase() -> dict:
           f"tool's sweep {sweep_s:.1f} s)", flush=True)
     return {"summary": summary, "engine_replayed_ms": replayed, "launches": launches,
             "loss_rtol": gap, "seconds": seconds, "sweep_s": sweep_s,
-            "rank_eager_epoch_ms": ranks[0]["eager_epoch_ms"]}
+            "rank_eager_epoch_ms": ranks[0]["eager_epoch_ms"], "k8_ranges": ranges}
 
 
 def main() -> None:
@@ -3738,6 +3880,20 @@ def main() -> None:
             k["kernel_ms"] = k6["kernel_ms"]
         if k["name"] == "fused_bwd_pass":
             k["kernel_ms"] = k8["bwd_kernel_ms"]
+        if k["name"] == "fused_pass":
+            # the two ranges the engines launch (phase 13's r5 shard: the
+            # pass ms of each, both, one launch; each range's kernel ms),
+            # and phase 6's launches of K8 and of its pure range a step
+            timed = next(r for r in weak["k8_ranges"] if "pure_ms" in r)
+            k["ranges"] = dict(
+                {key: timed[key] for key in (
+                    "case", "F", "dtype", "n_pure", "pure_edges", "mixed_edges", "pure_ms",
+                    "mixed_ms", "both_ms", "one_launch_ms", "plain_ms", "pure_kernel_ms",
+                    "mixed_kernel_ms")},
+                phase6_launches_per_step={
+                    label: [{key: r.get(key, 0) for key in ("K8", "K8_pure")}
+                            for r in sharded["timings"][label]["launches_per_step"]]
+                    for label in ("gcn fused", "gat fused")})
     # The probes, on the grid that fills the card, bound by what each uses:
     # P1 reads a 4 KB tile from shared memory per op and block (one f32 add
     # per element), P2 reads and writes it; P3 moves each row it copies

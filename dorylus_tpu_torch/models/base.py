@@ -56,11 +56,23 @@ def check_divisible(width: int, m: int, what: str) -> None:
 
 
 Params = Dict[str, torch.Tensor]
-# The sharded engine's exchange (parallel/halo.py make_halo_fn): h -> the
-# feature table (local rows, then ghosts), or the ghost rows only on the
-# overlap paths (the fused plan, the (interior, boundary) op pair, the
-# edgewise split).
+# The sharded engine's exchange (parallel/halo.py make_halo_fn's `Halo`): h
+# -> the feature table (local rows, then ghosts), or the ghost rows only on
+# the overlap paths (the fused plan, the (interior, boundary) op pair, the
+# edgewise split), which also split it with `start` / `finish`.
 HaloFn = Callable[[torch.Tensor], torch.Tensor]
+
+
+def start_halo(halo: HaloFn, h: torch.Tensor):
+    """The overlap paths' first step: start exchanging h where the halo
+    has a `start` (parallel/halo.py `Halo`). A halo that is only a callable
+    exchanges nothing yet: `finish_halo` then runs it whole."""
+    return halo.start(h) if hasattr(halo, "start") else h
+
+
+def finish_halo(halo: HaloFn, pending) -> torch.Tensor:
+    """The ghost rows of the exchange `start_halo` began."""
+    return halo.finish(pending) if hasattr(halo, "start") else halo(pending)
 
 
 def check_split(spmm_split) -> None:

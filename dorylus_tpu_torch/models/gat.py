@@ -21,15 +21,21 @@ Aggregation:
     values (its backward gives d(att) through the SDDMM kernel); past 400k
     vertices JAX's dst-blocked form of the same sum, routed to the same op.
 
-Sharded (`halo` given): with the fused-overlap op (`spmm_split`) `halo(z)`
-returns the ghost z rows only and `apply_dst_fused(z, ghosts, leaky(za))`
-takes both (JAX's overlap branch); with the (interior, boundary) op pair
+Sharded (`halo` given): on the three overlap paths the exchange of z is
+started (`halo.start`), the work that reads z alone is issued, the
+exchange is finished (`halo.finish`: the ghost z rows alone) and the rest
+is issued, as in models/gcn.py. The attention vector leaky(za) is local,
+so it is issued before the finish too. With the fused-overlap op
+(`spmm_split`) the work beside the exchange is K8's pure range
+(`pure_range`), then `apply_dst_fused(z, ghosts, leaky(za), pure)` adds the
+mixed range (JAX's overlap branch); with the (interior, boundary) op pair
 (`spmm_split` a 2-tuple, the degree kernel's overlap plan) two `apply_dst`
-passes, interior over z and boundary over the ghosts, both weighted by the
-same local leaky(za); with the edgewise split (`edge_split`, two EdgeSpMM)
-two CSR SpMMs with att over `dst_int` and `dst_bnd`. Autograd sums the two
-contributions to d(att). Otherwise `halo(z)` returns the feature table and
-the combined op or the edgewise op gathers from it.
+passes, interior over z beside the exchange and boundary over the ghosts
+after it, both weighted by the same local leaky(za); with the edgewise
+split (`edge_split`, two EdgeSpMM) two CSR SpMMs with att over `dst_int`
+(beside the exchange) and `dst_bnd`. Autograd sums the two contributions
+to d(att). Otherwise `halo(z)` returns the feature table and the combined
+op or the edgewise op gathers from it.
 
 Tensor parallelism (`tp`, a FeatAxis of m > 1; JAX `_forward_tp`): z is
 the feat group's sum of this rank's slice of h times its W row block; the
@@ -55,7 +61,7 @@ from dorylus_tpu_torch.common.config import LayerConfig
 from dorylus_tpu_torch.models import init as winit
 from dorylus_tpu_torch.models.base import (GNN, FeatAxis, GraphBatch, HaloFn, Params,
                                            check_divisible, check_edge_split, check_split,
-                                           split_of)
+                                           finish_halo, split_of, start_halo)
 from dorylus_tpu_torch.models.gcn import _complete_grad_feat, _psum_feat, place_block
 from dorylus_tpu_torch.ops.activations import leaky_relu
 from dorylus_tpu_torch.ops.spmm import (EdgeSpMM, spmm_dst_blocked,
@@ -117,7 +123,7 @@ class GAT(GNN):
                    edge_mask: torch.Tensor, halo: HaloFn | None = None) -> torch.Tensor:
         if halo is not None and (self.spmm_split is not None
                                  or self.edge_split is not None):
-            return self._aggregate_split(z, za, batch, halo(z))
+            return self._aggregate_split(z, za, batch, halo)
         table = halo(z) if halo is not None else z
         if self.spmm_op is not None:
             return self.spmm_op.apply_dst(table, leaky_relu(za)).to(z.dtype)
@@ -129,24 +135,31 @@ class GAT(GNN):
         return spmm_edgewise(table, batch.src, batch.dst, att, v, op=op)
 
     def _aggregate_split(self, z: torch.Tensor, za: torch.Tensor, batch: GraphBatch,
-                         ghosts: torch.Tensor) -> torch.Tensor:
-        """The overlap paths: `ghosts` are the ghost z rows alone."""
+                         halo: HaloFn) -> torch.Tensor:
+        """The overlap paths: the exchange of z is in flight while the work
+        that reads z alone is issued; the ghost z rows arrive after it."""
+        pending = start_halo(halo, z)
         if getattr(self.spmm_split, "fused", False):
-            return self.spmm_split.apply_dst_fused(z, ghosts, leaky_relu(za)).to(z.dtype)
+            op = self.spmm_split
+            att_v = leaky_relu(za)
+            pure = op.pure_range(z, "mask")
+            return op.apply_dst_fused(z, finish_halo(halo, pending), att_v, pure).to(z.dtype)
         if self.spmm_split is not None:
             # Two dst-functional passes, both weighted by the local
             # attention vector.
             op_i, op_b = self.spmm_split
             att_v = leaky_relu(za)
-            return (op_i.apply_dst(z, att_v) + op_b.apply_dst(ghosts, att_v)).to(z.dtype)
+            out_i = op_i.apply_dst(z, att_v)
+            return (out_i + op_b.apply_dst(finish_halo(halo, pending), att_v)).to(z.dtype)
         eop_i, eop_b = self.edge_split
         v = z.shape[0]
         att_i = (leaky_relu(take_sorted(za, batch.dst_int, v, op=eop_i))
                  * batch.val_int.to(za.dtype))
         att_b = (leaky_relu(take_sorted(za, batch.dst_bnd, v, op=eop_b))
                  * batch.val_bnd.to(za.dtype))
-        return (spmm_edgewise(z, batch.src_int, batch.dst_int, att_i, v, op=eop_i)
-                + spmm_edgewise(ghosts, batch.src_bnd, batch.dst_bnd, att_b, v, op=eop_b))
+        out_i = spmm_edgewise(z, batch.src_int, batch.dst_int, att_i, v, op=eop_i)
+        return out_i + spmm_edgewise(finish_halo(halo, pending), batch.src_bnd,
+                                     batch.dst_bnd, att_b, v, op=eop_b)
 
     def _forward_tp(self, batch: GraphBatch, compute_dtype: torch.dtype,
                     halo: HaloFn | None) -> torch.Tensor:

@@ -28,15 +28,20 @@ order the layers the same way there; under a halo JAX's rule is off
 Sharded (`halo` given, parallel/halo.py `make_halo_fn`): with a combined
 op (`spmm_op` a ShardedHybSpMM, or the edgewise op over the shard's edges)
 `halo(x)` returns the feature table (local rows, then ghosts) and the
-aggregation gathers from it (JAX `_agg_halo`); with the fused-overlap op
-(`spmm_split`, ShardedHybSpMM edges="fused") `halo(x)` returns the ghost
-rows only and `apply_static_fused(x, ghosts)` takes both (JAX's fused
-branch of `_aggregate_split`). The other two overlap paths take the ghost
-rows the same way and add two passes (JAX `_aggregate_split`): the
-(interior, boundary) op pair (`spmm_split` a 2-tuple, the degree kernel's
-overlap plan: interior over x, boundary over the ghosts) and the edgewise
-split (`edge_split`, two EdgeSpMM over the batch's `src_int ... val_bnd`).
-The interior pass reads no ghost row.
+aggregation gathers from it (JAX `_agg_halo`). The three overlap paths
+(JAX `_aggregate_split`) take the ghost rows alone and split the work
+around the exchange, in one order: start the exchange of x
+(`halo.start`), issue the work that reads x alone, finish the exchange
+(`halo.finish`), issue the rest. So the interior work runs while the rows
+are in flight, as XLA schedules JAX's (`dorylus_tpu/models/gcn.py:149-152`).
+The work that reads x alone: with the fused-overlap op (`spmm_split`,
+ShardedHybSpMM edges="fused") K8's pure range (`pure_range`, the buckets
+whose in-edges are all local), then `apply_static_fused(x, ghosts, pure)`
+adds the mixed range (JAX's fused branch); with the (interior, boundary)
+op pair (`spmm_split` a 2-tuple, the degree kernel's overlap plan) the
+interior op over x, then the boundary op over the ghosts; with the
+edgewise split (`edge_split`, two EdgeSpMM over the batch's `src_int ...
+val_bnd`) the interior `aggregate`, then the boundary SpMM.
 
 Tensor parallelism (`tp`, a FeatAxis of m > 1; JAX `_forward_tp`): each
 rank of a feat group aggregates an F/m column slice of the table, the halo
@@ -55,7 +60,7 @@ from dorylus_tpu_torch.common.config import LayerConfig
 from dorylus_tpu_torch.models import init as winit
 from dorylus_tpu_torch.models.base import (GNN, FeatAxis, GraphBatch, HaloFn, Params,
                                            check_divisible, check_edge_split, check_split,
-                                           split_of)
+                                           finish_halo, split_of, start_halo)
 from dorylus_tpu_torch.ops.spmm import (EdgeSpMM, aggregate, spmm_dst_blocked,
                                         spmm_edgewise)
 
@@ -174,7 +179,7 @@ class GCN(GNN):
         self_term = h * batch.self_val[:, None].to(h.dtype)
         if halo is not None and (self.spmm_split is not None
                                  or self.edge_split is not None):
-            return self._aggregate_split(h, batch, halo(h), self_term)
+            return self._aggregate_split(h, batch, halo, self_term)
         table = halo(h) if halo is not None else h
         if self.spmm_op is None:
             if self.blk_rows:
@@ -189,27 +194,31 @@ class GCN(GNN):
             out = self.spmm_op.apply(table, batch.edge_val.to(h.dtype))
         return out.to(h.dtype) + self_term
 
-    def _aggregate_split(self, h: torch.Tensor, batch: GraphBatch,
-                         ghosts: torch.Tensor, self_term: torch.Tensor) -> torch.Tensor:
-        """The overlap paths: `ghosts` are the ghost rows alone, and
-        whatever reads only h does not depend on the exchange."""
+    def _aggregate_split(self, h: torch.Tensor, batch: GraphBatch, halo: HaloFn,
+                         self_term: torch.Tensor) -> torch.Tensor:
+        """The overlap paths: the exchange of h is in flight while the work
+        that reads h alone is issued; the ghost rows arrive after it."""
+        pending = start_halo(halo, h)
         if getattr(self.spmm_split, "fused", False):
             # The pure buckets gather h, the mixed ones h and the ghosts.
-            out = self.spmm_split.apply_static_fused(h, ghosts)
+            op = self.spmm_split
+            pure = op.pure_range(h, "static")
+            out = op.apply_static_fused(h, finish_halo(halo, pending), pure)
             return out.to(h.dtype) + self_term
         if self.spmm_split is not None:
             op_i, op_b = self.spmm_split
             if op_i.has_static_vals:
-                out_i, out_b = op_i.apply_static(h), op_b.apply_static(ghosts)
+                out_i = op_i.apply_static(h)
+                out_b = op_b.apply_static(finish_halo(halo, pending))
             else:
                 out_i = op_i.apply(h, batch.val_int.to(h.dtype))
-                out_b = op_b.apply(ghosts, batch.val_bnd.to(h.dtype))
+                out_b = op_b.apply(finish_halo(halo, pending), batch.val_bnd.to(h.dtype))
             return (out_i + out_b).to(h.dtype) + self_term
         eop_i, eop_b = self.edge_split
         out_i = aggregate(h, batch.src_int, batch.dst_int, batch.val_int,
                           batch.self_val, op=eop_i)
-        out_b = spmm_edgewise(ghosts, batch.src_bnd, batch.dst_bnd, batch.val_bnd,
-                              h.shape[0], op=eop_b)
+        out_b = spmm_edgewise(finish_halo(halo, pending), batch.src_bnd, batch.dst_bnd,
+                              batch.val_bnd, h.shape[0], op=eop_b)
         return out_i + out_b
 
     def _forward_tp(self, batch: GraphBatch, compute_dtype: torch.dtype,

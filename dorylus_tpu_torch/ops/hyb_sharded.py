@@ -37,17 +37,27 @@ rank owns its plan: it is built over the shard's REAL edges
 the rank's own width DP. dynamic=False only, as the JAX engine builds it.
 
 On the card the forward pass is K8 (csrc/fused_spmm.cu): K1/K2's gather
-core with two table pointers, so h and ghosts are never concatenated, and
-one launch over every part: the descriptor of a pure bucket carries no
-split (it reads h alone), a mixed bucket's and the hub top's carry
-split = vp. `fused_pass` dispatches on the device: CPU tensors take the
-plain version (`_hyb_pass_plain` with `h_local` / `n_pure`), CUDA tensors
-launch the kernel or raise.
+core with two table pointers, so h and ghosts are never concatenated. The
+descriptor of a pure bucket carries no split (it reads h alone), a mixed
+bucket's and the hub top's carry split = vp. The engines launch it as two
+ranges of the plan's parts, so that the pure buckets run while the halo
+exchange is in flight (JAX exposes them to XLA's scheduler beside the
+all_to_all, dorylus_tpu/ops/hyb_sharded.py:328-342): `fused_pure_pass`
+zeroes the f32 output, casts h once and launches the pure range (none
+when the plan has no pure bucket) before the ghosts arrive;
+`fused_mixed_pass` casts the ghosts and launches the mixed buckets and
+the top into the same output after. The two write disjoint rows, each
+summed inside its part by the same code as one launch over every part
+(`fused_pass`, which the checks hold the ranges against), so the result
+is the same bit for bit. Each dispatches on the device: CPU tensors take
+the plain version (`fused_pure_plain` / `fused_mixed_plain`, the halves of
+`fused_pass_plain`), CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -59,10 +69,12 @@ from dorylus_tpu_torch.ops.gather_parts import LOCAL_ONLY, PartTable, gather_tab
 from dorylus_tpu_torch.ops.hyb_plan import _LAMBDA_SLOTS, build_hyb_plan
 from dorylus_tpu_torch.ops.hyb_spmm import (HybDstFn, HybStaticFn, HybUnitFn, _hyb_pass,
                                             _hyb_pass_plain, _is_narrow, _upload,
-                                            launch_parts)
+                                            launch_parts, reduce_slots_plain)
 
-# K8 launches made by this process, one per fused pass.
+# K8 launches made by this process (one a fused pass in one launch, one a
+# range), and those of them over a pure range.
 FUSED_LAUNCHES = 0
+FUSED_PURE_LAUNCHES = 0
 
 _CSRC = cuda_build.CSRC / "fused_spmm.cu"
 _lib: ctypes.CDLL | None = None
@@ -88,15 +100,61 @@ def build_kernel() -> ctypes.CDLL:
 
 def _launch_fused_pass(tb_h: torch.Tensor, tb_g: torch.Tensor, plan: dict,
                        out: torch.Tensor, unit: bool) -> int:
-    """K8 over every part of the fused plan: a slot index s below a part's
-    split (vp for mixed parts) reads tb_h[s], any other tb_g[s - vp]; the
-    part's values weigh the rows (static) or 1 does (unit=True, mask mode).
-    tb_h and tb_g are laid out by `gather_table`. Raises on anything the
-    kernel does not take. Returns the launches made."""
-    global FUSED_LAUNCHES
+    """K8 over every part of `plan` (the fused plan, or one of its ranges,
+    `plan["pure"]` / `plan["mixed"]`): a slot index s below a part's split
+    (vp for mixed parts) reads tb_h[s], any other tb_g[s - vp]; the part's
+    values weigh the rows (static) or 1 does (unit=True, mask mode). tb_h
+    and tb_g are laid out by `gather_table`. Raises on anything the kernel
+    does not take. Returns the launches made."""
+    global FUSED_LAUNCHES, FUSED_PURE_LAUNCHES
     launched = launch_parts(build_kernel, "fused_pass", [tb_h, tb_g], plan, out, unit)
     FUSED_LAUNCHES += launched
+    if plan.get("range") == "pure":
+        FUSED_PURE_LAUNCHES += launched
     return launched
+
+
+class PureRange(NamedTuple):
+    """What the pure range leaves for the mixed one: the (vp, F) f32
+    output with the pure buckets' rows written, and h as the pass reads it
+    (cast to the gather dtype once; on the card laid out by
+    `gather_table`)."""
+
+    out: torch.Tensor
+    h_table: torch.Tensor
+
+
+def _place_plain(out: torch.Tensor, tb: torch.Tensor, parts, narrow: bool,
+                 mode: str) -> None:
+    """Each part's f32 sums into its rows of out (the hub top's chunk rows
+    added per hub first), as `_hyb_pass_plain` computes them."""
+    for part in parts:
+        sums, _ = reduce_slots_plain(tb, part, narrow, mode)
+        if "rowv" in part:
+            sums = torch.zeros((part["v"].shape[0], out.shape[1]), dtype=torch.float32,
+                               device=out.device).index_add_(0, part["rowv"], sums)
+        out[part["v"].long()] = sums
+
+
+def fused_pure_plain(h: torch.Tensor, plan: dict, n_pure: int,
+                     gather_dtype: torch.dtype | None, mode: str) -> PureRange:
+    """The pure half of `fused_pass_plain`: the first n_pure buckets, which
+    gather h alone, into a zeroed (vp, F) f32 output."""
+    tb_h = h if gather_dtype is None else h.to(gather_dtype)
+    out = torch.zeros((h.shape[0], h.shape[1]), dtype=torch.float32, device=h.device)
+    _place_plain(out, tb_h, plan["buckets"][:n_pure], _is_narrow(gather_dtype), mode)
+    return PureRange(out, tb_h)
+
+
+def fused_mixed_plain(pure: PureRange, ghosts: torch.Tensor, plan: dict, n_pure: int,
+                      gather_dtype: torch.dtype | None, mode: str) -> torch.Tensor:
+    """The mixed half of `fused_pass_plain`: the other buckets and the hub
+    top over concat(h, ghosts), into pure.out, which it returns."""
+    tb_g = ghosts if gather_dtype is None else ghosts.to(gather_dtype)
+    parts = list(plan["buckets"][n_pure:]) + ([plan["top"]] if plan["top"] is not None else [])
+    _place_plain(pure.out, torch.cat([pure.h_table, tb_g], dim=0), parts,
+                 _is_narrow(gather_dtype), mode)
+    return pure.out
 
 
 def fused_pass_plain(h: torch.Tensor, ghosts: torch.Tensor, plan: dict, n_pure: int,
@@ -109,14 +167,22 @@ def fused_pass_plain(h: torch.Tensor, ghosts: torch.Tensor, plan: dict, n_pure: 
                            mode, h_local=h, n_pure=n_pure)
 
 
+def _check_fused(h: torch.Tensor, mode: str, entry: str) -> None:
+    if mode not in ("static", "mask"):
+        raise ValueError(f"{entry}: mode {mode!r} (static or mask)")
+    if h.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{entry}: unsupported device {h.device}")
+
+
 def fused_pass(h: torch.Tensor, ghosts: torch.Tensor, plan: dict, n_pure: int,
                gather_dtype: torch.dtype | None, mode: str) -> torch.Tensor:
-    """The fused forward pass -> (vp, F) f32. CPU tensors run the plain
-    version. CUDA tensors run K8 once over the pure buckets (which read h
-    alone), the mixed buckets and the hub top; h and ghosts are each cast
-    once to the gather dtype. Anything else raises."""
-    if mode not in ("static", "mask"):
-        raise ValueError(f"fused_pass: mode {mode!r} (static or mask)")
+    """The fused forward pass in one launch -> (vp, F) f32 (the engines
+    run it as two ranges, `fused_pure_pass` then `fused_mixed_pass`, which
+    the checks hold against it). CPU tensors run the plain version. CUDA
+    tensors run K8 once over the pure buckets (which read h alone), the
+    mixed buckets and the hub top; h and ghosts are each cast once to the
+    gather dtype. Anything else raises."""
+    _check_fused(h, mode, "fused_pass")
     if h.device.type == "cpu":
         return fused_pass_plain(h, ghosts, plan, n_pure, gather_dtype, mode)
     if h.device.type != "cuda" or ghosts.device != h.device:
@@ -127,6 +193,43 @@ def fused_pass(h: torch.Tensor, ghosts: torch.Tensor, plan: dict, n_pure: int,
     dt = gather_dtype if _is_narrow(gather_dtype) else torch.float32
     out = torch.zeros((h.shape[0], h.shape[1]), dtype=torch.float32, device=h.device)
     _launch_fused_pass(gather_table(h, dt), gather_table(ghosts, dt), plan, out, mode == "mask")
+    return out
+
+
+def fused_pure_pass(h: torch.Tensor, plan: dict, n_pure: int,
+                    gather_dtype: torch.dtype | None, mode: str) -> PureRange:
+    """K8's pure range: zero the (vp, F) f32 output, cast h once to the
+    gather dtype, and launch the pure buckets (which read h alone; no
+    launch where the plan has none). CPU tensors run the plain half."""
+    _check_fused(h, mode, "fused_pure_pass")
+    if h.device.type == "cpu":
+        return fused_pure_plain(h, plan, n_pure, gather_dtype, mode)
+    dt = gather_dtype if _is_narrow(gather_dtype) else torch.float32
+    out = torch.zeros((h.shape[0], h.shape[1]), dtype=torch.float32, device=h.device)
+    tb_h = gather_table(h, dt)
+    if plan["pure"]["parts"].parts:
+        # the pure parts never read the second table: it holds no row
+        _launch_fused_pass(tb_h, tb_h[:0], plan["pure"], out, mode == "mask")
+    return PureRange(out, tb_h)
+
+
+def fused_mixed_pass(pure: PureRange, ghosts: torch.Tensor, plan: dict, n_pure: int,
+                     gather_dtype: torch.dtype | None, mode: str) -> torch.Tensor:
+    """K8's mixed range after `fused_pure_pass`: cast the ghosts once and
+    launch the mixed buckets and the hub top into pure.out, which it
+    returns (the (vp, F) f32 fused pass). CPU tensors run the plain half."""
+    out = pure.out
+    _check_fused(out, mode, "fused_mixed_pass")
+    if out.device.type == "cpu":
+        return fused_mixed_plain(pure, ghosts, plan, n_pure, gather_dtype, mode)
+    if ghosts.device != out.device or ghosts.dim() != 2 or (
+            out.shape[0] + ghosts.shape[0] < plan["n_src"]):
+        raise ValueError(f"fused_mixed_pass: ghosts {tuple(ghosts.shape)} on {ghosts.device} "
+                         f"for {out.shape[0]} local rows on {out.device} and a plan of "
+                         f"{plan['n_src']} source rows")
+    if plan["mixed"]["parts"].parts:
+        _launch_fused_pass(pure.h_table, gather_table(ghosts, pure.h_table.dtype),
+                           plan["mixed"], out, mode == "mask")
     return out
 
 
@@ -217,12 +320,33 @@ class ShardedHybSpMM:
             f["parts"] = PartTable(parts, [LOCAL_ONLY] * self.n_pure
                                    + [vp] * (len(parts) - self.n_pure))
             f["vp"] = vp
+            # the same descriptors as two ranges, launched either side of
+            # the exchange's finish (fused_pure_pass / fused_mixed_pass)
+            n_mixed = len(parts) - self.n_pure
+            f["pure"] = {"parts": PartTable(parts[: self.n_pure]), "n_src": vp, "vp": vp,
+                         "range": "pure"}
+            f["mixed"] = {"parts": PartTable(parts[self.n_pure:], [vp] * n_mixed),
+                          "n_src": f["n_src"], "vp": vp}
 
     def _pass(self, table, plan, num_out, mode, val=None, other=None):
         return _hyb_pass(table, plan, num_out, self.gather_dtype, mode, val, other)
 
-    def _fwd_fused(self, h: torch.Tensor, ghosts: torch.Tensor, mode: str) -> torch.Tensor:
-        return fused_pass(h, ghosts, self.fwd, self.n_pure, self.gather_dtype, mode)
+    def pure_range(self, h: torch.Tensor, mode: str) -> PureRange:
+        """The fused forward's pure range over h (the buckets whose in-edges
+        are all local), for the entries' `pure`: issued while the halo
+        exchange of h is in flight. Made outside autograd: the entries'
+        backward is the whole gradient, through h. mode: "static" (GCN's
+        `apply_static_fused`) or "mask" (`apply_unit_fused`,
+        `apply_dst_fused`)."""
+        self._need(True, "pure_range")
+        with torch.no_grad():
+            return fused_pure_pass(h, self.fwd, self.n_pure, self.gather_dtype, mode)
+
+    def _fwd_fused(self, h: torch.Tensor, ghosts: torch.Tensor, mode: str,
+                   pure: PureRange | None) -> torch.Tensor:
+        if pure is None:
+            pure = fused_pure_pass(h, self.fwd, self.n_pure, self.gather_dtype, mode)
+        return fused_mixed_pass(pure, ghosts, self.fwd, self.n_pure, self.gather_dtype, mode)
 
     def _need(self, fused: bool, entry: str) -> None:
         if self.fused != fused:
@@ -245,37 +369,42 @@ class ShardedHybSpMM:
         self._need(False, "apply_dst")
         return HybDstFn.apply(table, dst_val, self)
 
-    # fused plan: local rows and ghost rows apart
-    def apply_static_fused(self, h: torch.Tensor, ghosts: torch.Tensor) -> torch.Tensor:
+    # fused plan: local rows and ghost rows apart; pure: `pure_range(h, mode)`
+    # made beforehand (None: made here)
+    def apply_static_fused(self, h: torch.Tensor, ghosts: torch.Tensor,
+                           pure: PureRange | None = None) -> torch.Tensor:
         self._need(True, "apply_static_fused")
         if not self.has_static_vals:
             raise RuntimeError("op built without static values: use "
                                "apply_unit_fused / apply_dst_fused")
-        return FusedFn.apply(h, ghosts, None, self, "static")
+        return FusedFn.apply(h, ghosts, None, self, "static", pure)
 
-    def apply_unit_fused(self, h: torch.Tensor, ghosts: torch.Tensor) -> torch.Tensor:
+    def apply_unit_fused(self, h: torch.Tensor, ghosts: torch.Tensor,
+                         pure: PureRange | None = None) -> torch.Tensor:
         self._need(True, "apply_unit_fused")
-        return FusedFn.apply(h, ghosts, None, self, "mask")
+        return FusedFn.apply(h, ghosts, None, self, "mask", pure)
 
     def apply_dst_fused(self, h: torch.Tensor, ghosts: torch.Tensor,
-                        dst_val: torch.Tensor) -> torch.Tensor:
+                        dst_val: torch.Tensor, pure: PureRange | None = None) -> torch.Tensor:
         self._need(True, "apply_dst_fused")
-        return FusedFn.apply(h, ghosts, dst_val, self, "mask")
+        return FusedFn.apply(h, ghosts, dst_val, self, "mask", pure)
 
 
 class FusedFn(torch.autograd.Function):
     """The fused-overlap entries (JAX: `fused_static_apply`,
     `fused_unit_apply`, `fused_dst_apply` with their custom VJPs). Forward:
-    the two-table pass, and with dst_val the row scale
-    out[v] = dst_val[v] * u[v]. Backward: one pass over the combined
-    transpose plan with table = gout (scaled by dst_val in f32 first, as
-    JAX does) into one (vp + n * max_h, F) buffer; its [:vp] rows are dh,
-    its [vp:] rows dghosts, each cast to its input's dtype;
-    d_dst = rowsum(u * gout) in f32 from the saved unscaled u."""
+    the two-table pass, its mixed range added to `pure` (the pure range,
+    made before the ghosts arrived; made here when None), and with dst_val
+    the row scale out[v] = dst_val[v] * u[v]. Backward: one pass over the
+    combined transpose plan with table = gout (scaled by dst_val in f32
+    first, as JAX does) into one (vp + n * max_h, F) buffer; its [:vp] rows
+    are dh (the pure buckets' share included), its [vp:] rows dghosts, each
+    cast to its input's dtype; d_dst = rowsum(u * gout) in f32 from the
+    saved unscaled u."""
 
     @staticmethod
-    def forward(ctx, h, ghosts, dst_val, op, mode):
-        u = op._fwd_fused(h, ghosts, mode)
+    def forward(ctx, h, ghosts, dst_val, op, mode, pure=None):
+        u = op._fwd_fused(h, ghosts, mode, pure)
         ctx.op, ctx.mode = op, mode
         ctx.h_dtype, ctx.g_dtype = h.dtype, ghosts.dtype
         ctx.h_rows, ctx.g_rows = h.shape[0], ghosts.shape[0]
@@ -302,4 +431,4 @@ class FusedFn(torch.autograd.Function):
             dfull = op._pass(table_grad.contiguous(), op.bwd, op.table, ctx.mode)
             dh = dfull[: ctx.h_rows].to(ctx.h_dtype)
             dg = dfull[op.vp: op.vp + ctx.g_rows].to(ctx.g_dtype)
-        return dh, dg, d_dst, None, None
+        return dh, dg, d_dst, None, None, None

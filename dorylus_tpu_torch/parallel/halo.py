@@ -32,6 +32,18 @@ One `torch.autograd.Function` (`HaloRecvFn`) is the counterpart of both
 every rank in the same order, a rank with nothing to send included (size
 0), in the backward as in the forward.
 
+The forward exchange runs in two steps, so that a rank's interior work runs
+while the rows are in flight (JAX leaves that to XLA's scheduler,
+dorylus_tpu/parallel/train_step.py:14-15; the reference's pipeline runs
+scatter beside compute): `halo_start` packs (K9) and starts the all-to-all
+(parallel/multihost.py `all_to_all_rows_start`); `HaloRecvFn.apply(h, plan,
+pending)` finishes it and places the rows (K9). h stays the autograd input,
+so the backward (the reverse exchange, then K10) owns the exchange's whole
+gradient. `make_halo_fn` returns a `Halo`: called, it does the whole
+exchange (the combined plan, tensor parallelism, the profile); its
+`start(h)` / `finish(pending)` serve the overlap plans (models/gcn.py,
+models/gat.py `_aggregate_split`).
+
 K9 (row gather) and K10 (gathered sorted segment-sum) are CUDA kernels
 (ops/csrc/halo.cu), each with a plain torch version beside it that the CPU
 path and the tests use. `row_gather` and `segsum_gather` dispatch on the
@@ -43,7 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -391,14 +403,18 @@ class HaloPlan:
 class HaloRecvFn(torch.autograd.Function):
     """Ghost rows (n * max_h, F) of h over the process group, on either
     wire (JAX: `_halo_recv_planned` and `ragged_halo_recv` with their
-    custom VJPs)."""
+    custom VJPs). pending: the exchange `halo_start` started from h, which
+    the forward finishes; None: the forward packs, exchanges and places in
+    one go."""
 
     @staticmethod
-    def forward(ctx, h: torch.Tensor, plan: HaloPlan) -> torch.Tensor:
+    def forward(ctx, h: torch.Tensor, plan: HaloPlan, pending=None) -> torch.Tensor:
         ctx.plan, ctx.h_dtype = plan, h.dtype
-        buf = row_gather(h, plan.pack)
-        recv = multihost.all_to_all_rows(buf, plan.in_splits, plan.out_splits,
-                                         group=plan.group)
+        if pending is None:
+            recv = multihost.all_to_all_rows(row_gather(h, plan.pack), plan.in_splits,
+                                             plan.out_splits, group=plan.group)
+        else:
+            recv = multihost.all_to_all_rows_finish(pending)
         return recv if plan.place is None else row_gather(recv, plan.place)
 
     @staticmethod
@@ -412,14 +428,25 @@ class HaloRecvFn(torch.autograd.Function):
         back = multihost.all_to_all_rows(gsend, plan.out_splits, plan.in_splits,
                                          group=plan.group)
         dh = segsum_gather(back, plan.order, plan.rows, plan.row_ptr, plan.vp)
-        return dh.to(ctx.h_dtype), None
+        return dh.to(ctx.h_dtype), None, None
+
+
+def halo_start(h: torch.Tensor, plan: HaloPlan) -> multihost.Exchange:
+    """Pack the rows each peer needs (K9) and start the all-to-all; the
+    exchange in flight, for `HaloRecvFn.apply(h, plan, pending)`. Nothing
+    of it is recorded for autograd: HaloRecvFn's backward is the whole
+    gradient of the exchange."""
+    with torch.no_grad():
+        buf = row_gather(h, plan.pack)
+    return multihost.all_to_all_rows_start(buf, plan.in_splits, plan.out_splits,
+                                           group=plan.group)
 
 
 def halo_recv(h: torch.Tensor, plan: HaloPlan) -> torch.Tensor:
-    """Ghost rows only: (n * max_h, F) in h's dtype. Used by the overlap
-    path, whose pure buckets need no ghost row. h may be a column slice
-    (tensor parallelism): K9 packs from a contiguous copy of it."""
-    return HaloRecvFn.apply(h, plan)
+    """Ghost rows only: (n * max_h, F) in h's dtype, the whole exchange in
+    one call. h may be a column slice (tensor parallelism): K9 packs from a
+    contiguous copy of it."""
+    return HaloRecvFn.apply(h, plan, None)
 
 
 def halo_exchange(h: torch.Tensor, plan: HaloPlan) -> torch.Tensor:
@@ -428,13 +455,37 @@ def halo_exchange(h: torch.Tensor, plan: HaloPlan) -> torch.Tensor:
     return torch.cat([h, halo_recv(h, plan)], dim=0)
 
 
-def make_halo_fn(plan: Optional[HaloPlan], overlap: bool,
-                 multi: bool) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
-    """The halo callable the models take (JAX: `make_halo_fn`):
-    overlap=True returns ghost rows only (`halo_recv`), else the full
-    feature table. None when single-shard."""
+class HaloPending(NamedTuple):
+    """An exchange `Halo.start` started: its input and the all-to-all in
+    flight."""
+
+    h: torch.Tensor
+    exchange: multihost.Exchange
+
+
+class Halo:
+    """The halo the models take (JAX: `make_halo_fn`'s callable). Called
+    with h, the whole exchange: the ghost rows alone (ghosts_only, the
+    overlap plans) or the full feature table. `start(h)` / `finish(pending)`
+    split it around the work that reads h alone (the overlap plans): finish
+    returns the ghost rows."""
+
+    def __init__(self, plan: HaloPlan, ghosts_only: bool):
+        self.plan, self.ghosts_only = plan, ghosts_only
+
+    def __call__(self, h: torch.Tensor) -> torch.Tensor:
+        return halo_recv(h, self.plan) if self.ghosts_only else halo_exchange(h, self.plan)
+
+    def start(self, h: torch.Tensor) -> HaloPending:
+        return HaloPending(h, halo_start(h, self.plan))
+
+    def finish(self, pending: HaloPending) -> torch.Tensor:
+        return HaloRecvFn.apply(pending.h, self.plan, pending.exchange)
+
+
+def make_halo_fn(plan: Optional[HaloPlan], overlap: bool, multi: bool) -> Optional[Halo]:
+    """The halo the models take (JAX: `make_halo_fn`): overlap=True, the
+    ghost rows only, else the full feature table. None when single-shard."""
     if not multi:
         return None
-    if overlap:
-        return lambda h: halo_recv(h, plan)
-    return lambda h: halo_exchange(h, plan)
+    return Halo(plan, ghosts_only=overlap)

@@ -28,6 +28,29 @@ feat group of parallel/mesh.py; None is the world). With no process group
 collective returns only when it is done and every staged result is copied
 out of its host buffer before the call returns, so one buffer per tag
 serves every group: no result aliases a buffer another call reuses.
+
+The all-to-all also runs in two steps, so that the caller's work runs
+beside it (the halo exchange's overlap, parallel/halo.py):
+`all_to_all_rows_start` starts it and returns an `Exchange` that holds
+every buffer the transfer touches; `all_to_all_rows_finish` returns the
+received rows, ordered before whatever the caller issues next.
+`all_to_all_rows` is the two back to back. Per transport:
+
+    gloo, CPU tensors   async_op=True; gloo's thread moves the bytes, and
+                        finish waits for it
+    gloo, CUDA tensors  start copies the rows into the pinned buffer (it
+                        waits for the stream) and starts gloo on the host
+                        buffers; finish waits, then copies them back. One
+                        exchange at a time may hold the pinned buffers: a
+                        second start before the finish raises
+    NCCL                the collective on a side stream, forked from the
+                        current stream by an event at start and joined back
+                        by an event at finish (what a CUDA graph capture
+                        takes, so the eager and the captured epoch share the
+                        code); the handle keeps the send and receive buffers
+                        alive until the join
+
+`EXCHANGES` counts, on the staged path, what ran beside each exchange.
 """
 
 from __future__ import annotations
@@ -49,7 +72,22 @@ import torch.distributed as dist
 from dorylus_tpu_torch.common.logging import log
 
 _PINNED: dict = {}
+_A2A_BUSY = False  # an exchange in flight holds the "a2a" pinned buffers
+_SIDE: dict = {}  # card index -> the side stream NCCL's exchanges run on
 _LOGGED_TRANSPORT = False
+
+# The staged exchanges (gloo, CUDA tensors) of this process that a caller
+# finishes apart (the halo's two steps; `all_to_all_rows` is not counted):
+# `started`;
+# `held`, those whose work issued between start and finish had completed on
+# the card when gloo's wait returned (an event recorded at the finish's
+# entry, queried after the wait: no host wait of its own); `host_ms`, the
+# host's time from the start's entry (the staging copy included) to the
+# wait's return; `beside_ms`, the card's
+# time between the start's return and the finish's entry, summed over the
+# held exchanges (the work issued beside the exchange, its enqueue gaps
+# included).
+EXCHANGES = {"started": 0, "held": 0, "host_ms": 0.0, "beside_ms": 0.0}
 
 
 def initialized() -> bool:
@@ -165,30 +203,114 @@ def _as_bytes(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1).view(torch.uint8).view(t.shape[0], row_bytes)
 
 
+class Exchange:
+    """An all-to-all in flight (`all_to_all_rows_start`): the received
+    rows' buffer and every other buffer the transfer touches, held until
+    `all_to_all_rows_finish`."""
+
+    __slots__ = ("out", "inp", "work", "host_out", "side", "t0", "mark")
+
+    def __init__(self, out, inp, work=None, host_out=None, side=None):
+        self.out, self.inp, self.work, self.host_out = out, inp, work, host_out
+        self.side = side
+        self.t0 = self.mark = None
+
+
+def _side_stream(device: torch.device):
+    """The stream NCCL's exchanges run on, one per card (made at the first
+    exchange, which the engines run eagerly before any capture)."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SIDE:
+        _SIDE[idx] = torch.cuda.Stream(idx)
+    return _SIDE[idx]
+
+
+def all_to_all_rows_start(inp: torch.Tensor, in_splits: list[int],
+                          out_splits: list[int], group=None, *,
+                          counted: bool = True) -> Exchange:
+    """Start sending rows [sum(in_splits[:p]), ...) of `inp` to rank p of
+    `group`; `all_to_all_rows_finish` returns what arrives. Every rank of
+    the group must start and finish it, a rank with nothing to send
+    included, in the same order as every other collective. counted: the
+    exchange goes into EXCHANGES (False: `all_to_all_rows`, which issues
+    nothing beside it)."""
+    global _A2A_BUSY
+    if not initialized():
+        raise RuntimeError("all_to_all_rows needs a process group")
+    n_out = sum(out_splits)
+    inp = inp.contiguous()
+    out = torch.empty((n_out,) + tuple(inp.shape[1:]), dtype=inp.dtype,
+                      device=inp.device)
+    if _staged(inp):
+        if inp.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("all_to_all_rows_start inside a CUDA graph capture under "
+                               "gloo: the capture rule (collectives_capturable) refuses a "
+                               "transport staged through host buffers")
+        if _A2A_BUSY:
+            raise RuntimeError("all_to_all_rows_start: an exchange already holds the "
+                               "pinned buffers; finish it before starting another")
+        t0 = time.perf_counter()
+        h_in = _host("a2a_in", inp.shape, inp.dtype)
+        h_out = _host("a2a_out", out.shape, out.dtype)
+        h_in.copy_(inp)  # device -> pinned host, waits for the stream
+        work = dist.all_to_all_single(_as_bytes(h_out), _as_bytes(h_in), out_splits,
+                                      in_splits, group=group, async_op=True)
+        _A2A_BUSY = True
+        ex = Exchange(out, h_in, work, h_out)
+        if inp.is_cuda and counted:
+            ex.mark = torch.cuda.Event(enable_timing=True)
+            ex.mark.record()
+            EXCHANGES["started"] += 1
+        ex.t0 = t0
+        return ex
+    if backend_name() == "gloo":
+        work = dist.all_to_all_single(_as_bytes(out), _as_bytes(inp), out_splits,
+                                      in_splits, group=group, async_op=True)
+        return Exchange(out, inp, work)
+    cur = torch.cuda.current_stream(inp.device)
+    side = _side_stream(inp.device)
+    side.wait_stream(cur)  # the fork: the rows are packed on the current stream
+    with torch.cuda.stream(side):
+        dist.all_to_all_single(out, inp, out_splits, in_splits, group=group)
+    return Exchange(out, inp, side=side)
+
+
+def all_to_all_rows_finish(ex: Exchange) -> torch.Tensor:
+    """The (sum(out_splits), F) rows an `all_to_all_rows_start` received,
+    grouped by sender, ordered before the caller's next work on its
+    current stream. Raises where the transfer failed."""
+    global _A2A_BUSY
+    if ex.side is not None:
+        # the join: the current stream waits for the side stream's collective
+        torch.cuda.current_stream(ex.out.device).wait_stream(ex.side)
+        return ex.out
+    if ex.host_out is None:
+        ex.work.wait()
+        return ex.out
+    try:
+        if ex.mark is None:  # not counted, or CPU tensors staged (the tests' stand-in)
+            ex.work.wait()
+        else:
+            done = torch.cuda.Event(enable_timing=True)
+            done.record()  # after the work issued beside the exchange
+            ex.work.wait()
+            EXCHANGES["host_ms"] += 1e3 * (time.perf_counter() - ex.t0)
+            if done.query():
+                EXCHANGES["held"] += 1
+                EXCHANGES["beside_ms"] += ex.mark.elapsed_time(done)
+    finally:
+        _A2A_BUSY = False
+    ex.out.copy_(ex.host_out)
+    return ex.out
+
+
 def all_to_all_rows(inp: torch.Tensor, in_splits: list[int],
                     out_splits: list[int], group=None) -> torch.Tensor:
     """Rows [sum(in_splits[:p]), ...) of `inp` go to rank p of `group`;
     returns the (sum(out_splits), F) rows received, grouped by sender. Every
     rank of the group must call it, a rank with nothing to send included."""
-    n_out = sum(out_splits)
-    out = torch.empty((n_out,) + tuple(inp.shape[1:]), dtype=inp.dtype,
-                      device=inp.device)
-    if not initialized():
-        raise RuntimeError("all_to_all_rows needs a process group")
-    inp = inp.contiguous()
-    if _staged(inp):
-        h_in = _host("a2a_in", inp.shape, inp.dtype)
-        h_out = _host("a2a_out", out.shape, out.dtype)
-        h_in.copy_(inp)  # device -> pinned host, waits for the stream
-        dist.all_to_all_single(_as_bytes(h_out), _as_bytes(h_in),
-                               out_splits, in_splits, group=group)
-        out.copy_(h_out)
-    elif backend_name() == "gloo":
-        dist.all_to_all_single(_as_bytes(out), _as_bytes(inp), out_splits,
-                               in_splits, group=group)
-    else:
-        dist.all_to_all_single(out, inp, out_splits, in_splits, group=group)
-    return out
+    return all_to_all_rows_finish(all_to_all_rows_start(inp, in_splits, out_splits, group,
+                                                        counted=False))
 
 
 def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:

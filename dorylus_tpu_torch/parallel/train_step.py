@@ -36,9 +36,16 @@ the graph axis, for GCN and GAT, on both halo wire formats:
                    pair rewrite, kept where the cut summed over the shards
                    clears REUSE_AUTO_MIN_CUT (engine/engine.py).
 
-With an overlap plan the models get the ghost rows alone from the exchange
-and the local rows' work does not depend on it. (`HaloRecvFn` still waits
-for the exchange before it returns, so nothing runs beside it yet.)
+With an overlap plan the models get the ghost rows alone from the exchange,
+in two steps (parallel/halo.py `Halo.start` / `finish`): each layer starts
+the exchange, issues the work that reads the local rows alone (K8's pure
+range, the degree pair's or the edgewise split's interior op) and only
+then finishes it, so that work runs while the rows are in flight, as XLA
+schedules JAX's ("XLA overlaps the all_to_all with local aggregation",
+dorylus_tpu/parallel/train_step.py:14-15). Gloo's thread moves the bytes
+beside it; NCCL runs the collective on a side stream, forked and joined by
+events, inside the epoch's CUDA graph too. The combined plan and tensor
+parallelism call the exchange whole.
 
 The epoch loop is the single-device engine's group loop (`run_loop`), with
 its bounded staleness, checkpoints and resume (JAX `parallel/train_step.py`
@@ -118,8 +125,9 @@ from dorylus_tpu_torch.parallel.mesh import make_mesh
 
 # overlap="auto" per kernel: True takes the kernel's overlap plan (hyb the
 # fused plan, degree the (interior, boundary) pair, xla the edgewise split),
-# False the combined plan. `HaloRecvFn` overlaps nothing yet, so both plans
-# ship the same bytes and the one with less device work wins on any wire.
+# False the combined plan. The values were fitted before the exchange ran
+# beside the interior work, on device work alone: both plans ship the same
+# bytes, and the one with less device work won.
 # tools/switch_points.py measures that work: kernel ms per rank and step,
 # the max over ranks, f32, the Reddit-shaped graph's 4- and 2-way range
 # partitions on gloo ranks of one NVIDIA H100 80GB HBM3 (700.00 W), two
@@ -132,8 +140,10 @@ from dorylus_tpu_torch.parallel.mesh import make_mesh
 #        spread (0.129 ms): JAX's True stays.
 #   degree: GCN's pair wins (2.507 / 2.614), GAT's loses (2.780 / 2.748):
 #        JAX's True stays.
-# Revisit when the exchange runs beside the interior's work (ROADMAP queue 2
-# point 4).
+# The overlap plans now also run the exchange beside their interior work,
+# which can only add to their side. Re-fitting by wall time needs a card a
+# rank (ROADMAP queue 2 point 4): on one card the gloo ranks' wall time is
+# the host's transport, not the card's.
 AUTO_OVERLAP = {"hyb": True, "degree": True, "xla": True}
 
 

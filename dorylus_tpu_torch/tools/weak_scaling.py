@@ -41,9 +41,11 @@ epoch. efficiency(n) = edges_per_s(n) / (n * edges_per_s(1)).
 What the numbers are: on the CPU the ranks run the kernels' plain torch
 versions, so the CPU modes measure the SPMD program's scaling and gloo's
 transport, not the kernels, and their rates are not comparable with the
-JAX package's XLA:CPU results. `overlap_speedup` compares two plans' work,
-not concurrency: `HaloRecvFn.forward` returns after the collective
-(parallel/halo.py), so nothing runs beside the exchange yet.
+JAX package's XLA:CPU results. `overlap_speedup` compares the overlap plan,
+whose forward exchanges run beside each rank's interior work (gloo's thread
+moves the rows, NCCL's side stream in device mode; parallel/halo.py
+`Halo.start` / `finish`), with the combined plan, which runs them whole: two
+plans' work and the concurrency together.
 
 The summary carries JAX's keys plus `backend` (gloo or nccl),
 `threads_per_rank` (the torch threads of each rank, by shard count) and
@@ -295,8 +297,8 @@ def what_line(mode: str) -> str:
         where = ("gloo ranks on this host's CPU cores, which run the kernels' plain torch "
                  "versions: the SPMD program's scaling and gloo's transport, not the "
                  "kernels; rates not comparable with the JAX package's XLA:CPU results")
-    return (f"# {mode}: {where}. overlap_speedup compares two plans' work, not "
-            "concurrency: HaloRecvFn returns after the collective (parallel/halo.py)")
+    return (f"# {mode}: {where}. overlap_speedup compares two plans' work and the "
+            "exchange run beside the interior work (parallel/halo.py Halo.start / finish)")
 
 
 def _pinned(args, out) -> dict:

@@ -322,3 +322,173 @@ def collective_capture_rank(rank, world, device):
     import chip_smoke
 
     return chip_smoke.collective_capture(device)
+
+
+class Serial:
+    """The exchange as the overlap paths ran it before it was split: the
+    whole exchange at `start`, the interior work after it."""
+
+    def __init__(self, halo_fn):
+        self.halo = halo_fn
+
+    def __call__(self, h):
+        return self.halo(h)
+
+    def start(self, h):
+        return self.halo(h)
+
+    def finish(self, ghosts):
+        return ghosts
+
+
+def _recording(eng, events, stack, exchanges=True):
+    """Record, in `events`, each interior op the model issues on its overlap
+    path (the fused plan's pure range, the degree pair's interior op, the
+    edgewise split's interior aggregation) and, with `exchanges`, each
+    all_to_all_rows_start / finish of this process."""
+    from dorylus_tpu_torch.models import gat as gat_module
+    from dorylus_tpu_torch.models import gcn as gcn_module
+
+    def wrap(fn, tag, keep=lambda *a, **k: True):
+        def call(*args, **kw):
+            if keep(*args, **kw):
+                events.append(tag)
+            return fn(*args, **kw)
+        return call
+
+    for name, tag in (("all_to_all_rows_start", "start"), ("all_to_all_rows_finish", "finish")):
+        if exchanges:
+            stack.enter_context(_patched(multihost, name, wrap(getattr(multihost, name), tag)))
+    split, esplit = eng.model.spmm_split, eng.model.edge_split
+    if getattr(split, "fused", False):
+        stack.enter_context(_patched(split, "pure_range", wrap(split.pure_range, "interior")))
+    elif split is not None:
+        for name in ("apply_static", "apply_dst", "apply"):
+            stack.enter_context(_patched(split[0], name, wrap(getattr(split[0], name),
+                                                              "interior")))
+    else:
+        stack.enter_context(_patched(gcn_module, "aggregate",
+                                     wrap(gcn_module.aggregate, "interior")))
+        stack.enter_context(_patched(
+            gat_module, "spmm_edgewise",
+            wrap(gat_module.spmm_edgewise, "interior",
+                 lambda *a, **k: k.get("op") is esplit[0])))
+
+
+def overlap_rank(rank, world, device, graph, dims, cases):
+    """For each case (cfg_kw, epochs, halo): a ShardedEngine trained on
+    this rank with its halo as built ("two-step", and first the events of
+    one loss and its backward, `_recording`; "plain": nothing recorded),
+    as one call at the finish ("one-call": a plain callable) or as before
+    the split ("serial"). Returns the records, the final params and the
+    plan's pure rows."""
+    torch.set_num_threads(1)
+    out = []
+    for cfg_kw, epochs, how in cases:
+        eng = ShardedEngine(graph, LayerConfig(list(dims)), TrainConfig(epochs=epochs, **cfg_kw),
+                            device=device)
+        events = []
+        if how == "two-step":
+            with contextlib.ExitStack() as stack:
+                _recording(eng, events, stack)
+                loss = eng.model.loss(eng.batch, eng.compute_dtype, eng.halo)
+                torch.autograd.grad(loss, list(eng.params.values()))
+        elif how == "one-call":
+            eng.halo = (lambda h, f=eng.halo: f(h))
+        elif how == "serial":
+            eng.halo = Serial(eng.halo)
+        rep = eng.run()
+        split = eng.model.spmm_split
+        out.append({"losses": [e.loss for e in rep.epochs],
+                    "accuracies": [e.accuracy for e in rep.epochs],
+                    "params": {k: p.detach().cpu().numpy() for k, p in eng.params.items()},
+                    "events": events, "overlap": bool(eng.cfg.overlap),
+                    "kernel": eng.kernel_selected,
+                    "n_pure": getattr(split, "n_pure", None),
+                    "pure_edges": getattr(split, "pure_edges", None)})
+    return out
+
+
+def busy_tag_rank(rank, world, device):
+    """Two starts on the staged path's pinned buffers (CPU tensors staged
+    through the shared stand-in buffers): the second is refused; the first
+    finishes, and a later exchange runs. Returns the refusal's text, both
+    results and the rows each should hold."""
+    multihost._staged = lambda t: True
+    multihost._host = _shared_host
+    x = torch.arange(8.0).reshape(4, 2) + 10 * rank
+    ex = multihost.all_to_all_rows_start(x, [2, 2], [2, 2])
+    try:
+        multihost.all_to_all_rows_start(x, [2, 2], [2, 2])
+        refused = ""
+    except RuntimeError as e:
+        refused = str(e)
+    first = multihost.all_to_all_rows_finish(ex).clone().numpy()
+    again = multihost.all_to_all_rows(x, [2, 2], [2, 2]).numpy()
+    want = np.concatenate([np.arange(8.0).reshape(4, 2)[2 * rank: 2 * rank + 2] + 10 * p
+                           for p in range(world)])
+    return {"refused": refused, "first": first, "again": again, "want": want}
+
+
+def nccl_standin_rank(rank, world, device, graph, dims, model, lr):
+    """The NCCL transport's path on the CPU: the backend's name reads
+    "nccl", the side and current streams are stand-ins that record the
+    fork (the side stream waits for the current one) and the join (the
+    reverse), gloo moves the rows underneath. For each overlap plan: the
+    events of one loss and its backward, then the epochs through
+    EpochGraphs (the capture stood in for by `Rerun`, host reads refused
+    inside the bodies) and eagerly from the same init."""
+    from dorylus_tpu_torch.parallel import train_step
+
+    torch.set_num_threads(1)
+    events = []
+
+    class Stream:
+        def __init__(self, name):
+            self.name = name
+
+        def wait_stream(self, other):
+            events.append("fork" if self.name == "side" else "join")
+
+    side, cur = Stream("side"), Stream("current")
+    real_a2a = torch.distributed.all_to_all_single
+
+    def collective(*args, **kw):
+        events.append("collective")
+        return real_a2a(*args, **kw)
+
+    real_refusal = train_step.epoch_graph_refusal
+    out = {}
+    with contextlib.ExitStack() as stack:
+        for obj, name, value in (
+                (multihost, "backend_name", lambda: "nccl"),
+                (multihost, "_side_stream", lambda dev: side),
+                (torch.cuda, "current_stream", lambda device=None: cur),
+                (torch.cuda, "stream", lambda s: contextlib.nullcontext()),
+                (torch.distributed, "all_to_all_single", collective),
+                (train_step, "epoch_graph_refusal",
+                 lambda dev, be: real_refusal(torch.device("cuda"), be))):
+            stack.enter_context(_patched(obj, name, value))
+        for kernel in ("hyb", "degree", "xla"):
+            cfg = TrainConfig(epochs=3, model=model, kernel=kernel, overlap=True,
+                              learning_rate=lr, eval_every=1, reuse="off")
+            row = {}
+            for graphed in (True, False):
+                eng = ShardedEngine(graph, LayerConfig(list(dims)), cfg, device=device)
+                with contextlib.ExitStack() as inner:
+                    if graphed:
+                        events.clear()
+                        with contextlib.ExitStack() as rec:
+                            _recording(eng, events, rec, exchanges=False)
+                            loss = eng.model.loss(eng.batch, eng.compute_dtype, eng.halo)
+                            torch.autograd.grad(loss, list(eng.params.values()))
+                        row["events"] = list(events)
+                        eng = ShardedEngine(graph, LayerConfig(list(dims)), cfg, device=device)
+                        inner.enter_context(stand_in_graphs(eng, guard=True))
+                    rep = eng.run(graphs=graphed)
+                key = "graph_losses" if graphed else "eager_losses"
+                row[key] = [e.loss for e in rep.epochs]
+                if graphed:
+                    row["graphed"] = eng._graphs is not None
+            out[kernel] = row
+    return out

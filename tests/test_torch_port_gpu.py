@@ -11,7 +11,9 @@ the non-square reuse pass of a shard, the probes P1-P4 (P3 at 512- and
 256-byte rows), and the degree pair, pair reuse and the edgewise split on 4
 ranks of the one card. K1/K2 and K8 share one gather core: one launch a
 pass (two for a plan past MAX_PARTS parts), the same bits on a second run,
-hub rows of 2,500 slots, fused parts of no ghost or only ghost slots. K9 at
+hub rows of 2,500 slots, fused parts of no ghost or only ghost slots; K8
+as the engines launch it, a pure range then a mixed one, bit for bit
+against one launch. K9 at
 rows of 2, 4, 8 and 16-byte multiples, with -1 slots and a table of one
 row; K5's (E,) teams of 4-32
 lanes, a hub row of 5,000 edges, views at every offset from a 16-byte
@@ -672,6 +674,51 @@ def test_fused_kernel_matches_plain(cuda, static, narrow, f):
     _close(gk.grad, dfull[vp:], narrow)
     if not static:
         _close(dk.grad, (u * gout).sum(-1), narrow)
+
+
+@pytest.mark.parametrize("f", [8, 41, 128])
+@pytest.mark.parametrize("narrow", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("static", [True, False], ids=["static", "mask"])
+def test_fused_ranges_match_plain_and_one_launch(cuda, static, narrow, f):
+    """K8 as the engines launch it, two ranges of its parts either side of
+    the exchange's finish: the pure range (h alone), then the mixed
+    buckets and the hub top into the same output. Each range against its
+    plain half; the two bit for bit against one launch over every part;
+    one launch a range, and none for the pure range of a shard without
+    pure rows (every source a ghost)."""
+    import dataclasses
+
+    from dorylus_tpu_torch.ops import hyb_sharded as hs
+
+    sg = _hub_shard()
+    shard = sg.shards[1]
+    e = shard.num_edges
+    remote = np.asarray(shard.src[:e]) >= sg.vp
+    only_ghosts = dataclasses.replace(
+        shard, src=shard.src[:e][remote], dst=shard.dst[:e][remote],
+        edge_val=shard.edge_val[:e][remote], num_edges=int(remote.sum()))
+    gd = torch.bfloat16 if narrow else None
+    mode = "static" if static else "mask"
+    rng = np.random.default_rng(f)
+    for sub in (shard, only_ghosts):
+        op = hs.ShardedHybSpMM(sub, sg.n_shards, edges="fused", static_vals=static,
+                               gather_dtype=gd, max_width=16, lam_slots=256, device=cuda)
+        assert (op.n_pure > 0) == (sub is shard)
+        h = torch.tensor(rng.normal(size=(op.vp, f)).astype(np.float32), device=cuda)
+        gh = torch.tensor(rng.normal(size=(op.table - op.vp, f)).astype(np.float32),
+                          device=cuda)
+        before = (hs.FUSED_LAUNCHES, hs.FUSED_PURE_LAUNCHES)
+        pure = hs.fused_pure_pass(h, op.fwd, op.n_pure, gd, mode)
+        torch.cuda.synchronize()
+        want_pure = hs.fused_pure_plain(h, op.fwd, op.n_pure, gd, mode)
+        _close(pure.out, want_pure.out, narrow)
+        got = hs.fused_mixed_pass(pure, gh, op.fwd, op.n_pure, gd, mode)
+        torch.cuda.synchronize()
+        n_pure_launch = 1 if op.n_pure else 0
+        assert (hs.FUSED_LAUNCHES, hs.FUSED_PURE_LAUNCHES) == (
+            before[0] + 1 + n_pure_launch, before[1] + n_pure_launch)
+        _close(got, hs.fused_mixed_plain(want_pure, gh, op.fwd, op.n_pure, gd, mode), narrow)
+        assert torch.equal(got, hs.fused_pass(h, gh, op.fwd, op.n_pure, gd, mode))
 
 
 @pytest.mark.parametrize("f", [1, 3, 41, 128, 300])
