@@ -135,13 +135,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
      single-device hyb f32 losses (rtol 1e-4), and GCN with overlap off
      (the combined plan) against the fused plan (rtol 1e-5). Every overlap
      run (here and in 6d, 6f) splits each forward exchange around the
-     rank's interior work (parallel/halo.py `Halo.start` / `finish`): each
+     rank's interior work (parallel/halo.py `Halo.start` / `finish`) and
+     each reverse exchange around the gradient work that does not read it
+     (the interior op's backward, the self term, GAT's attention gradient:
+     started in HaloRecvFn's backward, finished in HaloJoinFn's): each
      rank prints its fused plan's pure_edges / mixed_edges (or the pair's
      interior / boundary edges), the exchanges its training started, those
      whose interior work had completed when gloo's wait returned (an event
      recorded before the wait, queried after it), the host's ms an exchange
-     and the card's ms beside a held one (multihost.EXCHANGES); an overlap
-     run that split no exchange, or a combined one that split any, fails;
+     and the card's ms beside a held one, and the same of the reverse
+     exchanges (multihost.EXCHANGES); an overlap run that split no forward
+     or no reverse exchange, or a combined one that split any, fails;
   6d. (in phase 6's launch) the same on kernel="degree" with the (interior,
      boundary) plan pair, bf16, 2 epochs: degree, K9 and K10 launches > 0 on
      every rank; in f32 against 4c's hyb losses (rtol 1e-4) and against
@@ -153,8 +157,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
   6e. 4 ranks on the community graph's shards: GCN and GAT on hyb with
      reuse="pairs" against reuse="off", bf16, 2 epochs (rtol 1e-2); K6 and
      K2 launches > 0 on every rank, overlap turned off by the rewrite;
-  6b. (the card's runs in 6e's launch) small graphs, 4 ranks on the card
-     against 4 ranks on the CPU: the
+  6b. (in 6e's launch: the card's runs, then the same ranks' CPU runs)
+     small graphs, 4 ranks on the card against 4 ranks on the CPU: the
      planted 2,000-vertex graph, GCN (3 epochs) and GAT (2) on hyb (with
      predict() in global order against the single-device engine's) and on
      the degree pair, and the 4,000-vertex community graph with
@@ -162,7 +166,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
   6c. only where torch.cuda.device_count() >= 2: phase 6's GCN over NCCL,
      one rank per card, through the epochs' CUDA graphs (the halo
      exchanges, each forked onto a side stream beside the pure K8 range and
-     joined before the mixed one, and the all-reduce captured) and then
+     joined before the mixed one, each reverse exchange forked in
+     HaloRecvFn's backward and joined in HaloJoinFn's, beside the self
+     term's gradient, and the all-reduce captured) and then
      eagerly from the same init, bit for bit with the same launches; else
      one line says the NCCL path was not run.
   7. the command line, through `cli.main` on the card it picks by default,
@@ -340,6 +346,9 @@ F32_FLOPS = 67e12
 # the rate the probes P1 and P2 use.
 SMEM_BYTES_PER_CLOCK = 128
 RANKS = 4
+# Timed train steps and exchanges a sharded rank's timed run averages, each
+# after a warm one (the ranks' wall time is gloo's through the host).
+RANK_REPEATS = 1
 T_START = time.perf_counter()
 
 
@@ -1819,15 +1828,17 @@ def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list,
                  native_miner: bool = True) -> list:
     """One rank of phases 6-6f and 9 (started by multihost.spawn_local):
     for each run, a ShardedEngine on this rank's shard file (shard rank //
-    feat_shards), trained with this process's launch counts set to 0 just
+    feat_shards) on the run's "device" (the launch's where it names none),
+    trained with this process's launch counts set to 0 just
     before and read just after (with "widths", also by table width); where
     the run is timed, also the train step's ms and launches and the halo
     exchange's ms at each layer's aggregation width; with "stages", the
     engine's stage profile (before any trace in the run); where it is
     profiled, a profile of the step. Each run also reports the exchanges
-    its training split around the interior work (multihost.EXCHANGES, set
-    to 0 just before the run: started, held, the host's and the card's ms)
-    and its fused plan's pure and mixed edges. native_miner False: the parent found
+    its training split around the interior work, forward and reverse
+    (multihost.EXCHANGES, set to 0 just before the run: started, held, the
+    host's and the card's ms, the reverse ones under "bwd_") and its fused
+    plan's pure and mixed edges. native_miner False: the parent found
     that native/libgraphcore.so does not build on this host, so the rank
     does not try again (each try costs seconds) and mines with numpy."""
     from dorylus_tpu_torch import native
@@ -1839,16 +1850,16 @@ def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list,
     if not native_miner:
         native._tried = True
 
-    on_card = torch.device(device).type == "cuda"
-    if not on_card:
-        torch.set_num_threads(2)
-
     def sync():
         if on_card:
             torch.cuda.synchronize()
 
     out = []
     for run in runs:
+        dev = run.get("device") or device
+        on_card = torch.device(dev).type == "cuda"
+        if not on_card:
+            torch.set_num_threads(2)
         cfg = TrainConfig(**run["cfg"])
         shard, meta = load_shard(f"{shard_dir}/{run['shards']}_{rank // cfg.feat_shards}.npz")
         if cfg.model == "gat":
@@ -1857,10 +1868,10 @@ def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list,
             shard = dataclasses.replace(shard, edge_val=np.ones_like(shard.edge_val))
         reset_counts()
         t0 = time.perf_counter()
-        eng = ShardedEngine((shard, meta), LayerConfig(run["dims"]), cfg, device=device)
+        eng = ShardedEngine((shard, meta), LayerConfig(run["dims"]), cfg, device=dev)
         build_s = time.perf_counter() - t0
         restore = width_counter() if run.get("widths") else None
-        multihost.EXCHANGES.update(started=0, held=0, host_ms=0.0, beside_ms=0.0)
+        multihost.reset_exchanges()
         rep = eng.run(graphs=not run.get("eager"))
         sync()
         exchanges = dict(multihost.EXCHANGES)
@@ -1894,21 +1905,21 @@ def sharded_rank(rank: int, world: int, device, shard_dir: str, runs: list,
             row["launches_per_step"] = step_launches(lambda: eng._train_epoch(lr))
             sync()
             t0 = time.perf_counter()
-            for _ in range(2):
+            for _ in range(RANK_REPEATS):
                 eng._train_epoch(lr)
             sync()
-            row["step_ms"] = 1e3 * (time.perf_counter() - t0) / 2
+            row["step_ms"] = 1e3 * (time.perf_counter() - t0) / RANK_REPEATS
             row["exchange_ms"] = {}
             elt = torch.empty((), dtype=eng.compute_dtype).element_size()
             for f in [eng.model.agg_width(l) for l in range(len(run["dims"]) - 1)]:
-                h = torch.zeros((meta.vp, f), dtype=eng.compute_dtype, device=device)
+                h = torch.zeros((meta.vp, f), dtype=eng.compute_dtype, device=dev)
                 eng.halo(h)
                 sync()
                 t0 = time.perf_counter()
-                for _ in range(2):
+                for _ in range(RANK_REPEATS):
                     eng.halo(h)
                 sync()
-                row["exchange_ms"][str(f)] = 1e3 * (time.perf_counter() - t0) / 2
+                row["exchange_ms"][str(f)] = 1e3 * (time.perf_counter() - t0) / RANK_REPEATS
                 row.setdefault("wire_bytes", {})[str(f)] = row["wire_rows"] * f * elt
         if run.get("stages"):
             row["stages_ms"] = eng.profile(iters=3)
@@ -2074,10 +2085,13 @@ def sharded_phases(sg, sg2, sgc, layers, hyb_f32_losses, kernel_sources) -> dict
                 for k in kernels:
                     check(r["launches"][k] > 0, f"{label} rank {r['rank']}: no {k} launch")
                 ex = r["exchanges"]
-                # an overlap plan splits every forward exchange around its
-                # interior work; the combined plan splits none
-                check((ex["started"] > 0) == overlap and ex["held"] <= ex["started"],
-                      f"{label} rank {r['rank']}: exchanges {ex}")
+                # an overlap plan splits every exchange, forward and reverse,
+                # around the work that does not read it; the combined plan
+                # splits none
+                for d in ("", "bwd_"):
+                    check((ex[d + "started"] > 0) == overlap
+                          and ex[d + "held"] <= ex[d + "started"],
+                          f"{label} rank {r['rank']}: exchanges {ex}")
             if overlap:
                 overlap_lines(label, rows)
 
@@ -2085,7 +2099,8 @@ def sharded_phases(sg, sg2, sgc, layers, hyb_f32_losses, kernel_sources) -> dict
             """Per rank: the exchanges training split around the interior
             work, those whose interior work had completed when gloo's wait
             returned, the host's ms an exchange and the card's ms beside a
-            held one, and the fused plan's pure / mixed edges."""
+            held one; the same of the reverse exchanges (the gradient work
+            beside them); and the fused plan's pure / mixed edges."""
             for r in rows:
                 ex = r["exchanges"]
                 edges = (f", pure_edges {r['pure_edges']}, mixed_edges {r['mixed_edges']}"
@@ -2095,7 +2110,12 @@ def sharded_phases(sg, sg2, sgc, layers, hyb_f32_losses, kernel_sources) -> dict
                 print(f"overlap {label} rank {r['rank']}: exchanges started {ex['started']}, "
                       f"interior done within the wait {ex['held']}, host ms an exchange "
                       f"{ex['host_ms'] / max(1, ex['started']):.3f}, card ms beside a held "
-                      f"exchange {ex['beside_ms'] / max(1, ex['held']):.4f}{edges}", flush=True)
+                      f"exchange {ex['beside_ms'] / max(1, ex['held']):.4f}; reverse exchanges "
+                      f"started {ex['bwd_started']}, gradient work done within the wait "
+                      f"{ex['bwd_held']}, host ms an exchange "
+                      f"{ex['bwd_host_ms'] / max(1, ex['bwd_started']):.3f}, card ms beside a "
+                      f"held exchange {ex['bwd_beside_ms'] / max(1, ex['bwd_held']):.4f}{edges}",
+                      flush=True)
 
         def timing(rows):
             out = {"warm_epoch_ms": float(np.mean(rows[0]["epoch_ms"][1:])),
@@ -2208,7 +2228,8 @@ def sharded_phases(sg, sg2, sgc, layers, hyb_f32_losses, kernel_sources) -> dict
         timings["tp 2x2"] = tp_out["timings"]
 
         # 6e. pair reuse on the community graph's shards; then, in the same
-        # launch, 6b's card runs (untimed, after 6e's traced GAT runs)
+        # launch, 6b's card runs (untimed, after 6e's traced GAT runs) and
+        # last its CPU runs (the same ranks on device "cpu")
         runs = [run(f"{model} bf16 reuse={reuse}", "community", timed=True, reuse=reuse,
                     **bf16, **kw)
                 for model, kw in models for reuse in ("pairs", "off")]
@@ -2221,7 +2242,8 @@ def sharded_phases(sg, sg2, sgc, layers, hyb_f32_losses, kernel_sources) -> dict
                  run("smallcomm gcn pairs", "smallcomm", reuse="pairs", reuse_passes=2),
                  run("smallcomm gat pairs", "smallcomm", reuse="pairs", reuse_passes=2,
                      **gat)]
-        by_c = launch("6e, 6b (card)", runs + small)
+        on_cpu_runs = [dict(r, label=f"{r['label']} (CPU)", device="cpu") for r in small]
+        by_c = launch("6e, 6b", runs + small + on_cpu_runs)
         for model, _ in models:
             pairs, off = (by_c[f"{model} bf16 reuse={r}"] for r in ("pairs", "off"))
             need(f"{model} reuse=pairs", pairs, ["K6", "K2", "K9", "K10"], "hyb", False)
@@ -2241,11 +2263,10 @@ def sharded_phases(sg, sg2, sgc, layers, hyb_f32_losses, kernel_sources) -> dict
                 row_cut=[r["row_cut"] for r in pairs])
             timings[f"{model} community off"] = timing(off)
 
-        on_cpu = launch("6b (CPU)", small, device="cpu", timeout_s=300)
         for r in small:
             label = r["label"]
             gap_check(f"4 ranks on the card vs 4 on the CPU, {label}",
-                      by_c[label][0]["losses"], on_cpu[label][0]["losses"], 1e-5)
+                      by_c[label][0]["losses"], by_c[f"{label} (CPU)"][0]["losses"], 1e-5)
             if not r["predict"]:
                 continue
             single = Engine(gp, layers, TrainConfig(**r["cfg"]), device="cuda")

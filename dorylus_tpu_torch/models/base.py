@@ -63,11 +63,16 @@ Params = Dict[str, torch.Tensor]
 HaloFn = Callable[[torch.Tensor], torch.Tensor]
 
 
-def start_halo(halo: HaloFn, h: torch.Tensor):
+def start_halo(halo: HaloFn, h: torch.Tensor) -> tuple:
     """The overlap paths' first step: start exchanging h where the halo
-    has a `start` (parallel/halo.py `Halo`). A halo that is only a callable
-    exchanges nothing yet: `finish_halo` then runs it whole."""
-    return halo.start(h) if hasattr(halo, "start") else h
+    has a `start` (parallel/halo.py `Halo`). Returns (h joined to the
+    reverse exchange, the exchange): the layer's work whose gradient the
+    reverse exchange must wait for reads the joined h. A halo that is only
+    a callable exchanges nothing yet: `finish_halo` then runs it whole."""
+    if not hasattr(halo, "start"):
+        return h, h
+    pending = halo.start(h)
+    return pending.h, pending
 
 
 def finish_halo(halo: HaloFn, pending) -> torch.Tensor:

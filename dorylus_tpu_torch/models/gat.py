@@ -25,8 +25,14 @@ Sharded (`halo` given): on the three overlap paths the exchange of z is
 started (`halo.start`), the work that reads z alone is issued, the
 exchange is finished (`halo.finish`: the ghost z rows alone) and the rest
 is issued, as in models/gcn.py. The attention vector leaky(za) is local,
-so it is issued before the finish too. With the fused-overlap op
-(`spmm_split`) the work beside the exchange is K8's pure range
+so it is issued before the finish too. In the backward the aggregation and
+the residual z + agg read z through the join `halo.start` returns, so the
+reverse exchange finishes after the interior op's backward; za reads z
+itself and is made after the join, so autograd (the ready node made last
+runs first) runs the attention's gradient (leaky's, then z @ a's) beside
+the reverse exchange as well, and z's gradient adds it after the join's
+sum: on the fused plan the order of the exchange run whole, bit for bit.
+With the fused-overlap op (`spmm_split`) the work beside the exchange is K8's pure range
 (`pure_range`), then `apply_dst_fused(z, ghosts, leaky(za), pure)` adds the
 mixed range (JAX's overlap branch); with the (interior, boundary) op pair
 (`spmm_split` a 2-tuple, the degree kernel's overlap plan) two `apply_dst`
@@ -120,10 +126,12 @@ class GAT(GNN):
         return self.params()
 
     def _aggregate(self, z: torch.Tensor, za: torch.Tensor, batch: GraphBatch,
-                   edge_mask: torch.Tensor, halo: HaloFn | None = None) -> torch.Tensor:
-        if halo is not None and (self.spmm_split is not None
-                                 or self.edge_split is not None):
-            return self._aggregate_split(z, za, batch, halo)
+                   edge_mask: torch.Tensor, halo: HaloFn | None = None,
+                   pending=None) -> torch.Tensor:
+        """pending: the exchange `start_halo` began from z, on the overlap
+        paths (z is then the joined z)."""
+        if pending is not None:
+            return self._aggregate_split(z, za, batch, halo, pending)
         table = halo(z) if halo is not None else z
         if self.spmm_op is not None:
             return self.spmm_op.apply_dst(table, leaky_relu(za)).to(z.dtype)
@@ -135,10 +143,9 @@ class GAT(GNN):
         return spmm_edgewise(table, batch.src, batch.dst, att, v, op=op)
 
     def _aggregate_split(self, z: torch.Tensor, za: torch.Tensor, batch: GraphBatch,
-                         halo: HaloFn) -> torch.Tensor:
+                         halo: HaloFn, pending) -> torch.Tensor:
         """The overlap paths: the exchange of z is in flight while the work
         that reads z alone is issued; the ghost z rows arrive after it."""
-        pending = start_halo(halo, z)
         if getattr(self.spmm_split, "fused", False):
             op = self.spmm_split
             att_v = leaky_relu(za)
@@ -230,8 +237,12 @@ class GAT(GNN):
             # f32 products on compute_dtype-rounded operands (JAX's dot
             # with preferred_element_type=float32); z stays f32.
             z = torch.matmul(h.float(), w.float())
+            zj, pending = z, None
+            if halo is not None and (self.spmm_split is not None
+                                     or self.edge_split is not None):
+                zj, pending = start_halo(halo, z)
             za = torch.matmul(z, a.float())[:, 0]
-            h = z + self._aggregate(z, za, batch, edge_mask, halo)
+            h = zj + self._aggregate(zj, za, batch, edge_mask, halo, pending)
             if l < num_layers - 1:
                 h = h.to(compute_dtype)
         return h

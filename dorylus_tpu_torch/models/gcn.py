@@ -34,6 +34,13 @@ around the exchange, in one order: start the exchange of x
 (`halo.start`), issue the work that reads x alone, finish the exchange
 (`halo.finish`), issue the rest. So the interior work runs while the rows
 are in flight, as XLA schedules JAX's (`dorylus_tpu/models/gcn.py:149-152`).
+The backward mirrors it: the aggregation reads x through the join
+`halo.start` returns, so the reverse exchange starts once the boundary
+op's gradient gives the ghost rows' cotangent and finishes only after the
+interior op's backward; the self term reads x itself and is made after
+the join, so autograd (the ready node made last runs first) runs it in
+between too, and x's gradient adds it after the join's sum: on the fused
+plan and the degree pair the order of the exchange run whole, bit for bit.
 The work that reads x alone: with the fused-overlap op (`spmm_split`,
 ShardedHybSpMM edges="fused") K8's pure range (`pure_range`, the buckets
 whose in-edges are all local), then `apply_static_fused(x, ghosts, pure)`
@@ -118,6 +125,11 @@ def _psum_feat(x: torch.Tensor, group) -> torch.Tensor:
     return _PsumFeat.apply(x, group)
 
 
+def self_term(h: torch.Tensor, self_val: torch.Tensor) -> torch.Tensor:
+    """The self-loop term self_val[v] * h[v], in h's dtype."""
+    return h * self_val[:, None].to(h.dtype)
+
+
 def place_block(block: torch.Tensor, index: int, m: int) -> torch.Tensor:
     """block (V, F/m) at column block `index` of a (V, F) zero table (JAX's
     dynamic_update_slice into zeros): its backward slices the block out."""
@@ -176,46 +188,49 @@ class GCN(GNN):
 
     def _aggregate(self, h: torch.Tensor, batch: GraphBatch,
                    halo: HaloFn | None = None) -> torch.Tensor:
-        self_term = h * batch.self_val[:, None].to(h.dtype)
         if halo is not None and (self.spmm_split is not None
                                  or self.edge_split is not None):
-            return self._aggregate_split(h, batch, halo, self_term)
+            return self._aggregate_split(h, batch, halo)
         table = halo(h) if halo is not None else h
         if self.spmm_op is None:
             if self.blk_rows:
                 out = spmm_dst_blocked(table, batch.src, batch.dst, batch.edge_val,
                                        h.shape[0], self.blk_rows, op=self.edge_op)
-                return out + self_term
+                return out + self_term(h, batch.self_val)
             return aggregate(h, batch.src, batch.dst, batch.edge_val,
                              batch.self_val, h_table=table, op=self.edge_op)
         if self.spmm_op.has_static_vals:
             out = self.spmm_op.apply_static(table)
         else:
             out = self.spmm_op.apply(table, batch.edge_val.to(h.dtype))
-        return out.to(h.dtype) + self_term
+        return out.to(h.dtype) + self_term(h, batch.self_val)
 
-    def _aggregate_split(self, h: torch.Tensor, batch: GraphBatch, halo: HaloFn,
-                         self_term: torch.Tensor) -> torch.Tensor:
+    def _aggregate_split(self, h: torch.Tensor, batch: GraphBatch,
+                         halo: HaloFn) -> torch.Tensor:
         """The overlap paths: the exchange of h is in flight while the work
-        that reads h alone is issued; the ghost rows arrive after it."""
-        pending = start_halo(halo, h)
+        that reads h alone is issued; the ghost rows arrive after it. The
+        aggregation reads h through the join (hj), the self term h itself,
+        made after the join (see the module docstring)."""
+        hj, pending = start_halo(halo, h)
         if getattr(self.spmm_split, "fused", False):
             # The pure buckets gather h, the mixed ones h and the ghosts.
             op = self.spmm_split
-            pure = op.pure_range(h, "static")
-            out = op.apply_static_fused(h, finish_halo(halo, pending), pure)
-            return out.to(h.dtype) + self_term
+            own = self_term(h, batch.self_val)
+            pure = op.pure_range(hj, "static")
+            out = op.apply_static_fused(hj, finish_halo(halo, pending), pure)
+            return out.to(h.dtype) + own
         if self.spmm_split is not None:
             op_i, op_b = self.spmm_split
+            own = self_term(h, batch.self_val)
             if op_i.has_static_vals:
-                out_i = op_i.apply_static(h)
+                out_i = op_i.apply_static(hj)
                 out_b = op_b.apply_static(finish_halo(halo, pending))
             else:
-                out_i = op_i.apply(h, batch.val_int.to(h.dtype))
+                out_i = op_i.apply(hj, batch.val_int.to(h.dtype))
                 out_b = op_b.apply(finish_halo(halo, pending), batch.val_bnd.to(h.dtype))
-            return (out_i + out_b).to(h.dtype) + self_term
+            return (out_i + out_b).to(h.dtype) + own
         eop_i, eop_b = self.edge_split
-        out_i = aggregate(h, batch.src_int, batch.dst_int, batch.val_int,
+        out_i = aggregate(hj, batch.src_int, batch.dst_int, batch.val_int,
                           batch.self_val, op=eop_i)
         out_b = spmm_edgewise(finish_halo(halo, pending), batch.src_bnd, batch.dst_bnd,
                               batch.val_bnd, h.shape[0], op=eop_b)

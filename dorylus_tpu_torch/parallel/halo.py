@@ -32,17 +32,29 @@ One `torch.autograd.Function` (`HaloRecvFn`) is the counterpart of both
 every rank in the same order, a rank with nothing to send included (size
 0), in the backward as in the forward.
 
-The forward exchange runs in two steps, so that a rank's interior work runs
-while the rows are in flight (JAX leaves that to XLA's scheduler,
-dorylus_tpu/parallel/train_step.py:14-15; the reference's pipeline runs
-scatter beside compute): `halo_start` packs (K9) and starts the all-to-all
-(parallel/multihost.py `all_to_all_rows_start`); `HaloRecvFn.apply(h, plan,
-pending)` finishes it and places the rows (K9). h stays the autograd input,
-so the backward (the reverse exchange, then K10) owns the exchange's whole
-gradient. `make_halo_fn` returns a `Halo`: called, it does the whole
-exchange (the combined plan, tensor parallelism, the profile); its
-`start(h)` / `finish(pending)` serve the overlap plans (models/gcn.py,
-models/gat.py `_aggregate_split`).
+On the overlap plans both exchanges run in two steps, so that the rank's
+work that does not read the rows runs while they are in flight (JAX leaves
+that to XLA's scheduler, dorylus_tpu/parallel/train_step.py:14-15, across
+the one jitted step; the reference's pipeline runs scatter beside compute):
+
+  forward   `halo_start` packs (K9) and starts the all-to-all (parallel/
+            multihost.py `all_to_all_rows_start`); `HaloRecvFn.apply(h, plan,
+            pending, reverse)` finishes it and places the rows (K9);
+  backward  HaloRecvFn's backward unplaces the ghost rows' cotangent (K9)
+            and starts the reverse all-to-all (`ReverseExchange.start`);
+            `HaloJoinFn`, applied to h where the forward started, finishes
+            it in its own backward: the wait, K10, and the add into the
+            gradient h's other consumers delivered (JAX: `_planned_bwd`,
+            `_ragged_bwd`, whose only input is that cotangent).
+
+Autograd runs the join's backward only once every consumer of its output
+has delivered, HaloRecvFn's included, so the start precedes the finish on
+every path; what autograd runs in between (the layer's interior backward,
+the self term, GAT's attention gradient: models/gcn.py, models/gat.py)
+runs beside the transfer. `make_halo_fn` returns a `Halo`: called, it does
+the whole exchange both ways (the combined plan, tensor parallelism, the
+profile's halo line, `predict`); its `start(h)` / `finish(pending)` serve
+the overlap plans (`_aggregate_split`).
 
 K9 (row gather) and K10 (gathered sorted segment-sum) are CUDA kernels
 (ops/csrc/halo.cu), each with a plain torch version beside it that the CPU
@@ -400,16 +412,87 @@ class HaloPlan:
         return sum(c for p, c in enumerate(self.in_splits) if p != me)
 
 
+# The return trip of the ghost rows' cotangent g: each received block goes
+# back to its owner (the split lists swap roles), then the sorted
+# segment-sum adds up, per local row, what its receivers returned.
+
+
+def _unplaced(g: torch.Tensor, plan: HaloPlan) -> torch.Tensor:
+    """g's received blocks in wire order (K9 on the exact wire)."""
+    g = g.contiguous()
+    return g if plan.unplace is None else row_gather(g, plan.unplace)
+
+
+def _summed(back: torch.Tensor, plan: HaloPlan) -> torch.Tensor:
+    """What came back, summed per local row (K10) -> (vp, F) f32."""
+    return segsum_gather(back, plan.order, plan.rows, plan.row_ptr, plan.vp)
+
+
+def reverse_whole(g: torch.Tensor, plan: HaloPlan) -> torch.Tensor:
+    """The whole return trip of g -> h's share (vp, F) f32."""
+    back = multihost.all_to_all_rows(_unplaced(g, plan), plan.out_splits, plan.in_splits,
+                                     group=plan.group)
+    return _summed(back, plan)
+
+
+# Reverse exchanges of this process started and not finished (at most one:
+# layer l-1's starts after layer l's finish).
+_REVERSE_OPEN = 0
+
+
+class ReverseExchange:
+    """One overlap layer's reverse exchange in two steps: `start(g)` from
+    the ghost rows' cotangent (HaloRecvFn's backward: K9's unplace, the
+    all-to-all started), `finish()` in the join's backward (the wait, K10)
+    -> h's share (vp, F) f32. Each start is finished exactly once: a start
+    while another is open, a forward exchange started while one is open,
+    and a finish with nothing started raise (a backward that pruned one of
+    the two nodes)."""
+
+    def __init__(self, plan: HaloPlan):
+        self.plan = plan
+        self.exchange: Optional[multihost.Exchange] = None
+
+    def start(self, g: torch.Tensor) -> None:
+        global _REVERSE_OPEN
+        _refuse_open("a reverse exchange")
+        plan = self.plan
+        self.exchange = multihost.all_to_all_rows_start(_unplaced(g, plan), plan.out_splits,
+                                                        plan.in_splits, group=plan.group,
+                                                        direction="bwd")
+        _REVERSE_OPEN += 1
+
+    def finish(self) -> torch.Tensor:
+        global _REVERSE_OPEN
+        ex, self.exchange = self.exchange, None
+        if ex is None:
+            raise RuntimeError("halo: the reverse exchange was never started (the backward "
+                               "pruned HaloRecvFn's node but ran the join's)")
+        _REVERSE_OPEN -= 1
+        return _summed(multihost.all_to_all_rows_finish(ex), self.plan)
+
+
+def _refuse_open(what: str) -> None:
+    """Raise where a reverse exchange of this process is still open."""
+    if _REVERSE_OPEN:
+        raise RuntimeError(f"halo: {what} started while a reverse exchange is open (a "
+                           "backward ran HaloRecvFn's node and pruned the join's, or "
+                           "stopped between them)")
+
+
 class HaloRecvFn(torch.autograd.Function):
     """Ghost rows (n * max_h, F) of h over the process group, on either
     wire (JAX: `_halo_recv_planned` and `ragged_halo_recv` with their
     custom VJPs). pending: the exchange `halo_start` started from h, which
     the forward finishes; None: the forward packs, exchanges and places in
-    one go."""
+    one go. reverse: the `ReverseExchange` the backward starts, which the
+    `HaloJoinFn` on h finishes; None: the backward runs the reverse
+    exchange whole and returns h's gradient."""
 
     @staticmethod
-    def forward(ctx, h: torch.Tensor, plan: HaloPlan, pending=None) -> torch.Tensor:
-        ctx.plan, ctx.h_dtype = plan, h.dtype
+    def forward(ctx, h: torch.Tensor, plan: HaloPlan, pending=None,
+                reverse: Optional[ReverseExchange] = None) -> torch.Tensor:
+        ctx.plan, ctx.h_dtype, ctx.reverse = plan, h.dtype, reverse
         if pending is None:
             recv = multihost.all_to_all_rows(row_gather(h, plan.pack), plan.in_splits,
                                              plan.out_splits, group=plan.group)
@@ -419,23 +502,33 @@ class HaloRecvFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        plan = ctx.plan
-        g = g.contiguous()
-        # The return trip: each received block goes back to its owner
-        # (the split lists swap roles), then the sorted segment-sum adds
-        # up, per local row, what its receivers returned.
-        gsend = g if plan.unplace is None else row_gather(g, plan.unplace)
-        back = multihost.all_to_all_rows(gsend, plan.out_splits, plan.in_splits,
-                                         group=plan.group)
-        dh = segsum_gather(back, plan.order, plan.rows, plan.row_ptr, plan.vp)
-        return dh.to(ctx.h_dtype), None, None
+        if ctx.reverse is not None:
+            ctx.reverse.start(g)
+            return None, None, None, None
+        return reverse_whole(g, ctx.plan).to(ctx.h_dtype), None, None, None
+
+
+class HaloJoinFn(torch.autograd.Function):
+    """h itself; the backward finishes the reverse exchange HaloRecvFn's
+    backward started and adds h's share of it (in h's dtype) to the
+    gradient h's other consumers delivered."""
+
+    @staticmethod
+    def forward(ctx, h: torch.Tensor, reverse: ReverseExchange) -> torch.Tensor:
+        ctx.reverse = reverse
+        return h.view_as(h)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g + ctx.reverse.finish().to(g.dtype), None
 
 
 def halo_start(h: torch.Tensor, plan: HaloPlan) -> multihost.Exchange:
     """Pack the rows each peer needs (K9) and start the all-to-all; the
     exchange in flight, for `HaloRecvFn.apply(h, plan, pending)`. Nothing
-    of it is recorded for autograd: HaloRecvFn's backward is the whole
-    gradient of the exchange."""
+    of it is recorded for autograd: HaloRecvFn's backward returns the
+    exchange's gradient."""
+    _refuse_open("a halo exchange")
     with torch.no_grad():
         buf = row_gather(h, plan.pack)
     return multihost.all_to_all_rows_start(buf, plan.in_splits, plan.out_splits,
@@ -456,19 +549,23 @@ def halo_exchange(h: torch.Tensor, plan: HaloPlan) -> torch.Tensor:
 
 
 class HaloPending(NamedTuple):
-    """An exchange `Halo.start` started: its input and the all-to-all in
-    flight."""
+    """An exchange `Halo.start` started: h joined to its reverse exchange
+    (what the layer reads from there on), the all-to-all in flight (None:
+    the forward exchanges whole at the finish) and the reverse exchange the
+    backward runs in two steps."""
 
     h: torch.Tensor
-    exchange: multihost.Exchange
+    exchange: Optional[multihost.Exchange]
+    reverse: ReverseExchange
 
 
 class Halo:
     """The halo the models take (JAX: `make_halo_fn`'s callable). Called
-    with h, the whole exchange: the ghost rows alone (ghosts_only, the
-    overlap plans) or the full feature table. `start(h)` / `finish(pending)`
-    split it around the work that reads h alone (the overlap plans): finish
-    returns the ghost rows."""
+    with h, the whole exchange both ways: the ghost rows alone (ghosts_only,
+    the overlap plans) or the full feature table. `start(h)` / `finish
+    (pending)` split both exchanges around the work that does not read the
+    rows (the overlap plans): start joins h to the reverse exchange and
+    starts the forward one; finish returns the ghost rows."""
 
     def __init__(self, plan: HaloPlan, ghosts_only: bool):
         self.plan, self.ghosts_only = plan, ghosts_only
@@ -477,10 +574,12 @@ class Halo:
         return halo_recv(h, self.plan) if self.ghosts_only else halo_exchange(h, self.plan)
 
     def start(self, h: torch.Tensor) -> HaloPending:
-        return HaloPending(h, halo_start(h, self.plan))
+        reverse = ReverseExchange(self.plan)
+        exchange = halo_start(h, self.plan)
+        return HaloPending(HaloJoinFn.apply(h, reverse), exchange, reverse)
 
     def finish(self, pending: HaloPending) -> torch.Tensor:
-        return HaloRecvFn.apply(pending.h, self.plan, pending.exchange)
+        return HaloRecvFn.apply(pending.h, self.plan, pending.exchange, pending.reverse)
 
 
 def make_halo_fn(plan: Optional[HaloPlan], overlap: bool, multi: bool) -> Optional[Halo]:

@@ -50,7 +50,16 @@ received rows, ordered before whatever the caller issues next.
                         code); the handle keeps the send and receive buffers
                         alive until the join
 
-`EXCHANGES` counts, on the staged path, what ran beside each exchange.
+The halo runs both directions this way (parallel/halo.py): the forward
+exchange beside the rank's interior work, the reverse one, from the ghost
+rows' cotangent, beside the layer's gradient work that does not read it.
+Layer l-1's reverse exchange starts after layer l's has finished, and the
+forward ones have finished before the loss exists, so at most one exchange
+of a process is in flight; on the staged path the refusal of a second
+start holds that.
+
+`EXCHANGES` counts, on the staged path, what ran beside each exchange, per
+direction.
 """
 
 from __future__ import annotations
@@ -77,8 +86,9 @@ _SIDE: dict = {}  # card index -> the side stream NCCL's exchanges run on
 _LOGGED_TRANSPORT = False
 
 # The staged exchanges (gloo, CUDA tensors) of this process that a caller
-# finishes apart (the halo's two steps; `all_to_all_rows` is not counted):
-# `started`;
+# finishes apart (the halo's two steps; `all_to_all_rows` is not counted),
+# the forward ones under these keys and the reverse ones under the same
+# keys prefixed "bwd_": `started`;
 # `held`, those whose work issued between start and finish had completed on
 # the card when gloo's wait returned (an event recorded at the finish's
 # entry, queried after the wait: no host wait of its own); `host_ms`, the
@@ -87,7 +97,14 @@ _LOGGED_TRANSPORT = False
 # time between the start's return and the finish's entry, summed over the
 # held exchanges (the work issued beside the exchange, its enqueue gaps
 # included).
-EXCHANGES = {"started": 0, "held": 0, "host_ms": 0.0, "beside_ms": 0.0}
+_COUNTS = {"started": 0, "held": 0, "host_ms": 0.0, "beside_ms": 0.0}
+EXCHANGES = {f"{d}{k}": v for d in ("", "bwd_") for k, v in _COUNTS.items()}
+_PREFIX = {"fwd": "", "bwd": "bwd_"}
+
+
+def reset_exchanges() -> None:
+    """Every EXCHANGES count back to 0."""
+    EXCHANGES.update({k: type(v)() for k, v in EXCHANGES.items()})
 
 
 def initialized() -> bool:
@@ -208,12 +225,12 @@ class Exchange:
     rows' buffer and every other buffer the transfer touches, held until
     `all_to_all_rows_finish`."""
 
-    __slots__ = ("out", "inp", "work", "host_out", "side", "t0", "mark")
+    __slots__ = ("out", "inp", "work", "host_out", "side", "t0", "mark", "prefix")
 
     def __init__(self, out, inp, work=None, host_out=None, side=None):
         self.out, self.inp, self.work, self.host_out = out, inp, work, host_out
         self.side = side
-        self.t0 = self.mark = None
+        self.t0 = self.mark = self.prefix = None
 
 
 def _side_stream(device: torch.device):
@@ -227,13 +244,13 @@ def _side_stream(device: torch.device):
 
 def all_to_all_rows_start(inp: torch.Tensor, in_splits: list[int],
                           out_splits: list[int], group=None, *,
-                          counted: bool = True) -> Exchange:
+                          direction: str | None = "fwd") -> Exchange:
     """Start sending rows [sum(in_splits[:p]), ...) of `inp` to rank p of
     `group`; `all_to_all_rows_finish` returns what arrives. Every rank of
     the group must start and finish it, a rank with nothing to send
-    included, in the same order as every other collective. counted: the
-    exchange goes into EXCHANGES (False: `all_to_all_rows`, which issues
-    nothing beside it)."""
+    included, in the same order as every other collective. direction:
+    "fwd" or "bwd", the EXCHANGES counts the exchange goes into (None:
+    `all_to_all_rows`, which issues nothing beside it)."""
     global _A2A_BUSY
     if not initialized():
         raise RuntimeError("all_to_all_rows needs a process group")
@@ -257,10 +274,11 @@ def all_to_all_rows_start(inp: torch.Tensor, in_splits: list[int],
                                       in_splits, group=group, async_op=True)
         _A2A_BUSY = True
         ex = Exchange(out, h_in, work, h_out)
-        if inp.is_cuda and counted:
+        if inp.is_cuda and direction is not None:
+            ex.prefix = _PREFIX[direction]
             ex.mark = torch.cuda.Event(enable_timing=True)
             ex.mark.record()
-            EXCHANGES["started"] += 1
+            EXCHANGES[ex.prefix + "started"] += 1
         ex.t0 = t0
         return ex
     if backend_name() == "gloo":
@@ -294,10 +312,10 @@ def all_to_all_rows_finish(ex: Exchange) -> torch.Tensor:
             done = torch.cuda.Event(enable_timing=True)
             done.record()  # after the work issued beside the exchange
             ex.work.wait()
-            EXCHANGES["host_ms"] += 1e3 * (time.perf_counter() - ex.t0)
+            EXCHANGES[ex.prefix + "host_ms"] += 1e3 * (time.perf_counter() - ex.t0)
             if done.query():
-                EXCHANGES["held"] += 1
-                EXCHANGES["beside_ms"] += ex.mark.elapsed_time(done)
+                EXCHANGES[ex.prefix + "held"] += 1
+                EXCHANGES[ex.prefix + "beside_ms"] += ex.mark.elapsed_time(done)
     finally:
         _A2A_BUSY = False
     ex.out.copy_(ex.host_out)
@@ -310,7 +328,7 @@ def all_to_all_rows(inp: torch.Tensor, in_splits: list[int],
     returns the (sum(out_splits), F) rows received, grouped by sender. Every
     rank of the group must call it, a rank with nothing to send included."""
     return all_to_all_rows_finish(all_to_all_rows_start(inp, in_splits, out_splits, group,
-                                                        counted=False))
+                                                        direction=None))
 
 
 def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:

@@ -42,10 +42,15 @@ the exchange, issues the work that reads the local rows alone (K8's pure
 range, the degree pair's or the edgewise split's interior op) and only
 then finishes it, so that work runs while the rows are in flight, as XLA
 schedules JAX's ("XLA overlaps the all_to_all with local aggregation",
-dorylus_tpu/parallel/train_step.py:14-15). Gloo's thread moves the bytes
-beside it; NCCL runs the collective on a side stream, forked and joined by
-events, inside the epoch's CUDA graph too. The combined plan and tensor
-parallelism call the exchange whole.
+dorylus_tpu/parallel/train_step.py:14-15). The backward does the same with
+the reverse exchange: HaloRecvFn's backward starts it once the ghost rows'
+cotangent exists, autograd runs the layer's gradient work that does not
+read it (the interior op's backward, the self term, GAT's attention
+gradient), and the join on h (`HaloJoinFn`) finishes it, as XLA may
+schedule JAX's `_planned_bwd` / `_ragged_bwd`. Gloo's thread moves the
+bytes beside it; NCCL runs the collective on a side stream, forked and
+joined by events, inside the epoch's CUDA graph too, both directions. The
+combined plan and tensor parallelism call the exchange whole both ways.
 
 The epoch loop is the single-device engine's group loop (`run_loop`), with
 its bounded staleness, checkpoints and resume (JAX `parallel/train_step.py`
@@ -54,7 +59,8 @@ once, as JAX's sharded `multi` returns them; every rank computes the same
 groups. On the card with no process group or over NCCL, a group's epochs
 replay the engine's CUDA graphs (engine/graphs.py, JAX's compiled
 `make_multi`): the train graph holds the forward with its halo exchanges,
-the backward with their reverse (enqueued by autograd's device thread), the
+the backward with their reverse (enqueued by autograd's device thread; on
+the overlap plans each forked in one node and joined in a later one), the
 one all-reduce of the gradients and the loss, Adam and the window's roll;
 the eval graph the forward and the sum of the stats. Nothing in either
 reads the device from the host: the split sizes are fixed per plan and the
@@ -141,7 +147,7 @@ from dorylus_tpu_torch.parallel.mesh import make_mesh
 #   degree: GCN's pair wins (2.507 / 2.614), GAT's loses (2.780 / 2.748):
 #        JAX's True stays.
 # The overlap plans now also run the exchange beside their interior work,
-# which can only add to their side. Re-fitting by wall time needs a card a
+# both ways, which can only add to their side. Re-fitting by wall time needs a card a
 # rank (ROADMAP queue 2 point 4): on one card the gloo ranks' wall time is
 # the host's transport, not the card's.
 AUTO_OVERLAP = {"hyb": True, "degree": True, "xla": True}

@@ -42,10 +42,12 @@ What the numbers are: on the CPU the ranks run the kernels' plain torch
 versions, so the CPU modes measure the SPMD program's scaling and gloo's
 transport, not the kernels, and their rates are not comparable with the
 JAX package's XLA:CPU results. `overlap_speedup` compares the overlap plan,
-whose forward exchanges run beside each rank's interior work (gloo's thread
-moves the rows, NCCL's side stream in device mode; parallel/halo.py
-`Halo.start` / `finish`), with the combined plan, which runs them whole: two
-plans' work and the concurrency together.
+whose exchanges run beside each rank's work that does not read them, the
+forward ones beside the interior gathers and the reverse ones beside the
+gradient work (gloo's thread moves the rows, NCCL's side stream in device
+mode; parallel/halo.py `Halo.start` / `finish`, `ReverseExchange`), with the
+combined plan, which runs them whole: two plans' work and the concurrency
+together.
 
 The summary carries JAX's keys plus `backend` (gloo or nccl),
 `threads_per_rank` (the torch threads of each rank, by shard count) and
@@ -298,7 +300,8 @@ def what_line(mode: str) -> str:
                  "versions: the SPMD program's scaling and gloo's transport, not the "
                  "kernels; rates not comparable with the JAX package's XLA:CPU results")
     return (f"# {mode}: {where}. overlap_speedup compares two plans' work and the "
-            "exchange run beside the interior work (parallel/halo.py Halo.start / finish)")
+            "exchanges run beside the work that does not read them, forward and reverse "
+            "(parallel/halo.py Halo.start / finish)")
 
 
 def _pinned(args, out) -> dict:

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import contextlib
 import sys
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -324,41 +325,99 @@ def collective_capture_rank(rank, world, device):
     return chip_smoke.collective_capture(device)
 
 
-class Serial:
+class _Done(NamedTuple):
+    h: torch.Tensor
+    ghosts: torch.Tensor
+
+
+class _Arrived(torch.autograd.Function):
+    """Ghost rows exchanged before, as HaloRecvFn's output at this point of
+    the forward: the backward is the whole reverse exchange."""
+
+    @staticmethod
+    def forward(ctx, h, plan, ghosts):
+        ctx.plan, ctx.h_dtype = plan, h.dtype
+        return ghosts.view_as(ghosts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return halo.reverse_whole(g, ctx.plan).to(ctx.h_dtype), None, None
+
+
+class Serial(halo.Halo):
     """The exchange as the overlap paths ran it before it was split: the
-    whole exchange at `start`, the interior work after it."""
-
-    def __init__(self, halo_fn):
-        self.halo = halo_fn
-
-    def __call__(self, h):
-        return self.halo(h)
+    whole exchange at `start`, the interior work after it, the reverse
+    exchange whole. Its autograd node stands where the finish is, as
+    HaloRecvFn's does, so autograd reaches it in the order the models
+    create the layer's nodes in."""
 
     def start(self, h):
-        return self.halo(h)
+        with torch.no_grad():
+            return _Done(h, halo.halo_recv(h, self.plan))
 
-    def finish(self, ghosts):
-        return ghosts
+    def finish(self, done):
+        return _Arrived.apply(done.h, self.plan, done.ghosts)
+
+
+class ReverseWhole(halo.Halo):
+    """The order before the backward was split: the forward exchange in
+    two steps, its reverse whole in HaloRecvFn's backward (no join)."""
+
+    def start(self, h):
+        return halo.HaloPending(h, halo.halo_start(h, self.plan), None)
+
+
+class WholeAtFinish(halo.ReverseExchange):
+    """A reverse exchange that runs whole where the join finishes it."""
+
+    def start(self, g):
+        self.g = g
+
+    def finish(self):
+        return halo.reverse_whole(self.g, self.plan)
+
+
+class OneCall(halo.Halo):
+    """Both exchanges called whole where their finish is: the forward one
+    at `finish`, the reverse one in the join's backward."""
+
+    def start(self, h):
+        reverse = WholeAtFinish(self.plan)
+        return halo.HaloPending(halo.HaloJoinFn.apply(h, reverse), None, reverse)
+
+
+HALOS = {"one-call": OneCall, "reverse-whole": ReverseWhole, "serial": Serial}
 
 
 def _recording(eng, events, stack, exchanges=True):
     """Record, in `events`, each interior op the model issues on its overlap
     path (the fused plan's pure range, the degree pair's interior op, the
     edgewise split's interior aggregation) and, with `exchanges`, each
-    all_to_all_rows_start / finish of this process."""
+    all_to_all_rows_start / finish of this process. In the backward: each
+    interior op's gradient ("interior"), GCN's self term's ("self") and
+    each of GAT's attention gradients, leaky's ("attention"), as autograd
+    starts their nodes."""
     from dorylus_tpu_torch.models import gat as gat_module
     from dorylus_tpu_torch.models import gcn as gcn_module
 
-    def wrap(fn, tag, keep=lambda *a, **k: True):
+    def wrap(fn, tag, keep=lambda *a, **k: True, forward=True):
         def call(*args, **kw):
-            if keep(*args, **kw):
+            kept = keep(*args, **kw)
+            if kept and forward:
                 events.append(tag)
-            return fn(*args, **kw)
+            out = fn(*args, **kw)
+            if kept and getattr(out, "grad_fn", None) is not None:
+                out.grad_fn.register_prehook(lambda *a: events.append(tag))
+            return out
         return call
 
     for name, tag in (("all_to_all_rows_start", "start"), ("all_to_all_rows_finish", "finish")):
         if exchanges:
             stack.enter_context(_patched(multihost, name, wrap(getattr(multihost, name), tag)))
+    stack.enter_context(_patched(gcn_module, "self_term",
+                                 wrap(gcn_module.self_term, "self", forward=False)))
+    stack.enter_context(_patched(gat_module, "leaky_relu",
+                                 wrap(gat_module.leaky_relu, "attention", forward=False)))
     split, esplit = eng.model.spmm_split, eng.model.edge_split
     if getattr(split, "fused", False):
         stack.enter_context(_patched(split, "pure_range", wrap(split.pure_range, "interior")))
@@ -375,34 +434,73 @@ def _recording(eng, events, stack, exchanges=True):
                  lambda *a, **k: k.get("op") is esplit[0])))
 
 
+# What autograd runs between a layer's reverse start and finish, per
+# (kernel, model): the interior op's gradient, the self term's, GAT's
+# attention gradients (two on the edgewise split: the boundary edges',
+# then the interior edges').
+BESIDE = {("hyb", "gcn"): ["self"], ("hyb", "gat"): ["attention"],
+          ("degree", "gcn"): ["interior", "self"], ("degree", "gat"): ["interior", "attention"],
+          ("xla", "gcn"): ["interior"], ("xla", "gat"): ["interior", "attention", "attention"]}
+
+
+def events_of(kernel, model, layers, fork=("start",), join=("finish",)):
+    """The recorded order of one loss and its gradient: each forward
+    exchange around its layer's interior op, then each reverse one around
+    what BESIDE lists."""
+    fork, join = list(fork), list(join)
+    return ((fork + ["interior"] + join) * layers
+            + (fork + BESIDE[kernel, model] + join) * layers)
+
+
+def _count_reverse(counts, stack):
+    """Count, in `counts`, the reverse exchanges started in two steps
+    ("split": `ReverseExchange.start`) and run whole ("whole":
+    `halo.reverse_whole`, HaloRecvFn's whole backward)."""
+    real_start, real_whole = halo.ReverseExchange.start, halo.reverse_whole
+
+    def start(self, g):
+        counts["split"] += 1
+        return real_start(self, g)
+
+    def whole(g, plan):
+        counts["whole"] += 1
+        return real_whole(g, plan)
+
+    stack.enter_context(_patched(halo.ReverseExchange, "start", start))
+    stack.enter_context(_patched(halo, "reverse_whole", whole))
+
+
 def overlap_rank(rank, world, device, graph, dims, cases):
     """For each case (cfg_kw, epochs, halo): a ShardedEngine trained on
     this rank with its halo as built ("two-step", and first the events of
     one loss and its backward, `_recording`; "plain": nothing recorded),
-    as one call at the finish ("one-call": a plain callable) or as before
-    the split ("serial"). Returns the records, the final params and the
-    plan's pure rows."""
+    with both exchanges called whole at their finish ("one-call",
+    `OneCall`), with the reverse exchange whole in HaloRecvFn's backward
+    ("reverse-whole", `ReverseWhole`) or as before the forward split
+    ("serial"). Returns the records, the final params and the plan's pure
+    rows; for "two-step" and "plain", the reverse exchanges of that one
+    loss's gradient, split and whole (`_count_reverse`)."""
     torch.set_num_threads(1)
     out = []
     for cfg_kw, epochs, how in cases:
         eng = ShardedEngine(graph, LayerConfig(list(dims)), TrainConfig(epochs=epochs, **cfg_kw),
                             device=device)
-        events = []
-        if how == "two-step":
+        events, reverse = [], {"split": 0, "whole": 0}
+        if how in ("two-step", "plain"):
             with contextlib.ExitStack() as stack:
-                _recording(eng, events, stack)
+                if how == "two-step":
+                    _recording(eng, events, stack)
+                _count_reverse(reverse, stack)
                 loss = eng.model.loss(eng.batch, eng.compute_dtype, eng.halo)
                 torch.autograd.grad(loss, list(eng.params.values()))
-        elif how == "one-call":
-            eng.halo = (lambda h, f=eng.halo: f(h))
-        elif how == "serial":
-            eng.halo = Serial(eng.halo)
+        elif how in HALOS:
+            eng.halo = HALOS[how](eng.halo.plan, ghosts_only=True)
         rep = eng.run()
         split = eng.model.spmm_split
         out.append({"losses": [e.loss for e in rep.epochs],
                     "accuracies": [e.accuracy for e in rep.epochs],
                     "params": {k: p.detach().cpu().numpy() for k, p in eng.params.items()},
-                    "events": events, "overlap": bool(eng.cfg.overlap),
+                    "events": events, "reverse": reverse, "overlap": bool(eng.cfg.overlap),
                     "kernel": eng.kernel_selected,
                     "n_pure": getattr(split, "n_pure", None),
                     "pure_edges": getattr(split, "pure_edges", None)})
@@ -430,14 +528,16 @@ def busy_tag_rank(rank, world, device):
     return {"refused": refused, "first": first, "again": again, "want": want}
 
 
-def nccl_standin_rank(rank, world, device, graph, dims, model, lr):
+def nccl_standin_rank(rank, world, device, graph, dims, model, lr, replayed=False):
     """The NCCL transport's path on the CPU: the backend's name reads
     "nccl", the side and current streams are stand-ins that record the
     fork (the side stream waits for the current one) and the join (the
     reverse), gloo moves the rows underneath. For each overlap plan: the
     events of one loss and its backward, then the epochs through
     EpochGraphs (the capture stood in for by `Rerun`, host reads refused
-    inside the bodies) and eagerly from the same init."""
+    inside the bodies) and eagerly from the same init. replayed: also the
+    events of one more replay of the stood-in train graph's body
+    ("replayed_events"), host reads refused."""
     from dorylus_tpu_torch.parallel import train_step
 
     torch.set_num_threads(1)
@@ -486,9 +586,77 @@ def nccl_standin_rank(rank, world, device, graph, dims, model, lr):
                         eng = ShardedEngine(graph, LayerConfig(list(dims)), cfg, device=device)
                         inner.enter_context(stand_in_graphs(eng, guard=True))
                     rep = eng.run(graphs=graphed)
+                    if graphed and replayed:
+                        events.clear()
+                        with contextlib.ExitStack() as rec:
+                            _recording(eng, events, rec, exchanges=False)
+                            eng._graphs.train[False].replay()
+                        row["replayed_events"] = list(events)
                 key = "graph_losses" if graphed else "eager_losses"
                 row[key] = [e.loss for e in rep.epochs]
                 if graphed:
                     row["graphed"] = eng._graphs is not None
             out[kernel] = row
+    return out
+
+
+def refusal_rank(rank, world, device, graph):
+    """One layer's exchange in two steps both ways on this rank's shard
+    (h (vp, 4) from the rank's seed): h's gradient against the whole
+    exchange's (bit for bit: the same two sums); a backward that runs the
+    join but prunes HaloRecvFn's node (the gradient of the joined h alone)
+    and one that runs HaloRecvFn's node but prunes the join (the gradient
+    with respect to the joined h), then a forward and a reverse start after
+    it. Returns whether the gradients were equal and each refusal's text
+    ("" where nothing was refused)."""
+    torch.set_num_threads(1)
+    shard = partition_graph(graph, world).shards[rank]
+    plan = halo.HaloPlan(shard, world, "ragged", device)
+    two = halo.Halo(plan, ghosts_only=True)
+    rng = np.random.default_rng(rank)
+    h = torch.tensor(rng.normal(size=(plan.vp, 4)).astype(np.float32), requires_grad=True)
+    c = torch.tensor(rng.normal(size=(plan.n * plan.max_h, 4)).astype(np.float32))
+
+    def refused(fn):
+        try:
+            fn()
+        except RuntimeError as e:
+            return str(e)
+        return ""
+
+    p = two.start(h)
+    (split,) = torch.autograd.grad((two.finish(p) * c).sum() + (p.h * p.h).sum(), [h])
+    (whole,) = torch.autograd.grad((two(h) * c).sum() + (h * h).sum(), [h])
+    out = {"equal": torch.equal(split, whole), "max_abs": float((split - whole).abs().max())}
+    p = two.start(h)
+    two.finish(p)
+    out["pruned_start"] = refused(lambda: torch.autograd.grad((p.h * 2).sum(), [h]))
+    p = two.start(h)
+    ghosts = two.finish(p)
+    # the start runs, the finish is pruned (HaloRecvFn returns h no gradient)
+    torch.autograd.grad(ghosts.sum(), [p.h], allow_unused=True)
+    out["forward_after"] = refused(lambda: two.start(h))
+    out["reverse_after"] = refused(lambda: halo.ReverseExchange(plan).start(ghosts.detach()))
+    return out
+
+
+def bwd_exchanges_rank(rank, world, device, graph, dims, cases):
+    """For each case (cfg_kw, epochs, how): a ShardedEngine trained on this
+    rank with multihost.EXCHANGES set to 0 just before, its halo as built
+    ("two-step") or with both exchanges whole at their finish ("one-call",
+    `OneCall`). Returns the losses, params and the counts."""
+    torch.set_num_threads(1)
+    out = []
+    for cfg_kw, epochs, how in cases:
+        eng = ShardedEngine(graph, LayerConfig(list(dims)), TrainConfig(epochs=epochs, **cfg_kw),
+                            device=device)
+        if how in HALOS:
+            eng.halo = HALOS[how](eng.halo.plan, ghosts_only=True)
+        multihost.reset_exchanges()
+        rep = eng.run()
+        torch.cuda.synchronize()
+        out.append({"losses": [e.loss for e in rep.epochs],
+                    "params": {k: p.detach().cpu().numpy() for k, p in eng.params.items()},
+                    "exchanges": dict(multihost.EXCHANGES), "kernel": eng.kernel_selected,
+                    "overlap": bool(eng.cfg.overlap)})
     return out

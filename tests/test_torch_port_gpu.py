@@ -1123,6 +1123,41 @@ def test_new_sharded_paths_on_one_card_match_the_cpu(cuda, model):
         np.testing.assert_allclose(a["losses"], b["losses"], rtol=1e-5)
 
 
+@pytest.mark.parametrize("model", ["gcn", "gat"])
+def test_overlapped_backward_on_one_card(cuda, model):
+    """2 gloo ranks on cuda:0, the degree pair and the edgewise split: the
+    reverse exchange in two steps (started in HaloRecvFn's backward,
+    finished in the join's) equals both exchanges called whole at their
+    finish bit for bit, and multihost.EXCHANGES counts one split reverse
+    exchange a layer and train epoch, none for the whole ones."""
+    import _torch_ranks as ranks
+    from dorylus_tpu_torch.graph.graph import clustered_synthetic_graph
+    from dorylus_tpu_torch.ops import cuda_build, hyb_spmm, spmm
+    from dorylus_tpu_torch.parallel import halo
+    from dorylus_tpu_torch.parallel.multihost import spawn_local
+
+    cuda_build.compile_sources([hyb_spmm._CSRC, hyb_spmm._DYN_CSRC, spmm._CSRC, halo._CSRC])
+    g = clustered_synthetic_graph(2000, 8, 16, 5, seed=11, window=256, cut=0.1)
+    epochs, layers = 3, 2
+    base = dict(model=model, reuse="off", overlap=True, eval_every=1,
+                learning_rate=0.01 if model == "gcn" else 0.005)
+    cases = [(dict(base, kernel=k), epochs, how) for k in ("degree", "xla")
+             for how in ("two-step", "one-call")]
+    res = spawn_local(2, ranks.bwd_exchanges_rank, (g, [16, 8, 5], cases), backend="gloo",
+                      device="cuda:0", timeout_s=300)
+    for r in range(2):
+        for k in range(2):
+            two, one = res[r][2 * k: 2 * k + 2]
+            assert two["overlap"] and np.isfinite(two["losses"]).all()
+            assert two["losses"] == one["losses"] and all(
+                np.array_equal(two["params"][n], one["params"][n]) for n in two["params"])
+            ex, ex1 = two["exchanges"], one["exchanges"]
+            assert ex["bwd_started"] == epochs * layers, ex
+            assert 0 <= ex["bwd_held"] <= ex["bwd_started"] and ex["bwd_host_ms"] > 0, ex
+            assert ex["started"] >= epochs * layers, ex
+            assert ex1["started"] == ex1["bwd_started"] == 0, ex1
+
+
 # ---- the one-launch gather core (K1/K2 and K8, csrc/gather_pass.cuh) ----
 
 
