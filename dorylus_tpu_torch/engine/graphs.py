@@ -56,6 +56,10 @@ added and adds it again on every replay, so the counters count the
 kernels the device ran on both paths.
 
 A failed capture or replay raises; nothing falls back to the eager loop.
+
+Recorded (common/metrics.py): the span graphs.eager around each warm-up
+epoch and graphs.capture (attribute: key) around each capture, whose count
+is the process's captures (the attribute `captures` counts this object's).
 """
 
 from __future__ import annotations
@@ -68,6 +72,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from dorylus_tpu_torch.common.metrics import span
 from dorylus_tpu_torch.optim.adam import adam_lr_t
 
 # The modules whose *_LAUNCHES integers count the kernels' launches.
@@ -172,14 +177,15 @@ class EpochGraphs:
         if self.side is None:
             self.side = torch.cuda.Stream(self.device)
         self.side.wait_stream(cur)
-        with torch.cuda.stream(self.side):
+        with span("graphs.eager"), torch.cuda.stream(self.side):
             out = fn()
         cur.wait_stream(self.side)
         return out
 
     def _capture(self, key, body: Callable[[], torch.Tensor],
                  state: list[torch.Tensor]) -> _Graph:
-        g = _Graph(body)
+        with span("graphs.capture", key=str(key)):
+            g = _Graph(body)
         self.marks[key] = _marks(state)
         self.captures += 1
         return g

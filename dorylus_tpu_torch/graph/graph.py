@@ -25,6 +25,7 @@ from typing import Optional
 import numpy as np
 
 from dorylus_tpu_torch.common.config import TRAIN_PORTION, VAL_PORTION
+from dorylus_tpu_torch.common.metrics import span
 
 
 @dataclass
@@ -54,17 +55,23 @@ class Graph:
         normalization values. CSC ordering mirrors the reference's
         forwardAdj layout (graph.hpp:96-98) and enables sorted segment
         sums on TPU. Uses the native graphcore library when available
-        (counting sort + parallel norm computation)."""
+        (counting sort + parallel norm computation). Spans: graph.finalize
+        (attributes: edges, native: whether the library ran) around
+        graph.sort and graph.norms."""
         from dorylus_tpu_torch import native
 
         v = self.num_vertices
-        self.src = np.asarray(self.src, dtype=np.int32)
-        self.dst = np.asarray(self.dst, dtype=np.int32)
-        order = native.sort_by_dst(self.dst, v)
-        self.src = self.src[order]
-        self.dst = self.dst[order]
-        self.in_degree, self.edge_norm, self.self_norm = native.gcn_norms(
-            self.src, self.dst, v)
+        with span("graph.finalize", edges=self.num_edges) as fin:
+            with span("graph.sort"):
+                self.src = np.asarray(self.src, dtype=np.int32)
+                self.dst = np.asarray(self.dst, dtype=np.int32)
+                order = native.sort_by_dst(self.dst, v)
+                self.src = self.src[order]
+                self.dst = self.dst[order]
+            with span("graph.norms"):
+                self.in_degree, self.edge_norm, self.self_norm = native.gcn_norms(
+                    self.src, self.dst, v)
+            fin.attrs["native"] = native.available()
         return self
 
     # ---- split masks (src/common/utils.hpp:60-62: by global vertex index) ----

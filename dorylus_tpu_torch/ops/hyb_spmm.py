@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from dorylus_tpu_torch.common.device import resolve_device, stream_handle
+from dorylus_tpu_torch.common.metrics import gauge, span
 from dorylus_tpu_torch.ops import cuda_build
 from dorylus_tpu_torch.ops.gather_parts import PartTable, gather_table, group_lanes
 from dorylus_tpu_torch.ops.hyb_plan import _LAMBDA_SLOTS, build_hyb_plan
@@ -505,6 +506,32 @@ def hyb_dynamic_pass(table: torch.Tensor, plan: dict, num_out: int,
 # ---- op + autograd ----
 
 
+def plan_bytes(plan: dict) -> int:
+    """Device bytes of an uploaded plan's tensors (views of one storage
+    counted once)."""
+    seen, total = set(), 0
+    stack = [plan]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            st = x.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, (list, tuple)):
+            stack.extend(x)
+    return total
+
+
+def _plan_attrs(plan: dict) -> dict:
+    """The hyb.plan span's attributes: the plan's buckets and hub rows."""
+    top = plan["top"]
+    return {"buckets": len(plan["buckets"]),
+            "hub_rows": 0 if top is None else len(top["rowv"])}
+
+
 def _upload(plan: dict, n_src: int, vals_dtype: torch.dtype,
             device: torch.device, n_edges: int | None = None,
             transposed: bool = False) -> dict:
@@ -680,6 +707,12 @@ class HybSpMM:
     bfloat16 gathers bf16 tables (with bf16-precast static values) and
     sums in f32.
 
+    The build records the spans hyb.check, hyb.transpose_order, hyb.plan
+    for fwd then bwd (attributes: direction, buckets, hub_rows) and
+    hyb.upload for fwd then bwd, and the gauges hyb.edges, hyb.slots.<direction> (the plan's
+    slots, padding included) and hyb.plan_bytes.<direction> (its device
+    bytes).
+
     device: None means the card and raises without one; the CPU only when
     the caller passes device="cpu"."""
 
@@ -691,30 +724,43 @@ class HybSpMM:
         src = np.asarray(src)
         dst = np.asarray(dst)
         e = len(src)
-        if e and (np.diff(dst) < 0).any():
-            raise ValueError("edges must be dst-sorted")
-        if e and (src.min() < 0 or src.max() >= num_in
-                  or dst.min() < 0 or dst.max() >= num_out):
-            raise ValueError("edge endpoint out of range")
-        order = np.argsort(src, kind="stable")
+        with span("hyb.check", edges=e):
+            if e and (np.diff(dst) < 0).any():
+                raise ValueError("edges must be dst-sorted")
+            if e and (src.min() < 0 or src.max() >= num_in
+                      or dst.min() < 0 or dst.max() >= num_out):
+                raise ValueError("edge endpoint out of range")
+        with span("hyb.transpose_order", edges=e):
+            order = np.argsort(src, kind="stable")
         self.num_in, self.num_out = num_in, num_out
         self.gather_dtype = gather_dtype
         self.has_static_vals = static_val is not None
         self.dynamic = dynamic
         self.device = torch.device(device)
-        fwd = build_hyb_plan(src, dst, None, num_out, max_width, lam_slots,
-                             static_val)
-        bwd = build_hyb_plan(dst[order], src[order], order, num_in,
-                             max_width, lam_slots, static_val)
+        with span("hyb.plan", direction="fwd") as sp:
+            fwd = build_hyb_plan(src, dst, None, num_out, max_width, lam_slots,
+                                 static_val)
+            sp.attrs.update(_plan_attrs(fwd))
+        with span("hyb.plan", direction="bwd") as sp:
+            bwd = build_hyb_plan(dst[order], src[order], order, num_in,
+                                 max_width, lam_slots, static_val)
+            sp.attrs.update(_plan_attrs(bwd))
+        gauge("hyb.edges", e)
+        gauge("hyb.slots.fwd", fwd["n_slots"])
+        gauge("hyb.slots.bwd", bwd["n_slots"])
         # Narrow mode multiplies in the table dtype: ship the static values
         # pre-cast (one rounding, half the bytes), as the JAX op does.
         vals_dtype = gather_dtype if _is_narrow(gather_dtype) else torch.float32
         n_edges = e if dynamic else None
         # n_src: the rows each pass's gather table must have (max index + 1).
-        self.fwd = _upload(fwd, int(src.max()) + 1 if e else 0, vals_dtype,
-                           self.device, n_edges)
-        self.bwd = _upload(bwd, int(dst.max()) + 1 if e else 0, vals_dtype,
-                           self.device, n_edges, transposed=True)
+        with span("hyb.upload", direction="fwd"):
+            self.fwd = _upload(fwd, int(src.max()) + 1 if e else 0, vals_dtype,
+                               self.device, n_edges)
+        with span("hyb.upload", direction="bwd"):
+            self.bwd = _upload(bwd, int(dst.max()) + 1 if e else 0, vals_dtype,
+                               self.device, n_edges, transposed=True)
+        gauge("hyb.plan_bytes.fwd", plan_bytes(self.fwd))
+        gauge("hyb.plan_bytes.bwd", plan_bytes(self.bwd))
 
     def _pass(self, table, plan, num_out, mode, val=None, other=None):
         return _hyb_pass(table, plan, num_out, self.gather_dtype, mode, val, other)

@@ -41,13 +41,13 @@ port").
 from __future__ import annotations
 
 import ctypes
-import time
 
 import numpy as np
 import torch
 
 from dorylus_tpu_torch import native
 from dorylus_tpu_torch.common.device import resolve_device, stream_handle
+from dorylus_tpu_torch.common.metrics import span
 from dorylus_tpu_torch.graph.reuse import mine_reuse
 from dorylus_tpu_torch.ops import cuda_build
 from dorylus_tpu_torch.ops.hyb_plan import build_hyb_plan
@@ -184,7 +184,8 @@ class ReuseSpMM:
     `miner` names the miner that ran ("native" or "numpy"),
     `mine_seconds` holds the (forward, backward) mining times and
     `build_seconds` the whole build (both directions mined, both plans
-    built and uploaded).
+    built and uploaded), read from the spans reuse.mine and reuse.build
+    (common/metrics.py).
 
     device: None means the card and raises without one; the CPU only when
     the caller passes device="cpu"."""
@@ -202,31 +203,32 @@ class ReuseSpMM:
         self.has_static_vals = rank1_factor is not None
         self.device = torch.device(device)
         self.miner = "native" if native.has_mine_pairs() else "numpy"
-        t0 = time.perf_counter()
-        # each direction's pair ids start past its own table's rows
-        fwd = mine_reuse(src, dst, num_in, min_uses=min_uses, passes=passes,
-                         max_pairs=max_pairs)
-        t1 = time.perf_counter()
-        bwd = mine_reuse(dst, src, num_out, min_uses=min_uses, passes=passes,
-                         max_pairs=max_pairs)
-        self.mine_seconds = (t1 - t0, time.perf_counter() - t1)
-        self.plan_fwd, self.plan_bwd = fwd, bwd
-        self.rows_fwd = fwd.stats["rows_after"]
-        # Mask plans over the rewritten lists: their sources index the
-        # pair-augmented table, so each pass's gather table has
-        # table_size rows, not V.
-        pf = build_hyb_plan(fwd.src, fwd.dst, None, num_out, max_width)
-        pb = build_hyb_plan(bwd.src, bwd.dst, None, num_in, max_width)
-        self.fwd = _upload(pf, fwd.table_size, torch.float32, self.device)
-        self.bwd = _upload(pb, bwd.table_size, torch.float32, self.device)
-        self.fwd_table_size, self.bwd_table_size = fwd.table_size, bwd.table_size
+        with span("reuse.build", miner=self.miner) as build:
+            # each direction's pair ids start past its own table's rows
+            with span("reuse.mine", direction="fwd") as mine_fwd:
+                fwd = mine_reuse(src, dst, num_in, min_uses=min_uses, passes=passes,
+                                 max_pairs=max_pairs)
+            with span("reuse.mine", direction="bwd") as mine_bwd:
+                bwd = mine_reuse(dst, src, num_out, min_uses=min_uses, passes=passes,
+                                 max_pairs=max_pairs)
+            self.plan_fwd, self.plan_bwd = fwd, bwd
+            self.rows_fwd = fwd.stats["rows_after"]
+            # Mask plans over the rewritten lists: their sources index the
+            # pair-augmented table, so each pass's gather table has
+            # table_size rows, not V.
+            pf = build_hyb_plan(fwd.src, fwd.dst, None, num_out, max_width)
+            pb = build_hyb_plan(bwd.src, bwd.dst, None, num_in, max_width)
+            self.fwd = _upload(pf, fwd.table_size, torch.float32, self.device)
+            self.bwd = _upload(pb, bwd.table_size, torch.float32, self.device)
+            self.fwd_table_size, self.bwd_table_size = fwd.table_size, bwd.table_size
 
-        def levels(plan):
-            return tuple(torch.from_numpy(np.ascontiguousarray(p, np.int32)).to(self.device)
-                         for p in plan.levels)
+            def levels(plan):
+                return tuple(torch.from_numpy(np.ascontiguousarray(p, np.int32))
+                             .to(self.device) for p in plan.levels)
 
-        self.lvl_fwd, self.lvl_bwd = levels(fwd), levels(bwd)
-        self.build_seconds = time.perf_counter() - t0
+            self.lvl_fwd, self.lvl_bwd = levels(fwd), levels(bwd)
+        self.mine_seconds = (mine_fwd.seconds, mine_bwd.seconds)
+        self.build_seconds = build.seconds
         self.f_in = self.f_out = None
         if rank1_factor is not None:
             f_in, f_out = (rank1_factor if isinstance(rank1_factor, (tuple, list))
