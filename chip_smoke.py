@@ -1287,7 +1287,7 @@ def group_times(eng, lr: float, k: int = 10) -> dict:
             start.record()
             losses, stats = runs[name]()
             end.record()
-            torch.cat([losses[:, None], stats], 1).tolist()
+            torch.cat([losses[:, None], stats.flatten(1)], 1).tolist()
             wall = 1e3 * (time.perf_counter() - t0) / k
             got[name]["ms"].append(start.elapsed_time(end) / k)
             got[name]["wall_ms"].append(wall)

@@ -7,16 +7,25 @@ an eval epoch when a target accuracy is set, at a checkpoint epoch and at
 `epochs_per_call` (0: AUTO_GROUP_CAP), and the engine's `_dispatch` runs a
 group's epochs, each one loss, backward, Adam (or SGD) with the decay_lr
 schedule, then, on the epochs `eval_flags` picks, evaluation with the f32
-forward on the updated params. The group's losses and stats stay on the
-device; the loop reads them once a group, logs each evaluated epoch, adds
-one record per epoch at the group's wall time over k, checkpoints at the
-group's last epoch and feeds the converge state machine (the switch to
-synchronous training, the early stop) the group's last accuracy. On the
-card both engines replay the epoch as CUDA graphs (engine/graphs.py), kept
-from one run() to the next as JAX keeps its compiled groups; on the CPU,
-and in a sharded engine over gloo, the group runs eagerly. The final
-val/test accuracy, `predict`, `dump_predictions` and the RunReport are as
-in JAX.
+forward on the updated params, which measures the val and the test rows
+at once. One forward serves each state of the params: the run's final val
+and test accuracies are the eval's of the run's last epoch (none moved the
+params since), and where the group folds (`folds_evals`: eval_every > 0,
+no live staleness window, f32 compute, the single-device engine) a flagged
+epoch's val stats are the next epoch's training forward's, which runs on
+the same params with the same ops, so only a group's last flagged epoch
+runs the eval forward. The reference's last layer does the same: it sends
+the val rows' accuracy and loss from its training forward
+(network_ops.cpp:142-186). The group's losses and stats
+stay on the device; the loop reads them once a group, logs each evaluated
+epoch, adds one record per epoch at the group's wall time over k,
+checkpoints at the group's last epoch and feeds the converge state machine
+(the switch to synchronous training, the early stop) the group's last
+accuracy. On the card both engines replay the epoch as CUDA graphs
+(engine/graphs.py), kept from one run() to the next as JAX keeps its
+compiled groups; on the CPU, and in a sharded engine over gloo, the group
+runs eagerly. The final val/test accuracy, `predict`, `dump_predictions`
+and the RunReport are as in JAX.
 
 Bounded staleness (staleness = S > 0; the reference's async pipeline,
 pipeline.cpp:95-102, with weight stashing): `StaleWindow` holds S+1
@@ -60,7 +69,7 @@ import torch
 from dorylus_tpu_torch.common.config import LayerConfig, TrainConfig, resolve_kernel
 from dorylus_tpu_torch.common.device import resolve_device
 from dorylus_tpu_torch.common.logging import log
-from dorylus_tpu_torch.common.metrics import EpochRecord, RunReport, span
+from dorylus_tpu_torch.common.metrics import EpochRecord, RunReport, count, span
 from dorylus_tpu_torch.graph.graph import Graph
 from dorylus_tpu_torch.engine.batch import build_batch
 from dorylus_tpu_torch.engine.checkpoint import (latest_checkpoint, load_checkpoint,
@@ -269,6 +278,38 @@ def eval_flags(epoch: int, k: int, end: int, cfg: TrainConfig) -> np.ndarray:
     return (eps % cfg.eval_every == 0) | (eps == end - 1)
 
 
+def folds_evals(eng, window: Optional["StaleWindow"]) -> bool:
+    """Whether a group of `eng` reads a flagged epoch's val stats off the
+    next epoch's training forward (`_train_epoch`'s `val`). Not with
+    eval_every 0 (nothing to read), not while a staleness window is live (the training forward runs
+    at the stale copy), and not where `eng.fold_evals` is false: the
+    compute dtype is not f32 (the training forward would round where the
+    eval does not), or the engine's stats need a sum the training step
+    does not carry (ShardedEngine's, over the graph group)."""
+    return eng.fold_evals and window is None and bool(eng.cfg.eval_every)
+
+
+def folded(flags: np.ndarray, fold: bool) -> np.ndarray:
+    """(k,) bool: the flagged epochs of a group whose stats the next
+    epoch's training step hands back, where the group folds: every
+    flagged epoch but the group's last. The others run the eval forward."""
+    out = flags & fold
+    out[-1:] = False
+    return out
+
+
+def eval_masks(batch) -> tuple:
+    """The rows an eval forward measures: val, then test."""
+    return batch.val_mask, batch.test_mask
+
+
+def masked_stats(logits: torch.Tensor, onehot: torch.Tensor, masks: tuple) -> torch.Tensor:
+    """(len(masks), 3): correct, loss, count over each mask's rows of
+    `logits`' softmax."""
+    probs = row_softmax(logits)
+    return torch.stack([torch.stack(accuracy_and_loss(probs, onehot, m)) for m in masks])
+
+
 def _unsupported(cfg: TrainConfig, kernel: str) -> Optional[str]:
     """The first configuration outside the ported slice, with its ROADMAP
     item, or None."""
@@ -370,23 +411,49 @@ def checkpoint_due(cfg: TrainConfig, epoch: int) -> bool:
                 and (epoch + 1) % cfg.checkpoint_every == 0)
 
 
+def group_epochs(eng, lrs: list, flags: np.ndarray, window: Optional[StaleWindow],
+                 train, evaluate) -> tuple[torch.Tensor, torch.Tensor]:
+    """A group's epochs, eager or replayed (`eager_group`'s contract):
+    `train(lr, val)` runs an epoch's update, the window's roll included,
+    and returns (its loss, with `val` the val stats (1, 3) of its forward,
+    else None); `evaluate()` runs the eval forward, (2, 3). Where the group
+    folds (`folds_evals`), a flagged epoch but the group's last takes its
+    stats from the next epoch's training step, which starts from the
+    params it evaluates, and no other step measures them; the others run
+    the eval forward."""
+    k = len(lrs)
+    served = folded(flags, folds_evals(eng, window))
+    losses = torch.zeros(k, device=eng.device)
+    stats = torch.zeros((k, 2, 3), device=eng.device)
+    for i, lr in enumerate(lrs):
+        val = bool(i and served[i - 1])
+        losses[i], st = train(lr, val)
+        if val:
+            stats[i - 1, :1] = st
+        if flags[i] and not served[i]:
+            stats[i] = evaluate()
+    return losses, stats
+
+
 def eager_group(eng, lrs: list, flags: np.ndarray,
                 window: Optional[StaleWindow]) -> tuple[torch.Tensor, torch.Tensor]:
     """A group's epochs run eagerly: for each, the update at lr
     (`_train_epoch`, gradients at the window's oldest copy when there is a
-    window, which then rolls) and, where flagged, the evaluation
-    (`_stats`). Returns (losses (k,), stats (k, 3): correct, loss sum,
-    count; zeros where not flagged) on the engine's device, unread."""
-    k = len(lrs)
-    losses = torch.zeros(k, device=eng.device)
-    stats = torch.zeros((k, 3), device=eng.device)
-    for i, (lr, flag) in enumerate(zip(lrs, flags)):
-        losses[i] = eng._train_epoch(lr, None if window is None else window.oldest)
+    window, which then rolls) and, where flagged, the evaluation, its
+    stats read off the next epoch's training step where the group folds
+    (`group_epochs`). Returns (losses (k,), stats (k, 2, 3): per epoch the
+    val and the test rows' correct, loss sum, count; zeros where not
+    flagged, and test zeros where no eval forward measured them) on the
+    engine's device, unread."""
+
+    def train(lr, val):
+        out = eng._train_epoch(lr, None if window is None else window.oldest, val=val)
         if window is not None:
             window.roll(eng.params)
-        if flag:
-            stats[i] = eng._stats(eng.batch.val_mask)
-    return losses, stats
+        return out
+
+    return group_epochs(eng, lrs, flags, window, train,
+                        lambda: eng._stats(eval_masks(eng.batch)))
 
 
 def epoch_graph_refusal(device: torch.device, backend: str) -> Optional[str]:
@@ -434,22 +501,29 @@ def run_graphed(eng, epochs: Optional[int], graphs: bool) -> RunReport:
 def run_loop(eng, epochs: int) -> RunReport:
     """The group loop of both engines (JAX `run_group_loop`). The engine
     supplies `_dispatch(lrs, flags, window)` (a group's epochs -> its
-    losses (k,) and stats (k, 3) as device tensors), `_windows` (its
-    staleness windows, `stale_window`), `_stats(mask)` ((3,):
-    correct, loss, count over every shard), `_maybe_checkpoint(epoch)`,
-    `rank` (0 logs), `world` (the ranks: the cost note's GPU count, JAX's
-    mesh.size) and the report. One host read a group; every rank computes
-    the same groups, so all checkpoint and stop together. The report's
+    losses (k,) and stats (k, 2, 3) as device tensors, `eager_group`'s
+    contract), `_windows` (its staleness windows, `stale_window`),
+    `_stats(masks)` ((len(masks), 3): correct, loss, count over every
+    shard), `_train_epoch` (`group_epochs`' `train`), `fold_evals`
+    (`folds_evals`), `_maybe_checkpoint(epoch)`, `rank` (0 logs), `world`
+    (the ranks: the cost note's GPU count, JAX's mesh.size) and the
+    report. One host read a group; every rank computes the same groups, so
+    all checkpoint and stop together. The final val and test accuracies
+    are the last group's eval of the run's last epoch (the params have not
+    moved since), or with eval_every 0 one eval forward's. The report's
     notes gain JAX's "cost" (GPU-seconds and an estimate at an assumed
     price, engine/profiling.py) and, on the card, "hbm".
 
     Spans (common/metrics.py): engine.run (the whole call) around one
-    engine.group a group (attributes: epochs, evals, replayed: through the
-    engine's kept CUDA graphs, none captured), which holds
-    engine.dispatch, engine.group_read (the host read) and
-    engine.group_records (the logs, records, checkpoint and monitor), then
-    engine.run_end around engine.report (the cost and memory notes) and two
-    engine.final_eval (val, test)."""
+    engine.group a group (attributes: epochs, evals, folded: evals served
+    by a training step, replayed: through the engine's kept CUDA graphs,
+    none captured), which holds engine.dispatch, engine.group_read (the
+    host read) and engine.group_records (the logs, records, checkpoint and
+    monitor), then engine.run_end around engine.report (the cost and
+    memory notes) and engine.final_eval (attribute: folded).
+    Counters, one count a group and a run's end: engine.evals_folded (the
+    evaluations, per epoch or final, read off a forward run anyway) and
+    engine.eval_forwards (the forwards run only to evaluate)."""
     from dorylus_tpu_torch.engine.profiling import report_cost, report_memory
 
     cfg = eng.cfg
@@ -463,6 +537,7 @@ def run_loop(eng, epochs: int) -> RunReport:
         # Resume continues the original numbering: LR schedule, eval cadence
         # and checkpoint steps pick up where the prior run left off.
         epoch, end = eng.start_epoch, eng.start_epoch + epochs
+        held = None  # the val and test stats of the params held, where measured
         while epoch < end:
             with span("engine.group") as grp:
                 k = group_len(epoch, end, cfg)
@@ -471,17 +546,22 @@ def run_loop(eng, epochs: int) -> RunReport:
                 lrs = [lr_at(cfg, ep) for ep in range(epoch, epoch + k)]
                 graphs = eng._graphs
                 captures = graphs.captures if graphs is not None else None
+                fold = folds_evals(eng, window)
                 with span("engine.dispatch"):
                     losses, stats = eng._dispatch(lrs, flags, window)
-                grp.attrs.update(epochs=k, evals=int(flags.sum()),
+                evals, served = int(flags.sum()), int(folded(flags, fold).sum())
+                grp.attrs.update(epochs=k, evals=evals, folded=served,
                                  replayed=graphs is not None and graphs.captures == captures)
+                count("engine.evals_folded", served)
+                count("engine.eval_forwards", evals - served)
                 # the group's one host read: it waits for the device
                 with span("engine.group_read"):
-                    rows = torch.cat([losses[:, None], stats], 1).tolist()
+                    rows = torch.cat([losses[:, None], stats.flatten(1)], 1).tolist()
                 dt_ms = 1e3 * (time.perf_counter() - t0) / k
+                held = rows[-1][1:] if flags[-1] else None
                 with span("engine.group_records"):
                     acc = None
-                    for i, (loss_f, c, vloss, n) in enumerate(rows):
+                    for i, (loss_f, c, vloss, n, *_) in enumerate(rows):
                         ep_acc = None
                         if flags[i]:
                             acc = ep_acc = c / max(1.0, n)
@@ -517,12 +597,15 @@ def run_loop(eng, epochs: int) -> RunReport:
                 mem = report_memory(eng.device)
                 if mem:
                     eng.report.notes["hbm"] = mem
-            with span("engine.final_eval", mask="val"):
-                c, _, n = eng._stats(eng.batch.val_mask).tolist()
+            with span("engine.final_eval", folded=held is not None):
+                if held is None:
+                    count("engine.eval_forwards")
+                    held = eng._stats(eval_masks(eng.batch)).flatten().tolist()
+                else:
+                    count("engine.evals_folded", 2)
+                (c, _, n), (c_t, _, n_t) = held[:3], held[3:]
                 eng.report.final_accuracy = c / max(1.0, n)
-            with span("engine.final_eval", mask="test"):
-                c, _, n = eng._stats(eng.batch.test_mask).tolist()
-                eng.report.test_accuracy = c / max(1.0, n)
+                eng.report.test_accuracy = c_t / max(1.0, n_t)
     return eng.report
 
 
@@ -561,6 +644,9 @@ class Engine:
             self.graph, self.layers, self.cfg = graph, layers, cfg
             self.kernel_selected = kernel
             self.compute_dtype = _DTYPES[cfg.compute_dtype]
+            # the training forward is the eval's, on this device's rows alone
+            # (`folds_evals`), where it computes in f32 as the eval does
+            self.fold_evals = self.compute_dtype == torch.float32
             gat = cfg.model == "gat"
             v = graph.num_vertices
             spmm_op = edge_op = None
@@ -640,30 +726,39 @@ class Engine:
     world = 1
     _graphs = None  # the engine's EpochGraphs, on the card
 
-    def _stats(self, mask: torch.Tensor) -> torch.Tensor:
-        """(3,) on the device: correct, loss, count over the masked rows."""
+    def _stats(self, masks: tuple) -> torch.Tensor:
+        """(len(masks), 3) on the device: correct, loss, count over each
+        mask's rows, from one f32 forward."""
         with torch.no_grad():
-            probs = row_softmax(self.model.forward(self.batch))
-            return torch.stack(accuracy_and_loss(probs, self.batch.onehot, mask))
+            return masked_stats(self.model.forward(self.batch), self.batch.onehot, masks)
 
     def _train_epoch(self, lr: float | None, stale: Optional[dict] = None,
-                     lr_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     lr_t: Optional[torch.Tensor] = None, val: bool = False) -> tuple:
         """One update; the gradients are taken at `stale` (the staleness
         window's oldest copy) when given, else at the current params. lr_t:
         a 0-dim device tensor that holds the step's rate (Adam's
-        bias-corrected lr_t, SGD's lr), in place of lr (a captured epoch)."""
+        bias-corrected lr_t, SGD's lr), in place of lr (a captured epoch).
+        Returns (the loss, with `val` the val stats (1, 3) of this step's
+        own forward, else None); at f32 compute and without `stale` those
+        are `_stats((val_mask,))` of the params the step starts from, bit
+        for bit: the same ops on the same logits."""
         cfg = self.cfg
         at = self.params if stale is None else stale
-        loss = self.model.loss(self.batch, self.compute_dtype, params=stale)
+        loss, logits = self.model.loss_and_logits(self.batch, self.compute_dtype, params=stale)
         names = list(self.params)
         grads = dict(zip(names, torch.autograd.grad(loss, [at[k] for k in names])))
+        if val:
+            # after the backward, so the softmax's temporaries do not add to its peak
+            with torch.no_grad():
+                stats = masked_stats(logits.detach(), self.batch.onehot, (self.batch.val_mask,))
+        del logits
         if cfg.adam:
             self.params, self.opt_state = adam_update(
                 self.params, grads, self.opt_state, lr=lr, beta1=cfg.beta1,
                 beta2=cfg.beta2, eps=cfg.eps, weight_decay=cfg.weight_decay, lr_t=lr_t)
         else:
             self.params = sgd_update(self.params, grads, lr if lr_t is None else lr_t)
-        return loss.detach()
+        return loss.detach(), stats if val else None
 
     def _dispatch(self, lrs: list, flags: np.ndarray,
                   window: Optional[StaleWindow]) -> tuple[torch.Tensor, torch.Tensor]:

@@ -9,17 +9,28 @@ times a group (the counterpart of JAX engine/engine.py `_make_step`'s
                   with the halo exchanges and their reverse, then the one
                   all-reduce of the gradients and the loss), Adam (or SGD)
                   in place and, with a staleness window (history=True),
-                  the window's roll: JAX's `with_history` axis;
+                  the window's roll: JAX's `with_history` axis. It returns
+                  (loss, None); where the engine folds evals (engine.py
+                  `folds_evals`, never with history) a second train graph,
+                  captured with the first in its memory pool, returns
+                  (loss, stats): the val rows' (1, 3) of the step's own
+                  forward, which ran at the params the previous epoch's
+                  update left, replayed after a flagged epoch whose stats
+                  it gives (`folded`), so no other epoch pays for them;
   eval            the f32 forward on the updated params and
-                  accuracy_and_loss over val_mask into a (3,) tensor (summed
-                  over the shards), replayed after train on the flagged
-                  epochs only (JAX's eval modes none, all and mixed are the
-                  flag pattern).
+                  accuracy_and_loss into a (2, 3) tensor over val_mask and
+                  test_mask (summed over the shards), replayed after train
+                  on the flagged epochs whose stats no later training step
+                  of the group hands back: every flagged epoch where the
+                  group does not fold, only the group's last where it
+                  does (JAX's eval modes none, all and mixed are the flag
+                  pattern). The run's final evals read the last one.
 
 A group runs, for each epoch: write the step's rate into the scalar the
-graph reads, replay train, copy the loss into losses[i]; where flagged,
-replay eval and copy its stats into stats[i]. None of it waits for the
-device: the loop reads the group once.
+graph reads, replay train, copy the loss into losses[i] and, where the
+previous epoch is flagged and the group folds, the stats into stats[i - 1];
+where flagged and not folded, replay eval and copy its stats into
+stats[i]. None of it waits for the device: the loop reads the group once.
 
 The first epoch that needs a graph runs eagerly on a side stream, as
 `torch.cuda.graph` asks (it initialises cuBLAS, fills every plan's
@@ -73,6 +84,7 @@ import numpy as np
 import torch
 
 from dorylus_tpu_torch.common.metrics import span
+from dorylus_tpu_torch.engine.engine import eval_masks, folded, folds_evals, group_epochs
 from dorylus_tpu_torch.optim.adam import adam_lr_t
 
 # The modules whose *_LAUNCHES integers count the kernels' launches.
@@ -119,9 +131,10 @@ def _unchanged(marks: list, tensors: list[torch.Tensor]) -> bool:
 
 class _Graph:
     """One captured graph, its output and the launch counts its capture
-    added (taken back after the capture, added again on every replay)."""
+    added (taken back after the capture, added again on every replay).
+    pool: another graph's `pool`, to capture into its memory."""
 
-    def __init__(self, body: Callable[[], torch.Tensor]):
+    def __init__(self, body: Callable[[], torch.Tensor], pool=None):
         spaces = _counters()
         before = [_read(ns) for ns in spaces]
         self.graph = torch.cuda.CUDAGraph()
@@ -131,7 +144,7 @@ class _Graph:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(self.graph):
+            with torch.cuda.graph(self.graph, pool=pool):
                 self.out = body()
         finally:
             if collecting:
@@ -145,6 +158,10 @@ class _Graph:
                         ns[key] = was[key]
                     else:
                         del ns[key]
+
+    @property
+    def pool(self):
+        return self.graph.pool()
 
     def replay(self) -> torch.Tensor:
         self.graph.replay()
@@ -164,7 +181,8 @@ class EpochGraphs:
         self.device = device
         # the step's rate the captured update reads: Adam's lr_t, SGD's lr
         self.rate = torch.zeros((), dtype=torch.float32, device=device)
-        self.train: dict[bool, _Graph] = {}
+        self.train: dict[bool, _Graph] = {}  # by history
+        self.measuring: _Graph | None = None  # train without history, with the val stats
         self.eval: _Graph | None = None
         self.marks: dict = {}  # graph key -> _marks of the state it captured
         self.captures = 0  # graphs captured so far
@@ -183,9 +201,9 @@ class EpochGraphs:
         return out
 
     def _capture(self, key, body: Callable[[], torch.Tensor],
-                 state: list[torch.Tensor]) -> _Graph:
+                 state: list[torch.Tensor], pool=None) -> _Graph:
         with span("graphs.capture", key=str(key)):
-            g = _Graph(body)
+            g = _Graph(body, pool)
         self.marks[key] = _marks(state)
         self.captures += 1
         return g
@@ -197,39 +215,52 @@ class EpochGraphs:
         if history in self.train and not _unchanged(self.marks[("train", history)],
                                                     _state(eng, window)):
             del self.train[history]
+        if not history and self.measuring is not None and not _unchanged(
+                self.marks["measuring"], _state(eng)):
+            self.measuring = None
         if evals and self.eval is not None and not _unchanged(self.marks["eval"],
                                                               list(eng.params.values())):
             self.eval = None
 
-    def _train(self, eng, lr: float, window) -> torch.Tensor:
-        """One epoch's update at lr; its loss."""
+    def _train(self, eng, lr: float, window, fold: bool, val: bool) -> tuple:
+        """One epoch's update at lr: (its loss, with `val` its forward's
+        val stats, else None). Where the group folds (`fold`) both train
+        graphs are captured at once, so none is captured after the
+        engine's first epoch."""
         history = window is not None
         stale = window.oldest if history else None
 
-        def epoch(rate=None):
-            loss = eng._train_epoch(lr, stale, lr_t=rate)
+        def epoch(measure, rate=None):
+            out = eng._train_epoch(lr, stale, lr_t=rate, val=measure)
             if history:
                 window.roll(eng.params)
-            return loss
+            return out
 
-        if history not in self.train:
-            loss = self._eager(epoch)
+        if history not in self.train or (val and self.measuring is None):
+            out = self._eager(lambda: epoch(val))
             state = eng.opt_state
-            self.train[history] = self._capture(("train", history), lambda: epoch(self.rate),
-                                                _state(eng, window))
+            if history not in self.train:
+                self.train[history] = self._capture(("train", history),
+                                                    lambda: epoch(False, self.rate),
+                                                    _state(eng, window))
+            if fold and self.measuring is None:
+                # one pool: the replays of both follow one another on one
+                # stream, and each output is copied out before the next
+                self.measuring = self._capture("measuring", lambda: epoch(True, self.rate),
+                                               _state(eng), self.train[False].pool)
             eng.opt_state = state  # the capture ran no step
-            return loss
+            return out
         adam = eng.cfg.adam
         self.rate.fill_(adam_lr_t(lr, eng.opt_state.step + 1, eng.cfg.beta1, eng.cfg.beta2)
                         if adam else lr)
-        loss = self.train[history].replay()
+        out = (self.measuring if val else self.train[history]).replay()
         if adam:
             eng.opt_state = eng.opt_state._replace(step=eng.opt_state.step + 1)
-        return loss
+        return out
 
     def _eval(self, eng) -> torch.Tensor:
         def stats():
-            return eng._stats(eng.batch.val_mask)
+            return eng._stats(eval_masks(eng.batch))
 
         if self.eval is None:
             out = self._eager(stats)
@@ -241,11 +272,8 @@ class EpochGraphs:
                   window) -> tuple[torch.Tensor, torch.Tensor]:
         """`eager_group`'s contract (engine/engine.py) for `eng`, through
         the graphs."""
-        self._drop_replaced(eng, window, bool(np.any(flags)))
-        losses = torch.zeros(len(lrs), device=self.device)
-        stats = torch.zeros((len(lrs), 3), device=self.device)
-        for i, (lr, flag) in enumerate(zip(lrs, flags)):
-            losses[i] = self._train(eng, lr, window)
-            if flag:
-                stats[i] = self._eval(eng)
-        return losses, stats
+        fold = folds_evals(eng, window)
+        self._drop_replaced(eng, window, bool(np.any(flags & ~folded(flags, fold))))
+        return group_epochs(eng, lrs, flags, window,
+                            lambda lr, val: self._train(eng, lr, window, fold, val),
+                            lambda: self._eval(eng))

@@ -83,7 +83,7 @@ def _step_and_runs(eng, label: str, lines: list, runs: bool = True) -> None:
     calls (runs=False: the one without eval or stash), each checked to
     have run as one group with its eval flags and noted in `lines`; then
     the evaluation and predict."""
-    loss = eng._train_epoch(eng.cfg.learning_rate)
+    loss, _ = eng._train_epoch(eng.cfg.learning_rate)
     if not bool(torch.isfinite(loss)):
         raise RuntimeError(f"dry run: non-finite loss {float(loss)}")
     eng.start_epoch = 1  # numbered on from the step, as a resume would
@@ -100,7 +100,7 @@ def _step_and_runs(eng, label: str, lines: list, runs: bool = True) -> None:
                                f"{rep.epochs}")
         lines.append(f"dryrun group: {label} staleness={staleness} epochs=1-2 eval={flags}")
     if runs:
-        eng._stats(eng.batch.val_mask)
+        eng._stats((eng.batch.val_mask, eng.batch.test_mask))
         if not np.isfinite(eng.predict()).all():
             raise RuntimeError("dry run: predict() is not finite")
 

@@ -140,12 +140,19 @@ class GNN(nn.Module):
         """The training loss. params: tensors to run the forward on in
         place of the model's own parameters, by name (the stale weights of
         bounded staleness), so gradients are taken with respect to them."""
+        return self.loss_and_logits(batch, compute_dtype, halo, params)[0]
+
+    def loss_and_logits(self, batch: GraphBatch,
+                        compute_dtype: torch.dtype = torch.float32,
+                        halo: HaloFn | None = None,
+                        params: Params | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """`loss`, and the logits of the forward it ran."""
         if params is None:
             logits = self.forward(batch, compute_dtype, halo)
         else:
             logits = torch.func.functional_call(self, params, (batch, compute_dtype, halo))
         return masked_softmax_xent(logits, batch.onehot, batch.train_mask,
-                                   batch.denom)
+                                   batch.denom), logits
 
     def predict(self, batch: GraphBatch, halo: HaloFn | None = None) -> torch.Tensor:
         return row_softmax(self.forward(batch, halo=halo))

@@ -111,15 +111,14 @@ from dorylus_tpu_torch.engine.checkpoint import save_checkpoint
 from dorylus_tpu_torch.engine.engine import (_DTYPES, _max_agg_width, below_reuse_floor,
                                              check_staleness, checkpoint_due, dispatch_group,
                                              epoch_graph_refusal, epoch_mode, gate_reuse_auto,
-                                             resolve_device, resolve_reuse_budget, resume,
-                                             run_graphed)
+                                             masked_stats, resolve_device, resolve_reuse_budget,
+                                             resume, run_graphed)
 from dorylus_tpu_torch.graph.graph import Graph
 from dorylus_tpu_torch.graph.partition import (Shard, ShardMeta, partition_graph,
                                                shard_edges)
 from dorylus_tpu_torch.models.base import FeatAxis, GraphBatch, check_divisible
 from dorylus_tpu_torch.models.gat import GAT
 from dorylus_tpu_torch.models.gcn import GCN
-from dorylus_tpu_torch.ops.activations import accuracy_and_loss, row_softmax
 from dorylus_tpu_torch.ops.degree_sharded import ShardedDegreeSpMM
 from dorylus_tpu_torch.ops.hyb_sharded import ShardedHybSpMM
 from dorylus_tpu_torch.ops.reuse_sharded import ShardedReuseSpMM, exchange_rank1_factor
@@ -370,22 +369,27 @@ class ShardedEngine:
             epoch_mode(self.graph_refusal))
 
     _graphs = None  # the engine's EpochGraphs, on the card
+    # No training step hands back val stats (engine.py `folds_evals`): they
+    # sum over the graph group, which the step's all-reduce does not carry.
+    fold_evals = False
 
-    def _stats(self, mask: torch.Tensor) -> torch.Tensor:
-        """(3,) on the device: correct, loss, count over the masked rows of
-        every shard (each shard once: summed over the graph group)."""
+    def _stats(self, masks: tuple) -> torch.Tensor:
+        """(len(masks), 3) on the device: correct, loss, count over each
+        mask's rows of every shard (each shard once: summed over the graph
+        group, in one all-reduce)."""
         with torch.no_grad():
-            probs = row_softmax(self.model.forward(self.batch, halo=self.halo))
-            stats = torch.stack(accuracy_and_loss(probs, self.batch.onehot, mask))
+            stats = masked_stats(self.model.forward(self.batch, halo=self.halo),
+                                 self.batch.onehot, masks)
             return multihost.all_reduce_sum(stats, self.mesh.graph_group)
 
     def _train_epoch(self, lr: float | None, stale: Optional[dict] = None,
-                     lr_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     lr_t: Optional[torch.Tensor] = None, val: bool = False) -> tuple:
         """One update on every rank; the gradients are taken at `stale`
         (the staleness window's oldest copy) when given, else at the
         current params. lr_t: a 0-dim device tensor that holds the step's
         rate (Adam's bias-corrected lr_t, SGD's lr), in place of lr (a
-        captured epoch)."""
+        captured epoch). Returns (the loss, None): `val` is never set here
+        (`fold_evals`)."""
         cfg = self.cfg
         at = self.params if stale is None else stale
         loss = self.model.loss(self.batch, self.compute_dtype, self.halo, params=stale)
@@ -408,7 +412,7 @@ class ShardedEngine:
                 beta2=cfg.beta2, eps=cfg.eps, weight_decay=cfg.weight_decay, lr_t=lr_t)
         else:
             self.params = sgd_update(self.params, grads, lr if lr_t is None else lr_t)
-        return pieces[-1][0]
+        return pieces[-1][0], None
 
     def _dispatch(self, lrs: list, flags: np.ndarray, window) -> tuple:
         return dispatch_group(self, lrs, flags, window)

@@ -62,8 +62,9 @@ class Rerun(graphs._Graph):
     eng = None
     guard = False
     made = 0
+    pool = None
 
-    def __init__(self, body):
+    def __init__(self, body, pool=None):
         Rerun.made += 1
         self.body, self.added = body, []
 

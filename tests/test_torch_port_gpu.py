@@ -1399,14 +1399,14 @@ def test_a_failed_capture_raises(cuda):
     """A host read inside the captured epoch fails the capture, and run()
     raises: nothing falls back to the eager loop."""
     graphed, _ = _graph_engines(cuda, "hyb gcn", 0)
-    loss = graphed.model.loss
+    loss = graphed.model.loss_and_logits  # what the training step calls
 
     def loss_with_a_host_read(*args, **kw):
         out = loss(*args, **kw)
-        float(out)  # a device wait: refused while the stream is captured
+        float(out[0])  # a device wait: refused while the stream is captured
         return out
 
-    graphed.model.loss = loss_with_a_host_read
+    graphed.model.loss_and_logits = loss_with_a_host_read
     with pytest.raises(RuntimeError):
         graphed.run()
 

@@ -286,7 +286,7 @@ def test_capture_counts_are_added_per_replay(monkeypatch):
             pass
 
     monkeypatch.setattr(torch.cuda, "CUDAGraph", Recorded)
-    monkeypatch.setattr(torch.cuda, "graph", lambda g: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph", lambda g, pool=None: contextlib.nullcontext())
     monkeypatch.setattr(hyb_spmm, "KERNEL_LAUNCHES", 5)
     tally = {"K1 64": 1}
     monkeypatch.setattr(graphs, "LAUNCH_TALLIES", [tally])

@@ -227,10 +227,10 @@ def test_engine_leaves_the_span_tree(program):
     for child in ("engine.dispatch", "engine.group_read", "engine.group_records"):
         assert pairs.count((child, "engine.group")) == 3, child
     assert pairs.count(("engine.run_end", "engine.run")) == 1
-    assert pairs.count(("engine.final_eval", "engine.run_end")) == 2
+    assert pairs.count(("engine.final_eval", "engine.run_end")) == 1
     assert pairs.count(("engine.report", "engine.run_end")) == 1
-    assert [r["attrs"]["mask"] for r in recs if r["name"] == "engine.final_eval"] == \
-        ["val", "test"]
+    # the run's last epoch was evaluated: its eval's stats are the final ones
+    assert [r["attrs"]["folded"] for r in recs if r["name"] == "engine.final_eval"] == [True]
     agg = program.spans()
     assert agg["engine.run"]["count"] == 1 and agg["engine.group"]["count"] == 3
     build = agg["engine.build"]
@@ -285,7 +285,10 @@ def test_report_file_carries_the_spans(program, tmp_path):
     spans = out["notes"]["spans"]
     assert spans["engine.run"]["count"] == 1 and spans["engine.build"]["count"] == 1
     assert set(spans["engine.group"]) == {"count", "total_s", "self_s"}
-    assert out["notes"]["counters"] == {"probe.count": 2}
+    # one group of three evaluated epochs: two read off the next training
+    # forward, one eval forward, whose stats serve both final evals
+    assert out["notes"]["counters"] == {"engine.eval_forwards": 1, "engine.evals_folded": 4,
+                                        "probe.count": 2}
     assert out["notes"]["gauges"]["hyb.edges"] == eng.graph.num_edges
     # to_json is the JAX package's, unchanged: no record there
     assert "spans" not in json.loads(eng.report.to_json())["notes"]
