@@ -3,15 +3,21 @@ LayerConfig, TrainConfig, device)`, then repeated `Engine.run(k)`.
 
 Set-up (timed from the process's start): the inputs from the seed, the
 `Graph` and its `finalize`, the `Engine` with the seed's weights copied in,
-then the checked steps through the window's own call: `run(1)` (the eager
-first epoch and the capture of the epoch graphs), then one `run(1)` for each
-further step, a replay of the captured train and eval graphs.
-Their losses and eval stats are read from what each group returns, the first
-gradient from Adam's first moment after one step, the change of the
-parameters after the last. The same engine then runs the window: whole
+then the checked epochs through the window's own call: `run(1)` (the eager
+first epoch and the capture of the epoch graphs), one `run(1)` for each
+further step (a replay of the captured train and eval graphs), then one
+`run(2)`: a group as the window's, whose first epoch replays the train
+graph and whose second the measuring train graph, which hands back the
+first's val stats, before the eval graph. Each epoch's loss, the eval
+logits of each group's last epoch and the val stats the group returns for
+each other epoch are read from what the groups return, the first gradient
+from Adam's first moment after one step, and the parameters and moments
+after each epoch are copied on the device between the epochs and to the
+host after each group. The same engine then runs the window: whole
 `run(k)` calls, each ending in its host read, until `seconds` have passed.
 After the window the peak memory is read, the program is freed, and the
-plain reference follows the checked steps from the same inputs.
+plain reference takes each checked epoch from the state the program
+started it from, on the same inputs (`check`).
 """
 
 from __future__ import annotations
@@ -102,26 +108,52 @@ class EvalTap:
 
 
 class Recorder:
-    """Passes the engine's group dispatch through and keeps what each
-    one-epoch group produced: its loss, and the validation rows of its eval
-    logits (from the eager eval in the group that captured the graphs, from
-    the replayed eval graph after that)."""
+    """Passes the engine's group dispatch through and keeps, for each epoch
+    of the checked groups: its loss; the parameters and Adam moments after
+    it (copied on the device as its step returns, so that the group's
+    epochs run on with no host read between them, then to the host); and
+    what evaluates the parameters it left: the validation rows of the eval
+    logits where it is its group's last epoch (from the eager eval in the
+    group that captured the graphs, from the replayed eval graph after
+    that), else the val stats (correct, loss sum, count) the group returns
+    for it (where the group folds, the next epoch's training forward's)."""
 
     def __init__(self, eng):
         self.eng, self.dispatch, self.tap = eng, eng._dispatch, EvalTap(eng.model)
         self.val = eng.batch.val_mask > 0
-        self.losses, self.evals = [], []
+        self.losses, self.evals, self.val_stats = [], [], []
+        self.states = [reference.on_cpu(state_of(eng))]
 
     def __call__(self, lrs, flags, window):
-        graphs = self.eng._graphs
+        eng, graphs = self.eng, self.eng._graphs
+        if not all(flags):
+            raise ValueError("the checked epochs are evaluated epochs")
         captures = graphs.captures if graphs is not None else 0
-        losses, stats = self.dispatch(lrs, flags, window)
-        if len(lrs) != 1 or not flags[0]:
-            raise ValueError("the checked steps run one evaluated epoch a group")
+        # each epoch's step: the graphs' (eager, capture or replay) on the
+        # card, the engine's own on the CPU
+        owner, name = (graphs, "_train") if graphs is not None else (eng, "_train_epoch")
+        step, kept = getattr(owner, name), []
+
+        def stepped(*args, **kwargs):
+            out = step(*args, **kwargs)
+            kept.append({part: {k: x.detach().clone() for k, x in leaves.items()}
+                         for part, leaves in state_of(eng).items()})
+            return out
+
+        setattr(owner, name, stepped)
+        try:
+            losses, stats = self.dispatch(lrs, flags, window)
+        finally:
+            delattr(owner, name)
+        k = len(lrs)
+        if len(kept) != k:
+            raise ValueError(f"a group of {k} epochs took {len(kept)} steps")
         replayed = graphs is not None and graphs.captures == captures
         logits = self.tap.captured if replayed else self.tap.eager
         self.losses += losses.tolist()
-        self.evals.append(logits[self.val].cpu())
+        self.states += [reference.on_cpu(s) for s in kept]
+        self.evals += [None] * (k - 1) + [logits[self.val].cpu()]
+        self.val_stats += [stats[i, 0].cpu() for i in range(k - 1)] + [None]
         return losses, stats
 
     def remove(self) -> None:
@@ -129,26 +161,45 @@ class Recorder:
         del self.eng._dispatch
 
 
+def state_of(eng: Engine) -> dict:
+    """The program's parameters and Adam moments, as it holds them."""
+    st = eng.opt_state
+    return {"params": eng.params, "m": st.m, "v": st.v}
+
+
+# The epochs of the last checked group: a group as the window runs them,
+# whose first epoch replays the train graph and whose second the measuring
+# one, which hands back the first's val stats.
+FOLDED_GROUP = 2
+
+
+def checked_epochs(steps: int) -> list[bool]:
+    """For each epoch `first_steps(eng, steps)` checks, whether its eval is
+    the val stats its group returns for it (True) or the eval logits
+    (False)."""
+    return [False] * steps + [True] * (FOLDED_GROUP - 1) + [False]
+
+
 def first_steps(eng: Engine, steps: int) -> tuple[dict, float]:
-    """The checked steps, each a run(1) (the first also the eager first
-    epoch and the capture): the program's readings (as
-    `reference.gnn.train` returns them) and the seconds of the first run(),
-    synchronised."""
+    """The checked epochs: `steps` run(1) calls (the first also the eager
+    first epoch and the capture), then one run(FOLDED_GROUP). Returns the
+    program's readings, {"losses", "evals" (the val logits, None where the
+    val stats are read), "val_stats" (None where the logits are read),
+    "grad1", "states": the parameters and moments each epoch started from,
+    then the last's end}, and the seconds of the first run(), synchronised."""
     rec = eng._dispatch = Recorder(eng)
-    start = {k: p.detach().clone() for k, p in eng.params.items()}
     t = time.perf_counter()
     eng.run(1)
     sync(eng.device)
     capture_s = time.perf_counter() - t
-    beta1 = eng.cfg.beta1
-    grad1 = {k: (m / (1.0 - beta1)).cpu() for k, m in eng.opt_state.m.items()}
-    deltas = []
-    for step in range(steps):
-        if step:
-            eng.run(1)
-        deltas.append({k: (p.detach() - start[k]).cpu() for k, p in eng.params.items()})
+    for _ in range(steps - 1):
+        eng.run(1)
+    eng.run(FOLDED_GROUP)
     rec.remove()
-    return {"losses": rec.losses, "evals": rec.evals, "grad1": grad1, "deltas": deltas}, capture_s
+    beta1 = eng.cfg.beta1
+    grad1 = {k: m / (1.0 - beta1) for k, m in rec.states[1]["m"].items()}
+    return {"losses": rec.losses, "evals": rec.evals, "val_stats": rec.val_stats,
+            "grad1": grad1, "states": rec.states}, capture_s
 
 
 def window(eng: Engine, seconds: float, k: int) -> tuple[float, int, int]:
@@ -163,13 +214,36 @@ def window(eng: Engine, seconds: float, k: int) -> tuple[float, int, int]:
             return time.perf_counter() - t0, epochs, runs
 
 
-def reference_steps(cell: Cell, inp: Inputs, device: torch.device, **kw) -> dict:
-    c, opt = cell.config, cell.config["optimizer"]
-    return reference.train(c["model"], inp.src, inp.dst, inp.features, inp.labels,
-                           inp.split_ids, inp.weights, steps=int(cell.traffic["check_steps"]),
-                           lr=c["learning_rate"], beta1=opt["beta1"], beta2=opt["beta2"],
-                           eps=opt["eps"], gather_dtype=GATHER_ROUNDING[c["agg_dtype"]],
-                           device=device, **kw)
+def problem(cell: Cell, inp: Inputs, device: torch.device) -> reference.Problem:
+    return reference.Problem(cell.config["model"], inp.src, inp.dst, inp.features, inp.labels,
+                             inp.split_ids, gather_dtype=GATHER_ROUNDING[cell.config["agg_dtype"]],
+                             device=device)
+
+
+def adam_args(cell: Cell) -> dict:
+    """The configuration's Adam, as the reference's steps take it."""
+    opt = cell.config["optimizer"]
+    return {"lr": cell.config["learning_rate"], "beta1": opt["beta1"], "beta2": opt["beta2"],
+            "eps": opt["eps"]}
+
+
+def reference_train(cell: Cell, prob: reference.Problem, inp: Inputs, **kw) -> dict:
+    """The reference's own trajectory over the checked epochs from the
+    seed's weights (kw: `reference.train`'s tf32, stale_rate,
+    keep_moments)."""
+    steps = len(checked_epochs(int(cell.traffic["check_steps"])))
+    return reference.train(prob, inp.weights, steps=steps, **adam_args(cell), **kw)
+
+
+def run_of(cell: Cell, prob: reference.Problem, traj: dict, evals: list | None = None) -> dict:
+    """A reference trajectory put in the program's place: its readings as
+    `first_steps` gives the program's, the eval of each epoch from `evals`
+    (the trajectory's logits after each step by default) as logits or, where
+    the program's group hands back val stats, as val stats."""
+    evals = traj["evals"] if evals is None else evals
+    folded = checked_epochs(int(cell.traffic["check_steps"]))
+    return dict(traj, evals=[None if f else e for f, e in zip(folded, evals)],
+                val_stats=[prob.val_stats(e) if f else None for f, e in zip(folded, evals)])
 
 
 def log(msg: str) -> None:
@@ -210,7 +284,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: torch.d
     del eng
     free(device)
     t = time.perf_counter()
-    ref = reference_steps(cell, inp, device)
+    ref = reference.follow(problem(cell, inp, device), prog["states"], **adam_args(cell))
     log(f"window {wall:.3f} s, {epochs} epochs in {runs} runs; reference "
         f"{time.perf_counter() - t:.2f} s")
     log(f"delta_gap over the leaves {', '.join(check.kept_leaves(ref['grad1']))}")

@@ -3,8 +3,8 @@ could take for the window's aggregations, over the time its slot-pass
 kernels took, in %. The bound counts each input byte once (the int32
 indices, the edge values where GCN has them, the gathered table at the
 configuration's gather dtype, the row offsets) and each float32 output byte
-once, from the graph's V and E and the widths (perfbench/work.py). Moves
-epoch_ms."""
+once, from the graph's V and E and the widths, for each epoch's training
+passes and one eval forward a run (perfbench/work.py). Moves epoch_ms."""
 
 import re
 

@@ -1,8 +1,9 @@
 """matmul_roofline (dense layers, device trace): the least time the card
 could take for the window's layer matmuls (forward, weight gradient, input
-gradient past the first layer; float32 at 67 TFLOP/s with TF32 off, or
-their bytes at 3.35 TB/s, whichever bounds), over the time of its GEMM and
-GEMV kernels, in %. GAT's attention products are left out of the bound.
+gradient past the first layer, GAT's attention products z @ a, d(za) a^T
+and z^T d(za); each epoch's and one eval forward's a run; float32 at 67
+TFLOP/s with TF32 off, or their bytes at 3.35 TB/s, whichever bounds;
+perfbench/work.py), over the time of its GEMM and GEMV kernels, in %.
 Moves epoch_ms."""
 
 import re

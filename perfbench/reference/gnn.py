@@ -21,12 +21,20 @@ Semantics (the Dorylus reference, src/graph-server and funcs/):
        h_v = z_v + e_v * sum_{u->v} z_u; no hidden activation.
   loss = sum over train rows of -log softmax(logits)[label] / (V * 0.66).
   Adam lr_t = lr sqrt(1 - b2^t) / (1 - b1^t); m, v; w -= lr_t m / (sqrt(v) + eps).
-  eval = the forward's logits on the validation rows, after each step.
+  eval = the forward's logits on the validation rows, after each step, and
+       their val stats: the rows whose first argmax is the label, the loss
+       sum, -log softmax[label] clamped at 1e-30, and the rows.
+
+`adam_step` is one step from a given state (parameters and moments) as a
+given step t; `train` chains it from the seed's weights (the reference's
+own trajectory), `follow` takes it from each state a run started a step
+from (the one-step check).
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
 
 import numpy as np
@@ -137,52 +145,135 @@ def split_masks(split_ids: np.ndarray, v: int) -> tuple[np.ndarray, np.ndarray]:
     return split_ids < train_end, (split_ids >= train_end) & (split_ids < val_end)
 
 
-def train(model: str, src: np.ndarray, dst: np.ndarray, features: np.ndarray,
-          labels: np.ndarray, split_ids: np.ndarray, weights: dict, *, steps: int,
-          lr: float, beta1: float, beta2: float, eps: float, gather_dtype,
-          device: torch.device, tf32: bool = False,
-          train_mask: np.ndarray | None = None, denom: float | None = None) -> dict:
-    """`steps` full-graph Adam steps from `weights`, each followed by the
-    eval forward. Returns {"losses": [step loss], "grad1": {leaf: the
-    first step's gradient}, "deltas": [{leaf: params after each step
-    minus before the first}], "evals": [the eval forward's logits on the
-    validation rows after each step], "eval0": the same before the first},
-    tensors on the CPU. train_mask / denom replace the split's train rows
-    and V * 0.66 (a fault planted for calibration)."""
-    v = features.shape[0]
-    graph = RefGraph(src, dst, v, device)
-    x = torch.as_tensor(features, device=device).float()
-    y = torch.as_tensor(labels, device=device).long()
-    tr, va = split_masks(split_ids, v)
-    if train_mask is not None:
-        tr = train_mask
-    tr = torch.as_tensor(tr, device=device).float()
-    va = torch.as_tensor(va, device=device)
-    den = float(np.float32(v * TRAIN_PORTION)) if denom is None else denom
-    params = {k: w.to(device).float().clone().requires_grad_(True) for k, w in weights.items()}
-    start = {k: p.detach().clone() for k, p in params.items()}
-    m = {k: torch.zeros_like(p) for k, p in params.items()}
-    s = {k: torch.zeros_like(p) for k, p in params.items()}
-    out = {"losses": [], "deltas": [], "evals": []}
+class Problem:
+    """The inputs on the device as a step reads them: the graph, the
+    features, the labels, the training rows (each weighted 1 / denom,
+    denom = V * 0.66) and the validation rows."""
 
-    def evaluate() -> torch.Tensor:
+    def __init__(self, model: str, src: np.ndarray, dst: np.ndarray, features: np.ndarray,
+                 labels: np.ndarray, split_ids: np.ndarray, *, gather_dtype,
+                 device: torch.device):
+        v = features.shape[0]
+        self.model, self.gather_dtype, self.device = model, gather_dtype, device
+        self.graph = RefGraph(src, dst, v, device)
+        self.x = torch.as_tensor(features, device=device).float()
+        self.y = torch.as_tensor(labels, device=device).long()
+        tr, va = split_masks(split_ids, v)
+        self.train_rows = torch.as_tensor(tr, device=device).float()
+        self.val_rows = torch.as_tensor(va, device=device)
+        self.denom = float(np.float32(v * TRAIN_PORTION))
+
+    def with_train_rows(self, train_mask: np.ndarray, denom: float) -> "Problem":
+        """The same inputs with other training rows and denominator (a fault
+        planted for calibration)."""
+        other = copy.copy(self)
+        other.train_rows = torch.as_tensor(train_mask, device=self.device).float()
+        other.denom = denom
+        return other
+
+    def loss_and_grads(self, params: dict) -> tuple[float, dict]:
+        leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+        out = logits(self.model, leaves, self.x, self.graph, self.gather_dtype)
+        loss = (row_nll(out, self.y) * self.train_rows).sum() / self.denom
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return float(loss.detach()), {k: g.detach() for k, g in zip(leaves, grads)}
+
+    def evaluate(self, params: dict) -> torch.Tensor:
+        """The eval forward's logits on the validation rows, on the CPU."""
         with torch.no_grad():
-            return logits(model, params, x, graph, gather_dtype)[va].cpu()
+            p = {k: t.to(self.device) for k, t in params.items()}
+            return logits(self.model, p, self.x, self.graph, self.gather_dtype)[self.val_rows].cpu()
 
+    def val_stats(self, val_logits: torch.Tensor) -> torch.Tensor:
+        """(correct, loss sum, rows) of the validation rows' logits, in
+        float64, as the program's val stats are laid out: correct counts the
+        rows whose first largest logit is the label's."""
+        z = val_logits.double()
+        y = self.y[self.val_rows].cpu()
+        first = torch.where(z == z.amax(-1, keepdim=True), torch.arange(z.shape[1]),
+                            z.shape[1]).amin(-1)
+        p_true = torch.softmax(z, dim=-1).gather(1, y[:, None])[:, 0]
+        return torch.stack([(first == y).sum().double(),
+                            -torch.log(p_true.clamp_min(1e-30)).sum(),
+                            torch.tensor(float(y.shape[0]), dtype=torch.float64)])
+
+
+def adam_step(problem: Problem, state: dict, t: int, *, lr: float, beta1: float,
+              beta2: float, eps: float, rate_step: int | None = None) -> dict:
+    """One full-graph Adam step as step t, from `state` ({"params", "m",
+    "v"}: leaf -> tensor, on any device; left as it is). Returns {"loss":
+    the loss on the given parameters, "grad": the gradient, "state": the
+    new parameters and moments, on the device}. rate_step: the step whose
+    bias-corrected rate the update takes (t; another is a fault planted for
+    calibration)."""
+    params, m, v = ({k: x.to(problem.device).float().clone() for k, x in state[part].items()}
+                    for part in ("params", "m", "v"))
+    loss, grads = problem.loss_and_grads(params)
+    r = t if rate_step is None else rate_step
+    lr_t = lr * math.sqrt(1.0 - beta2 ** r) / (1.0 - beta1 ** r)
+    with torch.no_grad():
+        for k, p in params.items():
+            g = grads[k]
+            m[k].mul_(beta1).add_(g, alpha=1.0 - beta1)
+            v[k].mul_(beta2).add_(g * g, alpha=1.0 - beta2)
+            p.sub_(lr_t * m[k] / (v[k].sqrt() + eps))
+    return {"loss": loss, "grad": grads, "state": {"params": params, "m": m, "v": v}}
+
+
+def on_cpu(state: dict) -> dict:
+    return {part: {k: x.detach().to("cpu", copy=True) for k, x in leaves.items()}
+            for part, leaves in state.items()}
+
+
+def train(problem: Problem, weights: dict, *, steps: int, lr: float, beta1: float,
+          beta2: float, eps: float, tf32: bool = False, stale_rate: bool = False,
+          keep_moments: bool = False) -> dict:
+    """`steps` full-graph Adam steps from `weights` (`adam_step` from each
+    step's end, the first from the weights and zero moments), each followed
+    by the eval forward. Returns {"losses": [step loss], "grad1": {leaf: the
+    first step's gradient}, "evals": [the eval forward's logits on the
+    validation rows after each step], "eval0": the same before the first,
+    "states": [the state each step starts from, then the last's end]},
+    tensors on the CPU. Faults planted for calibration: stale_rate, every
+    step at step 1's rate; keep_moments, the moments each step after the
+    first computes not kept (the next starts from the old ones)."""
+    params = {k: w.float() for k, w in weights.items()}
+    zeros = {k: torch.zeros_like(p) for k, p in params.items()}
+    state = {"params": params, "m": zeros, "v": zeros}
+    out = {"losses": [], "evals": [], "states": [on_cpu(state)]}
     with matmul_precision(tf32):
-        out["eval0"] = evaluate()
+        out["eval0"] = problem.evaluate(state["params"])
         for t in range(1, steps + 1):
-            loss = (row_nll(logits(model, params, x, graph, gather_dtype), y) * tr).sum() / den
-            grads = torch.autograd.grad(loss, list(params.values()))
-            out["losses"].append(float(loss.detach()))
+            r = adam_step(problem, state, t, lr=lr, beta1=beta1, beta2=beta2, eps=eps,
+                          rate_step=1 if stale_rate else t)
+            if keep_moments and t > 1:
+                r["state"].update(m=state["m"], v=state["v"])
+            state = r["state"]
+            out["losses"].append(r["loss"])
             if t == 1:
-                out["grad1"] = {k: g.detach().cpu() for k, g in zip(params, grads)}
-            lr_t = lr * math.sqrt(1.0 - beta2 ** t) / (1.0 - beta1 ** t)
-            with torch.no_grad():
-                for (k, p), g in zip(params.items(), grads):
-                    m[k].mul_(beta1).add_(g, alpha=1.0 - beta1)
-                    s[k].mul_(beta2).add_(g * g, alpha=1.0 - beta2)
-                    p.sub_(lr_t * m[k] / (s[k].sqrt() + eps))
-            out["deltas"].append({k: (p.detach() - start[k]).cpu() for k, p in params.items()})
-            out["evals"].append(evaluate())
+                out["grad1"] = {k: g.cpu() for k, g in r["grad"].items()}
+            out["states"].append(on_cpu(state))
+            out["evals"].append(problem.evaluate(state["params"]))
+    return out
+
+
+def follow(problem: Problem, states: list, *, lr: float, beta1: float, beta2: float,
+           eps: float) -> dict:
+    """The reference's step t from each state a run started step t from
+    (states[t - 1]; states[t] holds the run's state after it), as the run's
+    own count says, in float32: {"losses": [the loss on the run's
+    parameters], "grad1": the first step's gradient, "after": [the state
+    the step leaves: parameters and moments], "evals": [the eval forward's
+    logits on the validation rows of the run's parameters after the step],
+    "val_stats": [their `Problem.val_stats`]}, on the CPU."""
+    out = {"losses": [], "after": [], "evals": [], "val_stats": []}
+    with matmul_precision(False):
+        for t in range(1, len(states)):
+            r = adam_step(problem, states[t - 1], t, lr=lr, beta1=beta1, beta2=beta2, eps=eps)
+            out["losses"].append(r["loss"])
+            if t == 1:
+                out["grad1"] = {k: g.cpu() for k, g in r["grad"].items()}
+            out["after"].append(on_cpu(r["state"]))
+            out["evals"].append(problem.evaluate(states[t]["params"]))
+            out["val_stats"].append(problem.val_stats(out["evals"][-1]))
     return out

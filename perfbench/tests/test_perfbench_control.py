@@ -1,17 +1,18 @@
 """The control, on the card: the plain reference put in the program's place
 and computed a step below the configuration's precision (its float32
-matmuls in TF32), against the reference in float32, comes out not correct
-under each cell's limits, while the program's checked steps come out
-correct. At a size a test run holds: the Reddit widths over 40,000 vertices
-and 2,000,000 edges. The cell-size readings are in PERF.md; they were made
-by perfbench/calibrate.py."""
+matmuls in TF32), each of its epochs against the float32 reference's step
+from the same state, comes out not correct under each cell's limits, while
+the program's checked epochs come out correct. At a size a test run holds:
+the Reddit widths over 40,000 vertices and 2,000,000 edges. The cell-size
+readings are in PERF.md; they were made by perfbench/calibrate.py."""
 
 import pytest
-import torch
 
 from perfbench import check
-from perfbench.harness import build_engine, first_steps, free, reference_steps
+from perfbench.harness import (adam_args, build_engine, first_steps, free, problem,
+                               reference_train, run_of)
 from perfbench.inputs import make_inputs
+from perfbench.reference.gnn import follow
 
 pytestmark = pytest.mark.gpu
 
@@ -26,7 +27,8 @@ def test_control_fails_and_program_passes(tiny_cell, cuda, limits):
         prog, _ = first_steps(eng, 3)
         del eng
         free(cuda)
-        ref = reference_steps(cell, inp, cuda)
-        control = reference_steps(cell, inp, cuda, tf32=True)
-        assert check.judge(check.readings(prog, ref), cell.limits)[0]
-        assert not check.judge(check.readings(control, ref), cell.limits)[0]
+        prob = problem(cell, inp, cuda)
+        control = run_of(cell, prob, reference_train(cell, prob, inp, tf32=True))
+        for side, correct in ((prog, True), (control, False)):
+            ref = follow(prob, side["states"], **adam_args(cell))
+            assert check.judge(check.readings(side, ref), cell.limits)[0] is correct

@@ -39,11 +39,13 @@ def test_epoch_ops_by_hand(model):
     aggregates x W0 at 2, whose gradient flows back; layer 1 (2 -> 2)
     aggregates its input h at 2, which has a gradient (l > 0). GAT
     aggregates z at 2 in both. So 2 aggregations forward, 2 backward, 2 in
-    the eval; matmuls: 2 forward, dW0, dW1 and dH1, 2 in the eval."""
+    the eval; matmuls: 2 forward, dW0, dW1 and dH1, 2 in the eval; GAT's
+    attention adds z @ a a layer forward and in the eval, and d(za) a^T and
+    z^T d(za) a layer backward: 8 more."""
     cfg = dict(TINY, model=model)
     ops = work.forward_ops(cfg, 6) + work.backward_ops(cfg, 6) + work.forward_ops(cfg, 6, "eval")
     assert sum(op.kind == "aggregate" for op in ops) == 6
-    assert sum(op.kind == "matmul" for op in ops) == 7
+    assert sum(op.kind == "matmul" for op in ops) == (7 if model == "gcn" else 15)
     assert all(op.bytes > 0 and op.flops > 0 for op in ops)
 
 
@@ -53,11 +55,34 @@ def test_gcn_widening_first_layer_has_no_backward_aggregation():
     assert "bwd.agg0" not in names and "bwd.agg1" in names
 
 
+def test_gat_attention_products_by_hand():
+    """V = 4, layer widths 2 and 2: a layer's z @ a is (4, 2) @ (2, 1),
+    16 operations; d(za) a^T is (4, 1) @ (1, 2), 16; z^T d(za) is (2, 4) @
+    (4, 1), 16; each f32, its inputs read and its output written once."""
+    cfg = dict(TINY, model="gat")
+    fwd = {op.name: op for op in work.attention_ops(cfg, "fwd")}
+    bwd = {op.name: op for op in work.attention_ops(cfg, "bwd")}
+    assert sorted(fwd) == ["fwd.att0", "fwd.att1"]
+    assert sorted(bwd) == ["bwd.da0", "bwd.da1", "bwd.dz_att0", "bwd.dz_att1"]
+    assert fwd["fwd.att0"].flops == 2 * 4 * 2 * 1 and fwd["fwd.att0"].bytes == (8 + 2 + 4) * 4
+    assert bwd["bwd.dz_att0"].flops == 2 * 4 * 1 * 2 and bwd["bwd.dz_att0"].bytes == (4 + 2 + 8) * 4
+    assert bwd["bwd.da0"].flops == 2 * 2 * 4 * 1 and bwd["bwd.da0"].bytes == (8 + 4 + 2) * 4
+    assert all(op.kind == "matmul" for op in [*fwd.values(), *bwd.values()])
+    assert work.attention_ops(TINY, "fwd") == [] and work.attention_ops(TINY, "bwd") == []
+    names = [op.name for op in work.forward_ops(cfg, 6, "eval") + work.backward_ops(cfg, 6)]
+    assert {"eval.att0", "eval.att1", "bwd.da1", "bwd.dz_att1"} <= set(names)
+
+
 def test_window_counts_each_runs_final_evals():
-    counted = work.window_ops(TINY, TRAFFIC, epochs=4, runs=2)
-    n = {op.name: k for op, k in counted}
-    assert n["fwd.agg0"] == 4 and n["bwd.dw0"] == 4
-    assert n["eval.agg0"] == 2 * (2 + 2)  # two evaluated epochs and two finals a run
+    """One eval forward a run(k), whatever eval_every says: each evaluated
+    epoch's weights are what the next epoch's training forward reads, and
+    the run's last weights need one forward, for the final stats."""
+    for every in (1, 3, 0):
+        counted = work.window_ops(TINY, dict(TRAFFIC, eval_every=every), epochs=4, runs=2)
+        n = {op.name: k for op, k in counted}
+        assert n["fwd.agg0"] == 4 and n["bwd.dw0"] == 4 and n["bwd.agg1"] == 4
+        assert n["eval.agg0"] == n["eval.agg1"] == n["eval.mm0"] == 2
+        assert len(counted) == len(n)
 
 
 class FakeTrace:
@@ -80,16 +105,19 @@ class FakeTrace:
         return 0.0
 
 
-@pytest.mark.parametrize("cell", ["gcn-reddit.full", "gcn-reddit.sparse"])
+@pytest.mark.parametrize("cell", ["gcn-reddit.full", "gcn-reddit.sparse", "gat"])
 @pytest.mark.parametrize("metric", ["gather_roofline", "matmul_roofline", "step_mfu"])
 def test_shares_fed_the_bound_read_100(cell, metric):
-    c = Cell(cell)
+    """Each cell's, and GAT's configuration on the full traffic."""
+    c = Cell("gcn-reddit.full" if cell == "gat" else cell)
+    config = dict(c.config, model="gat") if cell == "gat" else c.config
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     assert any(m["name"] == metric and m["unit"] == "%" for m in bench["per_layer"])
 
     class Ctx:
-        config, traffic = c.config, c.traffic
-        trace = FakeTrace(c.config, c.traffic, epochs=700, runs=14)
+        traffic = c.traffic
+    Ctx.config = config
+    Ctx.trace = FakeTrace(config, c.traffic, epochs=700, runs=14)
 
     value = c.metric_reader(metric)(Ctx())
     assert math.isclose(value, 100.0, rel_tol=1e-9) and value <= 100.0 + 1e-9

@@ -10,9 +10,8 @@ output byte written once.
 
 Per epoch: each layer's aggregation forward, its backward where a gradient
 flows through it, each layer's matmul forward, its weight gradient and, past
-the first layer, its input gradient; and the eval forward. A `run(k)` call
-of the engine adds two more eval forwards after its epochs, the final
-validation and test accuracies (`window_ops`).
+the first layer, its input gradient; GAT's attention products besides. Per
+`run(k)` call: one eval forward (`window_ops`).
 """
 
 from __future__ import annotations
@@ -69,13 +68,27 @@ def _agg(config: dict, edges: int, name: str, width: int) -> Op:
     return aggregation(name, edges, v, v, width, config["agg_dtype"], val)
 
 
+def attention_ops(config: dict, tag: str) -> list[Op]:
+    """GAT's attention products of each layer, z (V, F) and a (F, 1):
+    forward za = z @ a; backward d(z) += d(za) a^T and d(a) = z^T d(za)."""
+    if config["model"] != "gat":
+        return []
+    v, ops = int(config["num_vertices"]), []
+    for l, fout in enumerate(config["dims"][1:]):
+        if tag == "bwd":
+            ops += [matmul(f"bwd.dz_att{l}", v, 1, fout), matmul(f"bwd.da{l}", fout, v, 1)]
+        else:
+            ops.append(matmul(f"{tag}.att{l}", v, fout, 1))
+    return ops
+
+
 def forward_ops(config: dict, edges: int, tag: str = "fwd") -> list[Op]:
     v, dims = int(config["num_vertices"]), config["dims"]
     ops = []
     for l, (fin, fout) in enumerate(zip(dims, dims[1:])):
         ops.append(_agg(config, edges, f"{tag}.agg{l}", agg_width(config, fin, fout)))
         ops.append(matmul(f"{tag}.mm{l}", v, fin, fout))
-    return ops
+    return ops + attention_ops(config, tag)
 
 
 def backward_ops(config: dict, edges: int) -> list[Op]:
@@ -90,24 +103,19 @@ def backward_ops(config: dict, edges: int) -> list[Op]:
         ops.append(matmul(f"bwd.dw{l}", fin, v, fout))
         if l > 0:
             ops.append(matmul(f"bwd.dh{l}", v, fout, fin))
-    return ops
-
-
-def evals_per_run(k: int, every: int) -> int:
-    """Epochs of a run(k) that evaluate: every `every`-th and the last."""
-    if not every:
-        return 0
-    return sum(1 for ep in range(k) if ep % every == 0 or ep == k - 1)
+    return ops + attention_ops(config, "bwd")
 
 
 def window_ops(config: dict, traffic: dict, epochs: int, runs: int) -> list[tuple[Op, int]]:
     """(op, count) over a window of `runs` run(k) calls, `epochs` in all:
-    each epoch's forward and backward, its evals, and each run's two final
-    eval forwards."""
-    edges, k = int(traffic["edges"]), int(traffic["epochs_per_run"])
-    evals = runs * (evals_per_run(k, int(traffic["eval_every"])) + 2)
+    each epoch's training forward and backward, and one eval forward a run.
+    One forward per state of the weights: an evaluated epoch's weights are
+    what the next epoch's training forward reads, so their stats need no
+    forward of their own; the run's last weights are read by none, and
+    their forward gives the run's final validation and test stats."""
+    edges = int(traffic["edges"])
     train = forward_ops(config, edges) + backward_ops(config, edges)
-    return [(op, epochs) for op in train] + [(op, evals) for op in forward_ops(config, edges, "eval")]
+    return [(op, epochs) for op in train] + [(op, runs) for op in forward_ops(config, edges, "eval")]
 
 
 def bound_s(counted: list[tuple[Op, int]], kind: str | None = None) -> float:
